@@ -1,0 +1,516 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--rows N] [--seed S] [--batches N]
+
+Phases (any failure raises and the exit code is not 0):
+
+1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
+   build of every CUDA source under vectorlite_tpu_torch/csrc (one nvcc
+   per source, all started together).
+2. Kernels against their plain-torch versions on the card: K1 on f32 and
+   bf16 rows, with k > 32 (shared-memory lists) and k > 256 (lists in the
+   output), K2, K3 on f32, bf16 and int8 rows (three metrics), K4 on f32
+   and bf16 rows, at N=65,536 x 384, B=64, and at an odd shape (8,192 x
+   100, B=5). Then each kernel at the main-path shape (2^20 x 384, B=256,
+   four query blocks): timed beside its plain version and the PyTorch
+   library path where one exists, and its output held against the plain
+   version's. Everywhere: ids equal except among scores within 1e-5 of
+   each other, scores within rtol/atol 1e-5.
+3. Main path through the SDK at 2^20 x 384 (random rows from the seed),
+   batches of 256, k=10: the default call with the precision guard on
+   (whichever kernel it picks on this corpus), then with the guard off
+   the speed path (K3 + exact re-score), approx=False (K1), a where
+   filter (K1), manhattan (K4), and a `quantized`-profile collection
+   (K3 on int8 rows, and K2). Launch counts are zeroed just before and
+   read just after; every kernel must have launched. Recall@10 of each
+   speed path against its exact path must be >= 0.99; the cosine and
+   manhattan exact paths must agree with float64 truth on 32 queries
+   taken across all four query blocks.
+4. A `kernels` JSON line, the card line, and last
+   {"ok": true, "device": {...}}.
+
+The kernels build into vectorlite_tpu_torch/csrc/build/ (git-ignored).
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+D = 384
+B = 256
+K = 10
+
+#: NVIDIA H100 SXM data sheet (dense, 700 W): device-memory bandwidth and
+#: the peak rate of each operand type the functions need. The reference
+#: contracts f32 rows in full f32 (Precision.HIGHEST: CUDA cores) and int8
+#: or bf16 rows at DEFAULT precision (one bf16 pass: tensor cores).
+#: Manhattan has no matmul form: elementwise f32 on CUDA cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+
+REPLACES = {
+    "scan_topk_exact": "vectorlite_tpu/kernels/pallas_scan.py:46",
+    "scan_topk_exact_int8": "vectorlite_tpu/kernels/pallas_scan.py:471",
+    "scan_block_topw": "vectorlite_tpu/kernels/pallas_scan.py:159",
+    "scan_topk_l1": "vectorlite_tpu/kernels/pallas_l1.py:44",
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def interleaved_ms(kernel_fn, plain_fn, reps: int, plain_reps: int):
+    """plain, kernel, kernel, plain on one card; means of each pair."""
+    p1 = cuda_time_ms(plain_fn, plain_reps)
+    k1 = cuda_time_ms(kernel_fn, reps)
+    k2 = cuda_time_ms(kernel_fn, reps)
+    p2 = cuda_time_ms(plain_fn, plain_reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def ids_match(ps, pi, ks, ki, tol=1e-5) -> int:
+    """Count id mismatches not explained by a near-tie: plain results
+    carry one extra column so a swap at the k-th place is covered."""
+    k = ks.shape[1]
+    bad = 0
+    for b in range(ks.shape[0]):
+        for p in np.flatnonzero(pi[b, :k] != ki[b]):
+            near = np.abs(ps[b] - ps[b, p]) <= tol * max(1.0, abs(ps[b, p]))
+            near[p] = False
+            bad += not near.any()
+    return bad
+
+
+def compare(label, kern_out, plain_out) -> float:
+    """Kernel top-k against the plain top-(k+1); raises on disagreement,
+    returns the largest score difference."""
+    ks, ki = (t.cpu().numpy() for t in kern_out)
+    ps, pi = (t.cpu().numpy() for t in plain_out)
+    k = ks.shape[1]
+    err = float(np.max(np.abs(ks - ps[:, :k])))
+    close = np.allclose(ks, ps[:, :k], rtol=1e-5, atol=1e-5)
+    bad = ids_match(ps, pi, ks, ki)
+    log(f"  {label:48s} max_abs_err {err:.3g} id mismatches beyond ties {bad}")
+    if not close or bad:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def merged(scan, tiles, b, k):
+    s, i = tiles
+    return scan.merge_topk(s.reshape(b, -1), i.reshape(b, -1), k)
+
+
+def variants(scan, SM):
+    """(kernel, rows label, metrics, kernel top-k, plain top-k) for every
+    kernel variant; the callables take (values, scales, sqnorms, valid,
+    queries, metric, k)."""
+
+    def exact(tile_n):
+        def kern(v, sc, sq, valid, q, metric, k):
+            if metric is SM.MANHATTAN:
+                return scan.pallas_search_topk_l1(v, valid, q, k=k, tile_n=tile_n)
+            if sc is not None:
+                return scan.pallas_search_topk_int8(
+                    v, sc, sq, valid, q, metric=metric, k=k, tile_n=tile_n)
+            return scan.pallas_search_topk(v, sq, valid, q, metric=metric, k=k, tile_n=tile_n)
+
+        def plain(v, sc, sq, valid, q, metric, k):
+            return merged(scan, scan.tile_topk_plain(
+                v, sc, sq, valid, q, metric=metric, k_tile=min(k, tile_n),
+                tile_n=tile_n), q.shape[0], k)
+        return kern, plain
+
+    def block(v, sc, sq, valid, q, metric, k):
+        if sc is not None:
+            return scan.pallas_search_block_topk_int8(
+                v, sc, sq, valid, q, metric=metric, k=k, tile_n=4096, winners=2)
+        return scan.pallas_search_block_topk(
+            v, sq, valid, q, metric=metric, k=k, tile_n=4096, winners=2)
+
+    def block_plain(v, sc, sq, valid, q, metric, k):
+        return merged(scan, scan.block_topw_plain(
+            v, sc, sq, valid, q, metric=metric, tile_n=4096, winners=2),
+            q.shape[0], k)
+
+    dots = (SM.COSINE, SM.EUCLIDEAN, SM.DOT_PRODUCT)
+    return [
+        ("scan_topk_exact", "f32", dots, *exact(2048), 16),
+        ("scan_topk_exact", "f32 k100", dots, *exact(2048), 100),
+        ("scan_topk_exact", "f32 k300", (SM.COSINE,), *exact(2048), 300),
+        ("scan_topk_exact", "bf16", dots, *exact(4096), 16),
+        ("scan_topk_exact_int8", "int8", dots, *exact(2048), 16),
+        ("scan_block_topw", "f32", dots, block, block_plain, 16),
+        ("scan_block_topw", "bf16", dots, block, block_plain, 16),
+        ("scan_block_topw", "int8", dots, block, block_plain, 16),
+        ("scan_topk_l1", "f32", (SM.MANHATTAN,), *exact(2048), 16),
+        ("scan_topk_l1", "f32 k300", (SM.MANHATTAN,), *exact(2048), 300),
+        ("scan_topk_l1", "bf16", (SM.MANHATTAN,), *exact(2048), 16),
+    ]
+
+
+def check_kernels(scan, metrics_mod, dev, rng) -> dict:
+    """Phase 2a: every kernel variant against its plain version."""
+    SM = metrics_mod.SimilarityMetric
+    shapes = []
+    for n, d, b in ((65536, D, 64), (8192, 100, 5)):
+        # 8,192 x 100, B=5: rows load one element at a time (D * itemsize
+        # is not a multiple of 16 bytes for bf16/int8), a partial block
+        v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+        v *= torch.from_numpy(rng.uniform(0.5, 2.0, (n, 1)).astype(np.float32)).to(dev)
+        valid = torch.from_numpy(rng.random(n) > 0.05).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
+        vq, sc = metrics_mod.quantize_rows_int8(v)
+        rows = {"f32": (v, None), "bf16": (v.to(torch.bfloat16), None), "int8": (vq, sc)}
+        shapes.append((f"{n}x{d} B{b}", rows, (v * v).sum(-1), valid, q))
+    errs = {}
+    for name, label, metrics, kern, plain, k in variants(scan, SM):
+        for shape, rows, sq, valid, q in shapes:
+            if k > 16 and shape != shapes[0][0]:
+                continue  # large k: the main shape only
+            v, sc = rows[label.split()[0]]
+            for metric in metrics:
+                out = kern(v, sc, sq, valid, q, metric, k)
+                torch.cuda.synchronize()
+                ref = plain(v, sc, sq, valid, q, metric, k + 1)
+                err = compare(f"{name} {label} {shape} {metric.name}", out, ref)
+                errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
+    """Phase 2b: each kernel at the main-path shape, beside its plain
+    version and the library path; outputs held against the plain
+    version's; bounds from this run's shapes."""
+    SM = metrics_mod.SimilarityMetric
+    v = torch.from_numpy(rng.standard_normal((n, D), dtype=np.float32)).to(dev)
+    sq = (v * v).sum(-1)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    q = torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).to(dev)
+    qsq = (q * q).sum(-1, keepdim=True)
+    vq, sc = metrics_mod.quantize_rows_int8(v)
+    vq_f32 = vq.to(torch.float32)  # library path's operand, cast outside timing
+    metrics_mod.disable_tf32()
+    dot_ops = 2.0 * B * n * D
+    side = n * 4 + n * 1 + B * D * 4  # sqnorms, validity, queries
+
+    def library(rows, scales, k, metric):
+        def fn():
+            if metric is SM.MANHATTAN:
+                score = 1.0 / (1.0 + torch.cdist(q, rows, p=1.0))
+            else:
+                dot = torch.mm(q, rows.T)
+                if scales is not None:
+                    dot = dot * scales[None, :]
+                score = metrics_mod.metric_from_dot(dot, qsq, sq[None, :], metric)
+            return torch.topk(score, k)
+        return fn
+
+    # the shapes the main path hands each kernel: K1 over f32 rows with
+    # k_pad 16; K2 over int8 rows with the 2x pool (32); K3 over the int8
+    # scan copy, 4096-row tiles, W = 2, pool 128; K4 over f32 rows, k_pad 16
+    specs = [
+        ("scan_topk_exact", SM.COSINE, v, None, 16, 2048, None, "f32",
+         dot_ops, n * D * 4 + side + B * (n // 2048) * 16 * 8),
+        ("scan_topk_exact_int8", SM.COSINE, vq, sc, 32, 2048, None, "bf16",
+         dot_ops, n * D + n * 4 + side + B * (n // 2048) * 32 * 8),
+        ("scan_block_topw", SM.COSINE, vq, sc, 128, 4096, 2, "bf16",
+         dot_ops, n * D + n * 4 + side + B * (n // 4096) * 256 * 8),
+        ("scan_topk_l1", SM.MANHATTAN, v, None, 16, 2048, None, "f32",
+         3.0 * B * n * D, n * D * 4 + n * 1 + B * D * 4 + B * (n // 2048) * 16 * 8),
+    ]
+    out = {}
+    for name, metric, rows, scales, k, tile_n, winners, op_type, ops, nbytes in specs:
+        if winners is None:
+            def kern(rows=rows, scales=scales, metric=metric, k=k, tile_n=tile_n):
+                return scan.tile_topk_cuda(rows, scales, sq, valid, q, metric=metric,
+                                           k_tile=k, tile_n=tile_n)
+
+            def plain(rows=rows, scales=scales, metric=metric, k=k, tile_n=tile_n):
+                return scan.tile_topk_plain(rows, scales, sq, valid, q, metric=metric,
+                                            k_tile=k + 1, tile_n=tile_n)
+            lib = library(vq_f32 if scales is not None else rows, scales, k, metric)
+        else:
+            def kern(rows=rows, scales=scales, metric=metric, tile_n=tile_n, winners=winners):
+                return scan.block_topw_cuda(rows, scales, sq, valid, q, metric=metric,
+                                            tile_n=tile_n, winners=winners)
+
+            def plain(rows=rows, scales=scales, metric=metric, tile_n=tile_n, winners=winners):
+                return scan.block_topw_plain(rows, scales, sq, valid, q, metric=metric,
+                                             tile_n=tile_n, winners=winners)
+            lib = None  # no library call selects per lane group
+        plain_reps = 2 if metric is SM.MANHATTAN else 5
+        ms, plain_ms = interleaved_ms(kern, plain, reps=20, plain_reps=plain_reps)
+        lib_ms = cuda_time_ms(lib, 10) if lib is not None else None
+        err = compare(f"{name} at the main-path shape (top {k})",
+                      merged(scan, kern(), B, k), merged(scan, plain(), B, k + 1))
+        errs[name] = max(errs.get(name, 0.0), err)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
+        out[name] = {
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": lib_ms,
+        }
+        log(f"  {name:22s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
+            f"bound {max(t_bytes, t_ops):.4f} ms ({out[name]['bound_by']}, "
+            f"{op_type} rate)")
+    return out
+
+
+def run_batches(fn, queries, n_batches: int):
+    """Warm call, then n_batches timed calls; (results of the last call,
+    per-batch wall-clock ms). Results come back to the host, so each
+    call's time covers the device work."""
+    fn(queries)
+    times = []
+    res = None
+    for _ in range(n_batches):
+        t0 = time.perf_counter()
+        res = fn(queries)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return res, np.asarray(times)
+
+
+def ids_of(rows) -> np.ndarray:
+    return np.asarray([[h.id for h in r] for r in rows])
+
+
+def scores_of(rows) -> np.ndarray:
+    return np.asarray([[h.score for h in r] for r in rows])
+
+
+def recall(got: np.ndarray, truth: np.ndarray) -> float:
+    hits = sum(len(set(a) & set(b)) for a, b in zip(got, truth))
+    return hits / truth.size
+
+
+def truth_topk(rows32: np.ndarray, q64: np.ndarray, metric_name: str, dev):
+    """float64 top-(K+1) on the card: (scores, slots), ties to the lowest
+    slot. Rows are the f32 values the collection stored as f64."""
+    q = torch.from_numpy(q64).to(dev)
+    out = []
+    for lo in range(0, len(rows32), 1 << 18):
+        v = torch.from_numpy(rows32[lo:lo + (1 << 18)]).to(dev).double()
+        if metric_name == "cosine":
+            s = (q @ v.T) / (q.norm(dim=1)[:, None] * v.norm(dim=1)[None, :])
+        else:
+            s = 1.0 / (1.0 + torch.cdist(q, v, p=1.0))
+        out.append(s)
+    s = torch.cat(out, dim=1)
+    s, i = torch.sort(s, dim=1, descending=True, stable=True)
+    return s[:, : K + 1].cpu().numpy(), i[:, : K + 1].cpu().numpy()
+
+
+def main_path(vl, scan, dev, rng, n: int, card: str, n_batches: int) -> dict:
+    """Phase 3: the SDK main path; returns per-kernel launch counts."""
+    SM = vl.SimilarityMetric
+    t0 = time.perf_counter()
+    rows = rng.standard_normal((n, D), dtype=np.float32)
+    queries = rng.standard_normal((B, D), dtype=np.float32).astype(np.float64)
+    metas = [{"shard": i % 8} for i in range(n)]
+    log(f"  data {n} x {D} made in {time.perf_counter() - t0:.2f} s")
+
+    # The default call, precision guard on: the guard decides at the
+    # device build whether reduced-precision selection may serve.
+    os.environ.pop("VECTORLITE_SPEED_GUARD", None)
+    dclient = vl.VectorLiteClient(vl.MockEmbeddingFunction(D), device=dev)
+    dclient.create_collection("default", vl.IndexType.FLAT)
+    dclient.add_vectors_to_collection("default", rows)
+    dclient.search_vectors_in_collection("default", queries, K)  # device build
+    # The guard's sampled statistic scales with the row count and refuses
+    # the speed path on random corpora at this size; VECTORLITE_SPEED_GUARD=0
+    # is the documented switch that keeps it on for the collections built
+    # below, and the recall checks vouch for the result.
+    os.environ["VECTORLITE_SPEED_GUARD"] = "0"
+
+    client = vl.VectorLiteClient(vl.MockEmbeddingFunction(D), device=dev)
+    client.create_collection("main", vl.IndexType.FLAT)
+    t0 = time.perf_counter()
+    client.add_vectors_to_collection("main", rows, metadatas=metas)
+    log(f"  add_vectors: {time.perf_counter() - t0:.2f} s")
+    qclient = vl.VectorLiteClient(
+        vl.MockEmbeddingFunction(D),
+        config=vl.VectorLiteConfig.profile("quantized"), device=dev,
+    )
+    qclient.create_collection("main", vl.IndexType.FLAT)
+    qclient.add_vectors_to_collection("main", rows)
+    del metas
+
+    def exact(coll):
+        def fn(qs):
+            with coll.index_read() as index:
+                return index.search_batch(qs, K, SM.COSINE, approx=False)
+        return fn
+
+    paths = [
+        ("default call, guard on",
+         lambda qs: dclient.search_vectors_in_collection("default", qs, K)),
+        ("speed, guard off (K3 + f32 re-score)",
+         lambda qs: client.search_vectors_in_collection("main", qs, K)),
+        ("exact approx=False (K1)", exact(client.get_collection("main"))),
+        ("where-filtered (K1)",
+         lambda qs: client.search_vectors_in_collection("main", qs, K, where={"shard": 3})),
+        ("manhattan (K4)",
+         lambda qs: client.search_vectors_in_collection("main", qs, K, SM.MANHATTAN)),
+        ("quantized speed (K3 int8 + f64 re-score)",
+         lambda qs: qclient.search_vectors_in_collection("main", qs, K)),
+        ("quantized exact (K2 + f64 re-score)", exact(qclient.get_collection("main"))),
+    ]
+    scan.reset_launch_counts()
+    results = {}
+    for name, fn in paths:
+        before = {kk.symbol: kk.launches for kk in scan.KERNELS}
+        gc2 = gc.get_stats()[2]["collections"]
+        t0 = time.perf_counter()
+        res, ms = run_batches(fn, queries, n_batches)
+        wall = time.perf_counter() - t0
+        gc2 = gc.get_stats()[2]["collections"] - gc2
+        moved = {kk.symbol: kk.launches - before[kk.symbol]
+                 for kk in scan.KERNELS if kk.launches != before[kk.symbol]}
+        results[name] = res
+        log(f"  {name:42s} QPS {B * n_batches / (ms.sum() / 1e3):.1f}  "
+            f"batch p50 {np.percentile(ms, 50):.3f} ms p99 {np.percentile(ms, 99):.3f} ms  "
+            f"slowest #{int(ms.argmax())} of {n_batches}, full GC passes {gc2}  "
+            f"(first call + {n_batches} batches {wall:.2f} s; launches {moved}) [{card}]")
+    launches = {kk.symbol: kk.launches for kk in scan.KERNELS}
+    for sym, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{sym} was never launched on the main path")
+    dclient.delete_collection("default")
+
+    # correctness by the repo's own means
+    speed = ids_of(results["speed, guard off (K3 + f32 re-score)"])
+    exact_ids = ids_of(results["exact approx=False (K1)"])
+    checks = [
+        ("speed vs exact", speed, exact_ids),
+        ("default call vs exact", ids_of(results["default call, guard on"]), exact_ids),
+        ("quantized speed vs quantized exact",
+         ids_of(results["quantized speed (K3 int8 + f64 re-score)"]),
+         ids_of(results["quantized exact (K2 + f64 re-score)"])),
+    ]
+    for label, got, ref in checks:
+        r = recall(got, ref)
+        log(f"  recall@10 {label} ({B} queries): {r:.5f}")
+        if r < 0.99:
+            raise AssertionError(f"{label}: recall {r} < 0.99")
+    filt = results["where-filtered (K1)"]
+    if any(h.metadata["shard"] != 3 for row in filt for h in row):
+        raise AssertionError("the where filter let another shard through")
+
+    # exact paths against float64 truth on 32 queries from all 4 blocks
+    pick = slice(0, B, B // 32)
+    for metric_name, path in (("cosine", "exact approx=False (K1)"),
+                              ("manhattan", "manhattan (K4)")):
+        t_s, t_ids = truth_topk(rows, queries[pick], metric_name, dev)
+        got = results[path][pick]
+        bad = ids_match(t_s, t_ids, scores_of(got), ids_of(got))  # ids are slots here
+        err = float(np.max(np.abs(scores_of(got) - t_s[:, :K])))
+        log(f"  {path} vs f64 truth (32 queries, every 8th): "
+            f"id mismatches beyond ties {bad}, max score err {err:.3g}")
+        if bad or err > 1e-5:
+            raise AssertionError(f"{path} disagrees with float64 truth")
+    t_s, t_ids = truth_topk(rows, queries[pick], "cosine", dev)
+    q_ok = recall(ids_of(results["quantized exact (K2 + f64 re-score)"][pick]), t_ids[:, :K])
+    log(f"  quantized exact recall@10 vs f64 truth (32 queries): {q_ok:.5f}")
+    if q_ok < 0.99:
+        raise AssertionError(f"quantized exact recall {q_ok} < 0.99")
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rows", type=int, default=1 << 20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batches", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import vectorlite_tpu_torch as vl
+    from vectorlite_tpu_torch.core import metrics as metrics_mod
+    from vectorlite_tpu_torch.kernels import _build, scan
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"[1] card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    _build.build_all(sources)
+    for name in sources:
+        _build.load(name)
+    log(f"    built {sources} in {time.perf_counter() - t0:.2f} s")
+    for text in _build.build_logs.values():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log("    ptxas:", line.strip())
+
+    rng = np.random.default_rng(args.seed)
+    log("[2] kernels against their plain versions")
+    errs = check_kernels(scan, metrics_mod, dev, rng)
+    log(f"    at the main-path shape (N={args.rows}, D={D}, B={B}) [{card}]")
+    timing = time_kernels(scan, metrics_mod, dev, rng, args.rows, errs)
+    torch.cuda.empty_cache()
+
+    log(f"[3] main path through the SDK (N={args.rows}, D={D}, B={B}, k={K})")
+    launches = main_path(vl, scan, dev, rng, args.rows, card, args.batches)
+
+    kernels = []
+    for kern in scan.KERNELS:
+        t = timing[kern.symbol]
+        kernels.append({
+            "name": kern.symbol,
+            "route": "cuda",
+            "source": "vectorlite_tpu_torch/csrc/scan.cu",
+            "replaces": REPLACES[kern.symbol],
+            "launches": launches[kern.symbol],
+            "max_abs_err": errs[kern.symbol],
+            **t,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,228 @@
+"""The port's FlatIndex (CPU, plain versions of the kernels) against the
+JAX FlatIndex on the same seeded corpus, deletes and compaction included.
+
+Regimes: the f64 host scan (B <= 4), the full-score device path below
+the kernel threshold, and the kernel path, reached on small corpora by
+lowering the port's ``_PALLAS_MIN_CAPACITY``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vectorlite_tpu.core.metrics import SimilarityMetric as JMetric
+from vectorlite_tpu.index.flat import FlatIndex as JFlat
+from vectorlite_tpu_torch.core.metrics import SimilarityMetric
+from vectorlite_tpu_torch.index import flat as tflat
+from vectorlite_tpu_torch.index.flat import FlatIndex
+
+N, D = 4096, 64
+METRICS = ["COSINE", "EUCLIDEAN", "DOT_PRODUCT", "MANHATTAN"]
+
+
+def build(index, rows, deleted, compact):
+    ids = list(range(10, 10 + len(rows)))
+    index.add_batch_arrays(
+        ids, rows, texts=[f"t{i}" for i in ids],
+        metadatas=[{"g": i % 3} for i in ids],
+    )
+    for vid in deleted:
+        index.delete(vid)
+    if compact:
+        index.compact()
+        # refill past the compaction so slots and ids diverge
+        extra = len(rows) - index._size
+        more = np.asarray(rows[:extra]) * 0.5
+        index.add_batch_arrays(list(range(100000, 100000 + extra)), more)
+    return index
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(64, D))
+    rows = centers[rng.integers(0, 64, N)] + 0.3 * rng.normal(size=(N, D))
+    deleted = [int(x) for x in rng.choice(np.arange(10, 10 + N), 300, replace=False)]
+    queries = rng.normal(size=(16, D))
+    return rows, deleted, queries
+
+
+@pytest.fixture(params=[False, True], ids=["tombstones", "compacted"])
+def pair(request, corpus):
+    rows, deleted, queries = corpus
+    jax_index = build(JFlat(D), rows, deleted, request.param)
+    port = build(FlatIndex(D, device="cpu"), rows, deleted, request.param)
+    carried = FlatIndex.index_from_json(jax_index.index_to_json(), device="cpu")
+    return jax_index, port, carried, queries
+
+
+def search(index, q, metric, **kw):
+    m = (JMetric if isinstance(index, JFlat) else SimilarityMetric)[metric]
+    return index.search_batch_arrays(q, 10, m, **kw)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_host_scan_regime(pair, metric):
+    jax_index, port, carried, queries = pair
+    j_ids, j_s = search(jax_index, queries[:4], metric)
+    for index in (port, carried):
+        ids, s = search(index, queries[:4], metric)
+        assert np.array_equal(ids, j_ids)
+        np.testing.assert_allclose(s, j_s, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_device_regime_below_kernels(pair, metric, monkeypatch):
+    jax_index, port, carried, queries = pair
+    j_ids, j_s = search(jax_index, queries, metric)
+    for index in (port, carried):
+        ids, s = search(index, queries, metric)
+        assert np.array_equal(ids, j_ids)
+        np.testing.assert_allclose(s, j_s, rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def kernel_regime(monkeypatch):
+    monkeypatch.setattr(tflat, "_PALLAS_MIN_CAPACITY", 1024)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_kernel_regime_exact(pair, metric, kernel_regime):
+    jax_index, port, carried, queries = pair
+    j_ids, j_s = search(jax_index, queries, metric, approx=False)
+    for index in (port, carried):
+        ids, s = search(index, queries, metric, approx=False)
+        assert np.array_equal(ids, j_ids)
+        np.testing.assert_allclose(s, j_s, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["COSINE", "EUCLIDEAN", "DOT_PRODUCT"])
+def test_kernel_regime_speed_path(pair, metric, kernel_regime):
+    """K3 over the int8 scan copy + exact f32 re-score of the pool: every
+    returned score is the exact score of its id, recall@10 >= 0.99."""
+    jax_index, port, carried, queries = pair
+    j_ids, _ = search(jax_index, queries, metric, approx=False)
+    for index in (port, carried):
+        ids, s = search(index, queries, metric)
+        assert index._dev_scan is not None and index._dev_scan.dtype == torch.int8
+        hits = sum(len(set(a) & set(b)) for a, b in zip(ids, j_ids))
+        assert hits / j_ids.size >= 0.99
+        # the JAX package's exact score of each returned id
+        for b_i in range(len(queries)):
+            j_full_ids, j_full_s = search(
+                jax_index, queries[b_i : b_i + 1], metric, approx=False
+            )
+            exact = dict(zip(j_full_ids[0], j_full_s[0]))
+            for vid, score in zip(ids[b_i], s[b_i]):
+                if vid in exact:
+                    assert abs(score - exact[vid]) <= 1e-5 * max(1, abs(exact[vid]))
+
+
+@pytest.mark.parametrize("approx", [False, None], ids=["K2", "K3"])
+@pytest.mark.parametrize("metric", ["COSINE", "EUCLIDEAN", "DOT_PRODUCT"])
+def test_kernel_regime_quantized(corpus, metric, approx, kernel_regime):
+    rows, deleted, queries = corpus
+    jax_index = build(JFlat(D, device_dtype="int8"), rows, deleted, False)
+    port = build(
+        FlatIndex(D, device_dtype="int8", device="cpu"), rows, deleted, False
+    )
+    j_ids, j_s = search(jax_index, queries, metric)
+    ids, s = search(port, queries, metric, approx=approx)
+    assert np.array_equal(ids, j_ids)
+    np.testing.assert_allclose(s, j_s, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("metric", ["COSINE", "DOT_PRODUCT"])
+def test_where_filter_is_exact(pair, metric, kernel_regime):
+    jax_index, port, carried, queries = pair
+    where = {"g": 1}
+    j_ids, j_s = search(jax_index, queries, metric, where=where)
+    for index in (port, carried):
+        ids, s = search(index, queries, metric, where=where)
+        assert np.array_equal(ids, j_ids)
+        np.testing.assert_allclose(s, j_s, rtol=1e-5, atol=1e-5)
+
+
+def test_search_batch_objects_match(pair):
+    jax_index, port, _, queries = pair
+    j = jax_index.search_batch(queries[:8], 5, JMetric.COSINE)
+    t = port.search_batch(queries[:8], 5, SimilarityMetric.COSINE)
+    assert [[(h.id, h.text, h.metadata) for h in row] for row in j] == [
+        [(h.id, h.text, h.metadata) for h in row] for row in t
+    ]
+
+
+def test_appends_after_build_reach_the_device(corpus, kernel_regime):
+    """Rows added after the device build are copied in place (dirty-row
+    sync) and found by the kernels."""
+    rows, _, queries = corpus
+    port = FlatIndex(D, device="cpu")
+    port.add_batch_arrays(list(range(2048)), rows[:2048])
+    port.add_batch_arrays(list(range(2048, 2500)), rows[2048:2500])
+    search(port, queries, "COSINE", approx=False)  # builds at capacity 4096
+    port.add_batch_arrays([7777], queries[:1] * 3.0)
+    ids, _ = search(port, queries[:8], "COSINE", approx=False)
+    assert ids[0][0] == 7777
+    ids, _ = search(port, queries[:8], "COSINE")
+    assert ids[0][0] == 7777
+
+
+def spy_on(monkeypatch, calls, module, name):
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        calls.append(name)
+        return fn(*args, **kw)
+
+    monkeypatch.setattr(module, name, wrapped)
+
+
+@pytest.mark.parametrize(
+    "metric, k, route",
+    [
+        ("MANHATTAN", 10, "pallas_search_topk_l1"),
+        ("COSINE", 300, "pallas_search_topk"),
+        ("EUCLIDEAN", 700, "pallas_search_topk"),
+    ],
+)
+def test_kernel_regime_routes_to_kernels(pair, metric, k, route, kernel_regime,
+                                         monkeypatch):
+    """At kernel scale no f32 search falls back to the full-score path:
+    Manhattan takes K4 and an exact k above K1's shared-memory lists
+    takes K1, as the reference sends both to its Pallas kernels."""
+    jax_index, port, _, queries = pair
+    calls = []
+    for name in ("pallas_search_topk", "pallas_search_topk_l1",
+                 "pallas_search_block_topk_rescored"):
+        spy_on(monkeypatch, calls, tflat.scan, name)
+    spy_on(monkeypatch, calls, tflat, "search_topk")
+    m = SimilarityMetric[metric]
+    ids, s = port.search_batch_arrays(queries, k, m, approx=False)
+    assert calls == [route]
+    j_ids, j_s = jax_index.search_batch_arrays(queries, k, JMetric[metric],
+                                               approx=False)
+    np.testing.assert_allclose(s, j_s, rtol=1e-5, atol=1e-5)
+    # deep in a ranking of k in the hundreds, f32 sums taken in another
+    # order may swap neighbours whose scores lie within 1e-5
+    for b_i, p in zip(*np.nonzero(ids != j_ids)):
+        gaps = np.abs(j_s[b_i] - j_s[b_i, p])
+        gaps[p] = np.inf
+        assert gaps.min() <= 1e-5
+
+
+def test_quantized_manhattan_takes_the_full_score_path(corpus, kernel_regime,
+                                                       monkeypatch):
+    """Neither package has a kernel for manhattan over int8 rows: both
+    serve it from the full int8 score matrix and re-score in f64."""
+    rows, deleted, queries = corpus
+    jax_index = build(JFlat(D, device_dtype="int8"), rows, deleted, False)
+    port = build(
+        FlatIndex(D, device_dtype="int8", device="cpu"), rows, deleted, False
+    )
+    calls = []
+    spy_on(monkeypatch, calls, tflat, "search_topk_int8")
+    ids, s = search(port, queries, "MANHATTAN")
+    assert calls == ["search_topk_int8"]
+    j_ids, j_s = search(jax_index, queries, "MANHATTAN")
+    assert np.array_equal(ids, j_ids)
+    np.testing.assert_allclose(s, j_s, rtol=1e-9, atol=1e-9)
