@@ -5,8 +5,9 @@
 Phases (any failure raises and the exit code is not 0):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
-   build of every CUDA source under vectorlite_tpu_torch/csrc (one nvcc
-   per source, all started together).
+   build of every native source under vectorlite_tpu_torch/csrc (scan.cu,
+   pq.cu with nvcc, host_rescore.cpp with g++; one compiler per source,
+   all started together).
 2. Kernels against their plain-torch versions on the card: K1 on f32 and
    bf16 rows, with k > 32 (shared-memory lists) and k > 256 (lists in the
    output), K2, K3 on f32, bf16 and int8 rows (three metrics), K4 on f32
@@ -16,6 +17,15 @@ Phases (any failure raises and the exit code is not 0):
    library path where one exists, and its output held against the plain
    version's. Everywhere: ids equal except among scores within 1e-5 of
    each other, scores within rtol/atol 1e-5.
+   K5 (pq_rank) against pq_rank_plain: 4 metrics x {packed 4-bit, unpacked
+   4-bit, kc = 256} at 65,536 x 384, B = 64, and at an odd shape (8,192
+   rows, M = 33, B = 5); then at the main-path shape (2^20 rows, M = 192
+   packed, B = 256, every 2^18-row chunk the PQ path hands it, all 256
+   queries) held against the plain rank and timed beside it, beside a
+   bf16 torch.mm with a prebuilt one-hot (the library yardstick) and
+   beside the chunk selection that follows it. Tolerance: the same -inf
+   pattern, finite ranks within rtol/atol 2e-5 (f32 sums of bf16 values
+   taken in another order).
 3. Main path through the SDK at 2^20 x 384 (random rows from the seed),
    batches of 256, k=10: the default call with the precision guard on
    (whichever kernel it picks on this corpus), then with the guard off
@@ -25,11 +35,23 @@ Phases (any failure raises and the exit code is not 0):
    read just after; every kernel must have launched. Recall@10 of each
    speed path against its exact path must be >= 0.99; the cosine and
    manhattan exact paths must agree with float64 truth on 32 queries
-   taken across all four query blocks.
-4. A `kernels` JSON line, the card line, and last
+   taken across all four query blocks. The quantized speed path runs
+   twice: with the native f64 re-score and with VECTORLITE_NO_NATIVE=1.
+4. The `pq` profile through the SDK, after the phase-3 collections are
+   freed: the same rows and queries in a `pq`-profile collection (training
+   and encoding on the card), batches of 256, k=10: the default call
+   (cosine), euclidean, manhattan (the euclidean proxy under rotation)
+   and a where filter. Launch counts are zeroed just before and read just
+   after; K5 and the native re-score must have served. Each path's ids
+   must equal, beyond 1e-5 near-ties, those of the same pipeline with the
+   plain rank; self-hit (256 stored rows + N(0, 0.01^2) noise return
+   their row first) >= 0.99; recall@10 of the cosine path against phase
+   3's exact K1 results >= 0.90.
+5. A `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
-The kernels build into vectorlite_tpu_torch/csrc/build/ (git-ignored).
+The native sources build into vectorlite_tpu_torch/csrc/build/
+(git-ignored).
 """
 
 from __future__ import annotations
@@ -38,6 +60,7 @@ import argparse
 import gc
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -62,11 +85,17 @@ REPLACES = {
     "scan_topk_exact_int8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_block_topw": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_topk_l1": "vectorlite_tpu/kernels/pallas_l1.py:44",
+    "pq_rank": "vectorlite_tpu/kernels/pq.py:291",
 }
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def peak_rss_gb() -> float:
+    """This process's peak resident host memory so far, in GB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
 
 
 def card_line() -> str:
@@ -292,6 +321,102 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     return out
 
 
+PQ_CHUNK = 1 << 18  # rows per K5 launch on the PQ path (index/flat.py)
+
+
+def compare_rank(label, got, want) -> float:
+    """K5 rank against the plain rank: the same -inf pattern and finite
+    ranks within rtol/atol 2e-5; returns the largest difference."""
+    inf_k, inf_p = got == float("-inf"), want == float("-inf")
+    fin = ~inf_p
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    close = torch.allclose(got[fin], want[fin], rtol=2e-5, atol=2e-5)
+    same_inf = torch.equal(inf_k, inf_p)
+    log(f"  {label:48s} max_abs_err {err:.3g} -inf pattern equal {same_inf}")
+    if not (close and same_inf):
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def pq_inputs(pq, dev, rng, n, d, m, kc, b, packed, metric):
+    """Random codes, a LUT from random queries and codebooks, squared
+    norms and a validity mask (5% invalid) for one K5 call."""
+    ms = m // 2 if packed else m
+    codes = torch.from_numpy(
+        rng.integers(0, 256 if packed else kc, (n, ms), dtype=np.uint8)).to(dev)
+    cb = torch.from_numpy(rng.standard_normal((m, kc, d // m), dtype=np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
+    lut = pq.selection_lut(pq._adc_lut(q, cb, metric), metric)
+    sq = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32) * d).to(dev)
+    valid = torch.from_numpy(rng.random(n) > 0.05).to(dev)
+    return lut, codes, sq, valid
+
+
+def check_pq_kernel(pq, SM, dev, rng) -> float:
+    """Phase 2c: K5 against pq_rank_plain on every layout and metric."""
+    err = 0.0
+    shapes = [(65536, D, 64, (192, 16, True), (192, 16, False), (96, 256, False)),
+              (8192, 99, 5, (33, 16, False), (33, 256, False))]
+    for n, d, b, *layouts in shapes:
+        for m, kc, packed in layouts:
+            for metric in SM:
+                lut, codes, sq, valid = pq_inputs(pq, dev, rng, n, d, m, kc, b, packed, metric)
+                got = pq.pq_rank(lut, codes, sq, valid, metric=metric, packed=packed)
+                torch.cuda.synchronize()
+                want = pq.pq_rank_plain(lut, codes, sq, valid, metric=metric, packed=packed)
+                label = f"pq_rank {n}x{m}x{kc}{' packed' if packed else ''} B{b} {metric.name}"
+                err = max(err, compare_rank(label, got, want))
+    return err
+
+
+def time_pq_kernel(pq, SM, dev, rng, n: int, errs: dict) -> dict:
+    """Phase 2d: K5 at the main-path shape (every chunk held against the
+    plain rank for all 256 queries; one chunk timed), the library
+    yardstick, and the chunk selection timed apart."""
+    m, kc = D // 2, 16
+    lut, codes, sq, valid = pq_inputs(pq, dev, rng, n, D, m, kc, B, True, SM.COSINE)
+    valid[:] = True
+    chunks = [slice(lo, lo + PQ_CHUNK) for lo in range(0, n, PQ_CHUNK)]
+    for i, c in enumerate(chunks):
+        got = pq.pq_rank_cuda(lut, codes[c], sq[c], valid[c], metric=SM.COSINE, packed=True)
+        want = pq.pq_rank_plain(lut, codes[c], sq[c], valid[c], metric=SM.COSINE, packed=True)
+        err = compare_rank(f"pq_rank at the main-path shape, chunk {i}", got, want)
+        errs["pq_rank"] = max(errs.get("pq_rank", 0.0), err)
+        del got, want
+    c = chunks[0]
+    rows = min(PQ_CHUNK, n)
+
+    def kern():
+        return pq.pq_rank_cuda(lut, codes[c], sq[c], valid[c], metric=SM.COSINE, packed=True)
+
+    def plain():
+        return pq.pq_rank_plain(lut, codes[c], sq[c], valid[c], metric=SM.COSINE, packed=True)
+
+    # library yardstick: one bf16 product of the LUT with a one-hot of the
+    # chunk's codes, built outside the timing
+    onehot = (pq.unpack_nibbles(codes[c]).to(torch.int16)[:, :, None]
+              == torch.arange(kc, device=dev, dtype=torch.int16))
+    onehot = onehot.to(torch.bfloat16).reshape(rows, m * kc)
+    lut2 = lut.reshape(B, m * kc)
+    ms, plain_ms = interleaved_ms(kern, plain, reps=20, plain_reps=3)
+    lib_ms = cuda_time_ms(lambda: torch.mm(lut2, onehot.T), 10)
+    del onehot
+    rank = kern()
+    sel_ms = cuda_time_ms(lambda: pq.select_topk(rank, 256 + 32), 10)
+    del rank
+    ops = 2.0 * B * rows * m * kc  # the one-hot bf16 contraction
+    nbytes = rows * (m // 2) + B * m * kc * 2 + B * rows * 4  # pq.py:385-389
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["bf16"] * 1e3
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes > t_ops else "operations",
+           "library_ms": lib_ms}
+    log(f"  pq_rank (chunk {rows} x M {m}, B {B}) kernel {ms:.4f} ms  plain "
+        f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}, bf16 rate); chunk selection (top 288) {sel_ms:.4f} ms")
+    return out
+
+
 def run_batches(fn, queries, n_batches: int):
     """Warm call, then n_batches timed calls; (results of the last call,
     per-batch wall-clock ms). Results come back to the host, so each
@@ -336,14 +461,50 @@ def truth_topk(rows32: np.ndarray, q64: np.ndarray, metric_name: str, dev):
     return s[:, : K + 1].cpu().numpy(), i[:, : K + 1].cpu().numpy()
 
 
-def main_path(vl, scan, dev, rng, n: int, card: str, n_batches: int) -> dict:
-    """Phase 3: the SDK main path; returns per-kernel launch counts."""
+def with_env(fn, name: str, value: str):
+    """``fn`` run with one environment variable set, restored after."""
+    def run(qs):
+        old = os.environ.get(name)
+        os.environ[name] = value
+        try:
+            return fn(qs)
+        finally:
+            if old is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = old
+    return run
+
+
+def drive(paths, queries, n_batches, build, card, native=None):
+    """Run each (name, fn) path; returns its results and launch deltas."""
+    results, moved_all = {}, {}
+    for name, fn in paths:
+        before = {kk.symbol: kk.launches for kk in build.KERNELS}
+        calls = native.calls if native is not None else 0
+        gc2 = gc.get_stats()[2]["collections"]
+        t0 = time.perf_counter()
+        res, ms = run_batches(fn, queries, n_batches)
+        wall = time.perf_counter() - t0
+        gc2 = gc.get_stats()[2]["collections"] - gc2
+        moved = {kk.symbol: kk.launches - before[kk.symbol]
+                 for kk in build.KERNELS if kk.launches != before[kk.symbol]}
+        extra = f"; native re-scores {native.calls - calls}" if native is not None else ""
+        results[name] = res
+        moved_all[name] = moved
+        log(f"  {name:42s} QPS {B * n_batches / (ms.sum() / 1e3):.1f}  "
+            f"batch p50 {np.percentile(ms, 50):.3f} ms p99 {np.percentile(ms, 99):.3f} ms  "
+            f"slowest #{int(ms.argmax())} of {n_batches}, full GC passes {gc2}  "
+            f"(first call + {n_batches} batches {wall:.2f} s; launches {moved}{extra}) [{card}]")
+    return results, moved_all
+
+
+def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
+    """Phase 3: the SDK main path; returns (per-kernel launch counts, the
+    exact path's ids for the 256 queries)."""
     SM = vl.SimilarityMetric
-    t0 = time.perf_counter()
-    rows = rng.standard_normal((n, D), dtype=np.float32)
-    queries = rng.standard_normal((B, D), dtype=np.float32).astype(np.float64)
+    n = len(rows)
     metas = [{"shard": i % 8} for i in range(n)]
-    log(f"  data {n} x {D} made in {time.perf_counter() - t0:.2f} s")
 
     # The default call, precision guard on: the guard decides at the
     # device build whether reduced-precision selection may serve.
@@ -377,6 +538,9 @@ def main_path(vl, scan, dev, rng, n: int, card: str, n_batches: int) -> dict:
                 return index.search_batch(qs, K, SM.COSINE, approx=False)
         return fn
 
+    def quantized_speed(qs):
+        return qclient.search_vectors_in_collection("main", qs, K)
+
     paths = [
         ("default call, guard on",
          lambda qs: dclient.search_vectors_in_collection("default", qs, K)),
@@ -387,30 +551,20 @@ def main_path(vl, scan, dev, rng, n: int, card: str, n_batches: int) -> dict:
          lambda qs: client.search_vectors_in_collection("main", qs, K, where={"shard": 3})),
         ("manhattan (K4)",
          lambda qs: client.search_vectors_in_collection("main", qs, K, SM.MANHATTAN)),
-        ("quantized speed (K3 int8 + f64 re-score)",
-         lambda qs: qclient.search_vectors_in_collection("main", qs, K)),
+        ("quantized speed (K3 int8 + f64 re-score)", quantized_speed),
+        ("quantized speed, numpy re-score (VECTORLITE_NO_NATIVE=1)",
+         with_env(quantized_speed, "VECTORLITE_NO_NATIVE", "1")),
         ("quantized exact (K2 + f64 re-score)", exact(qclient.get_collection("main"))),
     ]
-    scan.reset_launch_counts()
-    results = {}
-    for name, fn in paths:
-        before = {kk.symbol: kk.launches for kk in scan.KERNELS}
-        gc2 = gc.get_stats()[2]["collections"]
-        t0 = time.perf_counter()
-        res, ms = run_batches(fn, queries, n_batches)
-        wall = time.perf_counter() - t0
-        gc2 = gc.get_stats()[2]["collections"] - gc2
-        moved = {kk.symbol: kk.launches - before[kk.symbol]
-                 for kk in scan.KERNELS if kk.launches != before[kk.symbol]}
-        results[name] = res
-        log(f"  {name:42s} QPS {B * n_batches / (ms.sum() / 1e3):.1f}  "
-            f"batch p50 {np.percentile(ms, 50):.3f} ms p99 {np.percentile(ms, 99):.3f} ms  "
-            f"slowest #{int(ms.argmax())} of {n_batches}, full GC passes {gc2}  "
-            f"(first call + {n_batches} batches {wall:.2f} s; launches {moved}) [{card}]")
-    launches = {kk.symbol: kk.launches for kk in scan.KERNELS}
+    build.reset_launch_counts()
+    calls = native.calls
+    results, _ = drive(paths, queries, n_batches, build, card, native)
+    launches = {kk.symbol: kk.launches for kk in build.KERNELS}
     for sym, count in launches.items():
-        if count == 0:
+        if count == 0 and sym.startswith("scan_"):
             raise AssertionError(f"{sym} was never launched on the main path")
+    if native.calls == calls:
+        raise AssertionError("the native f64 re-score never served the quantized paths")
     dclient.delete_collection("default")
 
     # correctness by the repo's own means
@@ -449,6 +603,109 @@ def main_path(vl, scan, dev, rng, n: int, card: str, n_batches: int) -> dict:
     log(f"  quantized exact recall@10 vs f64 truth (32 queries): {q_ok:.5f}")
     if q_ok < 0.99:
         raise AssertionError(f"quantized exact recall {q_ok} < 0.99")
+    return launches, exact_ids
+
+
+def pq_path(vl, build, pq, native, dev, rows, queries, exact_ids, card: str,
+            n_batches: int, rng) -> dict:
+    """Phase 4: the `pq` profile through the SDK; returns K5's launches."""
+    SM = vl.SimilarityMetric
+    n = len(rows)
+    metas = [{"shard": i % 8} for i in range(n)]
+    client = vl.VectorLiteClient(
+        vl.MockEmbeddingFunction(D), config=vl.VectorLiteConfig.profile("pq"),
+        device=dev,
+    )
+    client.create_collection("pq", vl.IndexType.FLAT)
+    t0 = time.perf_counter()
+    client.add_vectors_to_collection("pq", rows, metadatas=metas)
+    del metas
+    log(f"  add_vectors: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    client.search_vectors_in_collection("pq", queries, K)  # trains and encodes
+    torch.cuda.synchronize()
+    with client.get_collection("pq").index_read() as index:
+        pass
+    if not index._pq_active:
+        raise AssertionError("the pq rung did not engage")
+    log(f"  first search (training {tuple(index._dev_codebooks.shape)} codebooks on "
+        f"the card, encoding {tuple(index._dev_codes.shape)} codes): "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the device stage (dispatch to synchronize) and the host re-score,
+    # each timed apart on the host clock
+    spent = {"device": [], "rescore": []}
+
+    def timed(key, fn, sync):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            spent[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    index._device_topk = timed("device", index._device_topk, True)
+    index._exact_rescore = timed("rescore", index._exact_rescore, False)
+
+    def search(metric, where=None, k=K):
+        return lambda qs: client.search_vectors_in_collection(
+            "pq", qs, k, metric, where=where)
+
+    paths = [
+        ("pq default call (cosine)", SM.COSINE, None),
+        ("pq euclidean", SM.EUCLIDEAN, None),
+        ("pq manhattan (euclidean proxy)", SM.MANHATTAN, None),
+        ("pq where-filtered (cosine)", SM.COSINE, {"shard": 3}),
+    ]
+    build.reset_launch_counts()
+    calls = native.calls
+    results = {}
+    for name, metric, where in paths:
+        spent["device"].clear()
+        spent["rescore"].clear()
+        res, moved = drive([(name, search(metric, where))], queries, n_batches,
+                           build, card, native)
+        results[name] = res[name]
+        log(f"    device stage p50 {np.percentile(spent['device'], 50):.3f} ms, "
+            f"host re-score p50 {np.percentile(spent['rescore'], 50):.3f} ms "
+            f"({len(spent['rescore'])} calls)")
+        if not moved[name].get("pq_rank"):
+            raise AssertionError(f"{name}: K5 did not launch")
+    launches = pq.PQ_RANK.launches
+    if native.calls == calls:
+        raise AssertionError("the native f64 re-score never served the pq paths")
+
+    # the same pipeline with the plain rank over the index's own codes
+    for name, metric, where in paths:
+        saved = pq.pq_rank
+        pq.pq_rank = pq.pq_rank_plain
+        try:
+            ref = search(metric, where, K + 1)(queries)
+        finally:
+            pq.pq_rank = saved
+        got = results[name]
+        bad = ids_match(scores_of(ref), ids_of(ref), scores_of(got), ids_of(got))
+        log(f"  {name} vs the plain-rank pipeline: id mismatches beyond ties {bad}")
+        if bad:
+            raise AssertionError(f"{name} disagrees with the plain-rank pipeline")
+    filt = results["pq where-filtered (cosine)"]
+    if any(h.metadata["shard"] != 3 for row in filt for h in row):
+        raise AssertionError("the where filter let another shard through")
+
+    pick = rng.choice(n, B, replace=False)
+    noisy = rows[pick].astype(np.float64) + rng.normal(0.0, 0.01, (B, D))
+    top1 = ids_of(client.search_vectors_in_collection("pq", noisy, K))[:, 0]
+    self_hit = float(np.mean(top1 == pick))
+    r = recall(ids_of(results["pq default call (cosine)"]), exact_ids)
+    log(f"  pq self-hit ({B} stored rows + N(0, 0.01^2) noise): {self_hit:.5f}; "
+        f"recall@10 of the cosine path vs exact K1 ({B} queries): {r:.5f}")
+    if self_hit < 0.99:
+        raise AssertionError(f"pq self-hit {self_hit} < 0.99")
+    if r < 0.90:
+        raise AssertionError(f"pq recall@10 {r} < 0.90")
+    client.delete_collection("pq")
     return launches
 
 
@@ -461,42 +718,64 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     import vectorlite_tpu_torch as vl
+    from vectorlite_tpu_torch import native
     from vectorlite_tpu_torch.core import metrics as metrics_mod
-    from vectorlite_tpu_torch.kernels import _build, scan
+    from vectorlite_tpu_torch.kernels import _build, pq, scan
 
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    sources = _build.sources()
     _build.build_all(sources)
     for name in sources:
         _build.load(name)
     log(f"    built {sources} in {time.perf_counter() - t0:.2f} s")
-    for text in _build.build_logs.values():
+    for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
-                log("    ptxas:", line.strip())
+                log(f"    {name} ptxas:", line.strip())
 
     rng = np.random.default_rng(args.seed)
     log("[2] kernels against their plain versions")
     errs = check_kernels(scan, metrics_mod, dev, rng)
+    errs["pq_rank"] = check_pq_kernel(pq, vl.SimilarityMetric, dev, rng)
     log(f"    at the main-path shape (N={args.rows}, D={D}, B={B}) [{card}]")
     timing = time_kernels(scan, metrics_mod, dev, rng, args.rows, errs)
+    timing["pq_rank"] = time_pq_kernel(pq, vl.SimilarityMetric, dev, rng, args.rows, errs)
     torch.cuda.empty_cache()
 
     log(f"[3] main path through the SDK (N={args.rows}, D={D}, B={B}, k={K})")
-    launches = main_path(vl, scan, dev, rng, args.rows, card, args.batches)
+    t0 = time.perf_counter()
+    rows = rng.standard_normal((args.rows, D), dtype=np.float32)
+    queries = rng.standard_normal((B, D), dtype=np.float32).astype(np.float64)
+    log(f"  data {args.rows} x {D} made in {time.perf_counter() - t0:.2f} s")
+    launches, exact_ids = main_path(
+        vl, _build, native.RESCORE, dev, rows, queries, card, args.batches)
+    log(f"  host peak RSS after phase 3: {peak_rss_gb():.2f} GB")
+    gc.collect()  # the phase-3 collections go before the pq collection comes
+    torch.cuda.empty_cache()
 
+    log(f"[4] the pq profile through the SDK (N={args.rows}, D={D}, B={B}, k={K})")
+    launches["pq_rank"] = pq_path(
+        vl, _build, pq, native.RESCORE, dev, rows, queries, exact_ids, card,
+        args.batches, rng)
+    log(f"  host peak RSS after phase 4: {peak_rss_gb():.2f} GB; smoke run "
+        f"{time.perf_counter() - started:.1f} s, builds included")
+
+    by_symbol = {kern.symbol: kern for kern in _build.KERNELS}
+    if set(by_symbol) != set(REPLACES):
+        raise AssertionError(f"kernels {sorted(by_symbol)} vs REPLACES {sorted(REPLACES)}")
     kernels = []
-    for kern in scan.KERNELS:
+    for kern in (by_symbol[symbol] for symbol in REPLACES):
         t = timing[kern.symbol]
         kernels.append({
             "name": kern.symbol,
             "route": "cuda",
-            "source": "vectorlite_tpu_torch/csrc/scan.cu",
+            "source": kern.source,
             "replaces": REPLACES[kern.symbol],
             "launches": launches[kern.symbol],
             "max_abs_err": errs[kern.symbol],

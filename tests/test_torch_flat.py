@@ -226,3 +226,27 @@ def test_quantized_manhattan_takes_the_full_score_path(corpus, kernel_regime,
     j_ids, j_s = search(jax_index, queries, "MANHATTAN")
     assert np.array_equal(ids, j_ids)
     np.testing.assert_allclose(s, j_s, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("native", ["native", "numpy"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_quantized_rescore_native_and_numpy(corpus, metric, native,
+                                            kernel_regime, monkeypatch):
+    """The quantized profile's f64 re-score of the pool gives the JAX
+    package's ids and scores whether the native streaming loop or its
+    numpy twin (VECTORLITE_NO_NATIVE=1) serves it."""
+    from vectorlite_tpu_torch.native import RESCORE
+
+    if native == "numpy":
+        monkeypatch.setenv("VECTORLITE_NO_NATIVE", "1")
+    rows, deleted, queries = corpus
+    jax_index = build(JFlat(D, device_dtype="int8"), rows, deleted, False)
+    port = build(
+        FlatIndex(D, device_dtype="int8", device="cpu"), rows, deleted, False
+    )
+    calls = RESCORE.calls
+    ids, s = search(port, queries, metric)
+    assert RESCORE.calls == calls + (native == "native")
+    j_ids, j_s = search(jax_index, queries, metric)
+    assert np.array_equal(ids, j_ids)
+    np.testing.assert_allclose(s, j_s, rtol=1e-12, atol=1e-12)

@@ -7,8 +7,9 @@ of JAX or of ``vectorlite_tpu``; the modules that carry no JAX are kept
 as copies of their own.
 
 Ported so far: the Flat search path from the SDK client down to the scan
-kernels (see ROADMAP.md for what is still to come). Entry points run on
-the CUDA card unless given ``device="cpu"``.
+kernels, and the ``pq`` profile down to the ADC rank kernel with the
+native f64 re-score (see ROADMAP.md for what is still to come). Entry
+points run on the CUDA card unless given ``device="cpu"``.
 """
 
 from .core.types import DEFAULT_VECTOR_DIMENSION, SearchResult, Vector

@@ -11,11 +11,11 @@ default (fast)       16    32   auto (f32; bf16 / int8 + exact rescore at scale)
 memory-optimized      8    16   bfloat16
 high-accuracy        32    64   float32
 quantized            16    32   int8 (+ exact rescore)
+pq                   16    32   pq: 4-bit codes, ADC selection (K5) + exact rescore
 ==================  ====  ====  ==========================================
 
 Select via ``VectorLiteConfig.profile("memory-optimized")`` or the
-``VECTORLITE_PROFILE`` environment variable. The PQ profile comes with
-the PQ port.
+``VECTORLITE_PROFILE`` environment variable.
 
 The device is explicit: ``None`` means the CUDA card, and a machine
 without one raises instead of quietly serving from the CPU. Tests pass
@@ -38,6 +38,9 @@ _PROFILES = {
     # int8 corpus on the flat index (exact host re-score of the k
     # winners); 4x less device memory than f32
     "quantized": dict(hnsw_m=16, hnsw_m0=32, device_dtype="int8"),
+    # product-quantized flat corpus: 4-bit codes + codebooks on the device
+    # (96 bytes a row at 384-d), ADC selection, exact host re-score
+    "pq": dict(hnsw_m=16, hnsw_m0=32, device_dtype="pq"),
 }
 
 

@@ -22,15 +22,20 @@ Here:
   (kernels/topk.py), which also serves Manhattan over int8 rows, as in
   the reference. Small corpora with tiny batches are scanned in f64 on
   the host.
+* **PQ rung** (``device_dtype="pq"``) — past ``VECTORLITE_PQ_MIN_ROWS``
+  live rows, uint8 product-quantization codes + learned codebooks replace
+  the f32 cache (kernels/pq.py); every query ranks with the ADC kernel K5
+  over the codes, and a wide pool is re-scored in exact f64 on the host.
 * **Delete** — validity-mask clear (the reference's ``retain``
   semantics: deleting an absent id succeeds, reference: src/index/flat.rs:93-96).
 
-Returned scores are exact (f64 host math or f32 device re-scoring);
+Returned scores are exact (f64 host math — the native streaming
+re-score of ``native.py``, or numpy — or f32 device re-scoring);
 selection is exact on the host path and on ``approx=False``.
 
-Not yet ported: PQ and IVF rungs, the device mesh, the pipelined
-``search_batch_stream``, the native f64 re-score, the disk-backed truth
-matrix, and ``delete_where`` / ``list_vectors`` / ``update_metadata``.
+Not yet ported: the IVF rung, the device mesh, the pipelined
+``search_batch_stream``, the disk-backed truth matrix, and
+``delete_where`` / ``list_vectors`` / ``update_metadata``.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from ..config import resolve_device
 from ..core.metrics import SimilarityMetric, disable_tf32, quantize_rows_int8
 from ..core.types import SearchResult, Vector
 from ..errors import DimensionMismatch, DuplicateVectorId
-from ..kernels import scan
+from ..kernels import pq, scan
 from ..kernels.topk import (
     next_pow2,
     row_sqnorms,
@@ -53,10 +58,34 @@ from ..kernels.topk import (
     search_topk_int8,
     update_rows,
 )
+from ..native import RESCORE
 from ..utils import env_number
 from .base import validate_batch_arrays
 
 _MIN_CAPACITY = 256
+
+#: rows per PQ encode step — bounds the per-step [rows, kc] assignment
+#: temp and the f64 -> f32 staging copy
+_PQ_ENCODE_BUCKET = 1 << 17
+
+
+def _pq_scan_chunk(bits: int = 4) -> int:
+    """Corpus rows per PQ selection step: the [B, chunk] f32 rank is the
+    footprint that grows (256 MB at 256 x 256K). The 8-bit profile keeps
+    the reference's narrower 64K chunk. VECTORLITE_PQ_CHUNK overrides
+    either."""
+    default = (1 << 18) if bits == 4 else (1 << 16)
+    return max(1024, int(env_number("VECTORLITE_PQ_CHUNK", default)))
+
+
+def _pq_bits() -> int:
+    """PQ code width: 4 (default; kc = 16, dsub = 2, two codes a byte) or
+    8 (kc = 256, dsub = 4). VECTORLITE_PQ_BITS overrides; read at
+    wholesale build time only."""
+    bits = int(env_number("VECTORLITE_PQ_BITS", 4))
+    return bits if bits in (4, 8) else 4
+
+
 _MAX_K_BUCKET = 1024  # openapi k bound (reference: docs/openapi.yaml:624-630)
 
 #: At or above this capacity the fused scan kernels take over from the
@@ -323,6 +352,14 @@ class FlatIndex:
         self._auto_dtype = device_dtype == "auto"
         if self._auto_dtype:
             device_dtype = torch.float32
+        # "pq" selects the product-quantization rung (kernels/pq.py): codes
+        # + learned codebooks on the device, ADC selection (K5) with a wide
+        # pool, exact f64 host re-scoring of the winners. Below the
+        # training gate the profile serves the plain f32 path; it engages
+        # at the first sync past the gate.
+        self._pq = device_dtype == "pq"
+        if self._pq:
+            device_dtype = torch.float32
         self._quantized = device_dtype in ("int8", torch.int8)
         self._device_dtype = torch.int8 if self._quantized else device_dtype
         if self._device_dtype not in (torch.float32, torch.bfloat16, torch.int8):
@@ -371,6 +408,14 @@ class FlatIndex:
         self._dev_scales: Optional[torch.Tensor] = None  # int8 storage only
         self._dev_sqnorms: Optional[torch.Tensor] = None
         self._dev_valid: Optional[torch.Tensor] = None
+        self._dev_codes: Optional[torch.Tensor] = None  # pq profile only
+        self._dev_codebooks: Optional[torch.Tensor] = None  # pq profile only
+        self._pq_rot: Optional[torch.Tensor] = None  # OPQ-lite rotation
+        self._pq_packed = False  # 4-bit codes, two per stored byte
+        self._pq_active = False  # pq cache built and serving
+        # code width of the live cache, frozen at the wholesale build: the
+        # env knob read later must not re-shape the pool floor
+        self._pq_bits_active: Optional[int] = None
         self._dirty_lo = 0
         self._dirty_hi = 0
         self._mask_dirty = True
@@ -1007,6 +1052,10 @@ class FlatIndex:
         exactly. ``None`` engages the speed path at kernel scale."""
         if filtered or metric is SimilarityMetric.MANHATTAN:
             return False
+        if self._pq:
+            # the PQ branch selects exhaustively over ADC ranks; the block
+            # engine never sees the code matrix
+            return False
         if not _use_pallas(self._capacity):
             return False
         if not self._block_selection_feasible(k_pad):
@@ -1019,6 +1068,20 @@ class FlatIndex:
         """Candidate-list width for device selection: reduced-precision
         storage ranks on approximate scores, so it selects 2x the bucket
         for the host's exact re-score to re-sort."""
+        if self._pq:
+            # PQ ranking error is far larger than int8's: a wide pool floor
+            # and 4x oversampling. The floor keys off the live cache's code
+            # width (frozen at the wholesale build), and for 4-bit codes
+            # doubles once per 8x high-water rows past 2M (8M -> 512,
+            # 64M -> 1024): pool recall at a fixed width decays as N grows.
+            if self._pq_code_bits() == 4:
+                live, base, thresh = max(1, self._size), 256, 2 << 20
+                while base < 2048 and live > thresh:
+                    base, thresh = base * 2, thresh * 8
+            else:
+                base = 128
+            floor = int(env_number("VECTORLITE_PQ_POOL_MIN", base))
+            return min(self._capacity, next_pow2(max(4 * k_pad, floor)))
         if self._quantized or self._prospective_dtype() != torch.float32:
             return min(self._capacity, next_pow2(2 * k_pad))
         return k_pad
@@ -1028,33 +1091,36 @@ class FlatIndex:
         needs at least k_pad of them."""
         return k_pad * (128 // _BLOCK_WINNERS) <= self._capacity
 
+    def _pq_code_bits(self) -> int:
+        """Code width of the live PQ cache (frozen at its wholesale build),
+        else the one the next build will use."""
+        if self._pq_bits_active is not None:
+            return self._pq_bits_active
+        return _pq_bits()
+
     def _needs_rescore(self) -> bool:
         """Exact f64 host re-scoring of the winners whenever device scores
-        ran on reduced-precision storage (int8/bf16)."""
-        return self._quantized or self._device_dtype == torch.bfloat16
+        ran on reduced-precision storage (int8/bf16/PQ codes)."""
+        return (
+            self._quantized
+            or self._pq_active
+            or self._device_dtype == torch.bfloat16
+        )
 
     def _exact_rescore(self, q64, scores, slots, metric):
         """Re-score the k winners in exact float64 host math and re-sort
         each row (candidates sorted by slot first, so exact-score ties
-        break to the LOWEST row)."""
-        q = q64[:, None, :]
-        v = self._values64[slots]  # [B, k, D]
-        if metric is SimilarityMetric.DOT_PRODUCT:
-            exact = np.matmul(v, q64[:, :, None])[..., 0]
-        elif metric is SimilarityMetric.COSINE:
-            dot = np.matmul(v, q64[:, :, None])[..., 0]
-            vn = self._host_norms()[slots]
-            qn = np.linalg.norm(q64, axis=-1, keepdims=True)
-            denom = vn * qn
-            with np.errstate(invalid="ignore", divide="ignore"):
-                exact = np.where(
-                    denom > 0.0, dot / np.maximum(denom, 1e-300), 0.0
-                )
-            np.minimum(exact, 1.0, out=exact)
-        elif metric is SimilarityMetric.EUCLIDEAN:
-            exact = 1.0 / (1.0 + np.linalg.norm(v - q, axis=-1))
-        else:
-            exact = 1.0 / (1.0 + np.sum(np.abs(v - q), axis=-1))
+        break to the LOWEST row). The native streaming loop (native.py)
+        reads each candidate row once; the numpy version below is its
+        plain twin, serving when the native code is off or did not
+        build."""
+        exact = RESCORE(
+            self._values64,
+            self._host_norms() if metric is SimilarityMetric.COSINE else None,
+            q64, slots, metric,
+        )
+        if exact is None:
+            exact = self._exact_scores_numpy(q64, slots, metric)
         exact = np.where(scores == -np.inf, -np.inf, exact)
         slot_order = np.argsort(slots, axis=1, kind="stable")
         exact = np.take_along_axis(exact, slot_order, axis=1)
@@ -1064,6 +1130,28 @@ class FlatIndex:
             np.take_along_axis(exact, order, axis=1),
             np.take_along_axis(slots, order, axis=1),
         )
+
+    def _exact_scores_numpy(self, q64, slots, metric):
+        """[B, k] exact f64 scores of ``slots`` (numpy: a [B, k, D]
+        gather, then batched products)."""
+        q = q64[:, None, :]
+        v = self._values64[slots]  # [B, k, D]
+        if metric is SimilarityMetric.DOT_PRODUCT:
+            return np.matmul(v, q64[:, :, None])[..., 0]
+        if metric is SimilarityMetric.COSINE:
+            dot = np.matmul(v, q64[:, :, None])[..., 0]
+            vn = self._host_norms()[slots]
+            qn = np.linalg.norm(q64, axis=-1, keepdims=True)
+            denom = vn * qn
+            with np.errstate(invalid="ignore", divide="ignore"):
+                exact = np.where(
+                    denom > 0.0, dot / np.maximum(denom, 1e-300), 0.0
+                )
+            np.minimum(exact, 1.0, out=exact)
+            return exact
+        if metric is SimilarityMetric.EUCLIDEAN:
+            return 1.0 / (1.0 + np.linalg.norm(v - q, axis=-1))
+        return 1.0 / (1.0 + np.sum(np.abs(v - q), axis=-1))
 
     def _host_norms(self) -> np.ndarray:
         """Float64 row L2-norm table, extended lazily to the append
@@ -1105,6 +1193,8 @@ class FlatIndex:
             if approx and not self._block_selection_feasible(k_pad):
                 approx = False
             queries = torch.from_numpy(q).to(self._device)
+            if self._pq_active:
+                return self._pq_topk(queries, k_pad, metric, valid)
             tile = (
                 _PALLAS_TILE_BF16
                 if self._device_dtype == torch.bfloat16
@@ -1165,6 +1255,26 @@ class FlatIndex:
                 metric=metric, k=k_pad, tile_n=tile,
             )
 
+    def _pq_topk(self, queries, k_pad, metric, valid):
+        """Streaming ADC over the code matrix (K5 per chunk). The code
+        quantization, the bf16 LUT and the k + 32 pool trim are the
+        approximations; the wide _selection_k pool and the caller's exact
+        f64 re-score absorb them."""
+        sel_metric = metric
+        if self._pq_rot is not None:
+            queries = queries.to(torch.float32) @ self._pq_rot
+            if metric is SimilarityMetric.MANHATTAN:
+                # L1 is not rotation-invariant: select through the
+                # rotation-invariant euclidean proxy (dot + norms); the
+                # exact L1 re-score restores true scores and order
+                sel_metric = SimilarityMetric.EUCLIDEAN
+        return pq.pq_search_topk(
+            self._dev_codes, self._dev_codebooks, self._dev_sqnorms, valid,
+            queries, metric=sel_metric, k=min(k_pad, self._capacity),
+            chunk=min(_pq_scan_chunk(self._pq_code_bits()), self._capacity),
+            packed=self._pq_packed,
+        )
+
     def _pool_k(self, k_sel: int, k_pad: int) -> int:
         """The K3 pool width, within what the lane groups can yield
         (capacity/128*W candidates)."""
@@ -1207,13 +1317,19 @@ class FlatIndex:
             new_norms[:n] = self._host_norms64[:n]
             self._host_norms64 = new_norms
         self._capacity = new_cap
-        # capacity changed: device tensors are rebuilt wholesale
+        # capacity changed: device tensors are rebuilt wholesale, and the
+        # PQ codebooks retrain on the (roughly 2x larger) corpus, so drift
+        # from appends is bounded by one capacity generation
         self._drop_device()
+        self._dev_codebooks = None
         self._dirty_lo, self._dirty_hi = 0, self._size
         self._mask_dirty = True
 
     def _drop_device(self) -> None:
+        """Drop the device caches; PQ codebooks survive (a compaction keeps
+        a subset of the rows, only their slots move)."""
         self._dev_values = None
+        self._dev_codes = None
         self._dev_scan = None
         self._dev_scan_scales = None
         self._dev_scales = None
@@ -1225,7 +1341,11 @@ class FlatIndex:
 
     def _sync_device(self) -> None:
         """Bring the device tensors up to the host truth: a wholesale
-        build when there are none, else the dirty rows in place."""
+        build when there are none, else the dirty rows in place. An
+        active PQ rung has freed the f32 cache, so its check comes
+        first."""
+        if self._pq and self._sync_device_pq():
+            return
         if self._dev_values is None:
             self._build_device()
             return
@@ -1250,6 +1370,108 @@ class FlatIndex:
         if self._mask_dirty:
             self._dev_valid = self._to_device(self._valid)
             self._mask_dirty = False
+
+    def _sync_device_pq(self) -> bool:
+        """Maintain the PQ cache (codes + codebooks + exact squared norms).
+        True when the PQ rung serves; False below the training gate, where
+        the plain f32 path serves and the first sync past the gate swaps
+        the cache wholesale."""
+        gate = max(1024, int(env_number("VECTORLITE_PQ_MIN_ROWS", 16384)))
+        if self._dev_codes is None:
+            if self._size < gate:
+                self._pq_active = False
+                return False
+            if self._dev_codebooks is None:
+                self._train_pq()
+            # encode every slot below capacity in fixed buckets; each casts
+            # its own f64 rows to f32 (no full-capacity f32 staging copy).
+            # Invalid slots encode too; the validity mask hides them.
+            step = min(_PQ_ENCODE_BUCKET, self._capacity)
+            m = int(self._dev_codebooks.shape[0])
+            codes = torch.empty(
+                (self._capacity, m // 2 if self._pq_packed else m),
+                dtype=torch.uint8, device=self._device,
+            )
+            for lo in range(0, self._capacity, step):
+                update_rows(
+                    codes, self._encode_pq(self._values64[lo : lo + step]), lo
+                )
+            self._dev_codes = codes
+            # exact squared norms from the f64 truth, reduced straight to
+            # [cap] (no [cap, D] temp)
+            sq = np.einsum("nd,nd->n", self._values64, self._values64)
+            self._dev_sqnorms = self._to_device(sq.astype(np.float32))
+            self._dev_valid = self._to_device(self._valid)
+            # free the f32 cache (the whole point is capacity)
+            self._dev_values = None
+            self._dev_scan = None
+            self._dev_scan_scales = None
+            self._dev_scales = None
+            self._precision_risky = False
+            self._dirty_lo = self._dirty_hi = self._size
+            self._mask_dirty = False
+            self._pq_active = True
+            return True
+        if self._dirty_hi > self._dirty_lo:
+            # appended rows use the codebooks (and rotation) of the last
+            # wholesale build; the next capacity doubling retrains
+            lo, hi = self._dirty_lo, self._dirty_hi
+            rows32 = self._to_device(self._values64[lo:hi].astype(np.float32))
+            update_rows(self._dev_sqnorms, row_sqnorms(rows32), lo)
+            update_rows(self._dev_codes, self._encode_pq(self._values64[lo:hi]), lo)
+            self._dirty_lo = self._dirty_hi = self._size
+        if self._mask_dirty:
+            self._dev_valid = self._to_device(self._valid)
+            self._mask_dirty = False
+        self._pq_active = True
+        return True
+
+    def _train_pq(self) -> None:
+        """Fix the code layout and the rotation, and train the codebooks
+        on a default_rng(0) sample of live rows."""
+        bits = _pq_bits()
+        kc = 16 if bits == 4 else 256
+        m = pq.pq_subspaces(
+            self.dim,
+            int(
+                env_number(
+                    "VECTORLITE_PQ_M", max(1, self.dim // (2 if bits == 4 else 4))
+                )
+            ),
+        )
+        self._pq_packed = bits == 4 and m % 2 == 0
+        self._pq_bits_active = bits
+        # OPQ-lite, decided at the wholesale build only, so appends always
+        # encode like the live cache
+        self._pq_rot = (
+            self._to_device(pq.rotation_matrix(self.dim))
+            if env_number("VECTORLITE_PQ_ROTATE", 1) == 1
+            else None
+        )
+        sample_n = min(
+            self._size, int(env_number("VECTORLITE_PQ_TRAIN_SAMPLE", 32768))
+        )
+        live = np.nonzero(self._valid[: self._size])[0]
+        if len(live) > sample_n:
+            sel = np.random.default_rng(0).choice(live, sample_n, replace=False)
+            sel.sort()
+        else:
+            sel = live
+        sample = self._to_device(self._values64[sel].astype(np.float32))
+        if self._pq_rot is not None:
+            sample = sample @ self._pq_rot
+        self._dev_codebooks = pq.train_codebooks(
+            sample, m, kc=kc,
+            iters=int(env_number("VECTORLITE_PQ_TRAIN_ITERS", 16)),
+        )
+
+    def _encode_pq(self, rows64: np.ndarray) -> torch.Tensor:
+        """Device codes of f64 rows: cast, rotate, encode, pack."""
+        rows = self._to_device(rows64.astype(np.float32))
+        if self._pq_rot is not None:
+            rows = rows @ self._pq_rot
+        codes = pq.encode_rows(self._dev_codebooks, rows)
+        return pq.pack_nibbles(codes) if self._pq_packed else codes
 
     def _build_device(self) -> None:
         """Wholesale build. "auto" resolves on every build (capacity

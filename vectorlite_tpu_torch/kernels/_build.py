@@ -1,11 +1,16 @@
-"""Build the package's CUDA sources at first use and load them with ctypes.
+"""Build the package's native sources at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds), under ``csrc/build/`` and keyed by a hash of the source
-and the flags: an edited source builds anew, an unchanged one loads the
-library already built. ``build_all`` starts one ``nvcc`` per source, all
-at once. Nothing here runs at import time.
+takes seconds); each ``csrc/<name>.cpp`` (host code) compiles with ``g++``
+the same way. Libraries go under ``csrc/build/``, keyed by a hash of the
+source and the flags: an edited source builds anew, an unchanged one loads
+the library already built. ``build_all`` starts one compiler per source,
+all at once. Nothing here runs at import time.
+
+``Kernel`` is one C entry of a CUDA library with the count of its
+launches; every ``Kernel`` made registers itself in ``KERNELS``, the one
+list of the package's kernels across all sources.
 """
 
 from __future__ import annotations
@@ -26,11 +31,21 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+#: host code: no -march=native, so a library built on one host runs on any
+#: x86-64 host of the same ABI
+GXX_FLAGS = (
+    "-O3", "-std=c++17", "-shared", "-fPIC", "-funroll-loops", "-fopenmp-simd",
+)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: compiler output (ptxas register / spill report) of this process's builds
 build_logs: dict[str, str] = {}
+
+
+def sources() -> list[str]:
+    """Names of every native source under csrc/ (CUDA and host)."""
+    return sorted(p.stem for p in (*CSRC.glob("*.cu"), *CSRC.glob("*.cpp")))
 
 
 def _nvcc() -> str:
@@ -49,23 +64,43 @@ def _nvcc() -> str:
     return path
 
 
+def _gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found: the host library needs a C++ compiler")
+    return path
+
+
+def _source(name: str) -> Path:
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _command(src: Path) -> list[str]:
+    if src.suffix == ".cu":
+        return [_nvcc(), *NVCC_FLAGS]
+    return [_gxx(), *GXX_FLAGS]
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src = _source(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
     digest = hashlib.sha256(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns
+    """Start the compiler for ``name`` unless its library exists; returns
     (process or None, temporary output, final output)."""
     out = _target(name)
     if out.exists():
         return None, None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    src = _source(name)
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [*_command(src), "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT,
         text=True,
@@ -79,19 +114,21 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> None:
     log, _ = proc.communicate()
     build_logs[name] = log
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"build failed for csrc/{_source(name).name}:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or none
 
 
 def build_all(names) -> None:
-    """Compile every named source in parallel (one nvcc each)."""
+    """Compile every named source in parallel (one compiler each)."""
     started = [(n, *_start(n)) for n in names]
     for n, proc, tmp, out in started:
         _finish(n, proc, tmp, out)
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cpp``, built on
+    first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -99,3 +136,37 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, proc, tmp, out)
             lib = _libs[name] = ctypes.CDLL(str(out))
         return lib
+
+
+class Kernel:
+    """One C entry of ``csrc/<library>.cu`` and the count of its launches.
+    The entry returns the CUDA error of its launch (0 when none)."""
+
+    def __init__(self, library: str, symbol: str, argtypes: list):
+        self.library = library
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        KERNELS.append(self)
+
+    @property
+    def source(self) -> str:
+        return f"vectorlite_tpu_torch/csrc/{self.library}.cu"
+
+    def launch(self, *args) -> None:
+        fn = getattr(load(self.library), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
+        self.launches += 1
+
+
+#: every kernel of the package, in the order its modules made them
+KERNELS: list[Kernel] = []
+
+
+def reset_launch_counts() -> None:
+    for kernel in KERNELS:
+        kernel.launches = 0

@@ -64,46 +64,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-class Kernel:
-    """One C entry of ``csrc/scan.cu`` and the count of its launches."""
-
-    def __init__(self, symbol: str, argtypes: list):
-        self.symbol = symbol
-        self.argtypes = argtypes
-        self.launches = 0
-
-    def launch(self, *args) -> None:
-        fn = getattr(_build.load("scan"), self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        err = fn(*args)
-        if err != 0:
-            raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
-        self.launches += 1
-
-
-SCAN_TOPK_EXACT = Kernel(
-    "scan_topk_exact",
+SCAN_TOPK_EXACT = _build.Kernel(
+    "scan", "scan_topk_exact",
     [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
-SCAN_TOPK_EXACT_INT8 = Kernel(
-    "scan_topk_exact_int8",
+SCAN_TOPK_EXACT_INT8 = _build.Kernel(
+    "scan", "scan_topk_exact_int8",
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
-SCAN_BLOCK_TOPW = Kernel(
-    "scan_block_topw",
+SCAN_BLOCK_TOPW = _build.Kernel(
+    "scan", "scan_block_topw",
     [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
-SCAN_TOPK_L1 = Kernel(
-    "scan_topk_l1",
+SCAN_TOPK_L1 = _build.Kernel(
+    "scan", "scan_topk_l1",
     [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 )
-KERNELS = (SCAN_TOPK_EXACT, SCAN_TOPK_EXACT_INT8, SCAN_BLOCK_TOPW, SCAN_TOPK_L1)
-
-
-def reset_launch_counts() -> None:
-    for kernel in KERNELS:
-        kernel.launches = 0
 
 
 # ------------------------------------------------------------ plain versions
