@@ -1,13 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--rows N] [--seed S] [--batches N]
+    python3 chip_smoke.py [--rows N] [--ivf-rows N] [--seed S] [--batches N]
 
 Phases (any failure raises and the exit code is not 0):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every native source under vectorlite_tpu_torch/csrc (scan.cu,
-   pq.cu with nvcc, host_rescore.cpp with g++; one compiler per source,
-   all started together).
+   pq.cu, ivf.cu with nvcc, host_rescore.cpp with g++; one compiler per
+   source, all started together).
 2. Kernels against their plain-torch versions on the card: K1 on f32 and
    bf16 rows, with k > 32 (shared-memory lists) and k > 256 (lists in the
    output), K2, K3 on f32, bf16 and int8 rows (three metrics), K4 on f32
@@ -26,6 +26,13 @@ Phases (any failure raises and the exit code is not 0):
    beside the chunk selection that follows it. Tolerance: the same -inf
    pattern, finite ranks within rtol/atol 2e-5 (f32 sums of bf16 values
    taken in another order).
+   K6 (gather_score) against gather_score_plain: bf16 and int8 blocks,
+   D = 384 and 100, P = 128 and 640, B = 5 and 64, L = 3 and 16, with
+   repeated and out-of-order cell ids; then at the IVF shape (C = 4,096,
+   P = 640, D = 384, B = 64, L = 16) on both layouts, timed beside the
+   plain version and a torch.bmm of the blocks gathered outside the
+   timing (the library yardstick). Tolerance: |diff| <= 1e-5 * max(1,
+   max |out|) (f32 sums of the same products taken in another order).
 3. Main path through the SDK at 2^20 x 384 (random rows from the seed),
    batches of 256, k=10: the default call with the precision guard on
    (whichever kernel it picks on this corpus), then with the guard off
@@ -47,7 +54,29 @@ Phases (any failure raises and the exit code is not 0):
    plain rank; self-hit (256 stored rows + N(0, 0.01^2) noise return
    their row first) >= 0.99; recall@10 of the cosine path against phase
    3's exact K1 results >= 0.90.
-5. A `kernels` JSON line, the card line, and last
+5. The IVF rung through the SDK, after the phase-4 collection is freed:
+   --ivf-rows (2,000,000) x 384 clustered rows (bench/probe_scale8m.py's
+   make_clustered geometry, 2,048 clusters, --seed), queries fresh draws
+   from the same mixture, k=10. The first search builds the layout (timed;
+   C, P, the nprobe floor, extras, layout dtype and the precision guard's
+   verdict reported); the phase fails unless IVF activates. Batches of 64
+   (halved while B * nprobe * P exceeds half the live rows): cosine (the
+   default call), euclidean and dot through IVF, with the counts zeroed
+   just before each and read just after (K6 must launch, K1 and K3 must
+   not); then the brute engines on the same collection and batches:
+   approx=False (K1), and the default call with the layout set aside (the
+   speed path K3, or K1 where the precision guard refuses it).
+   Recall@10 of the cosine path against K1 >= 0.99 (256 queries); each
+   IVF path's ids equal, beyond 1e-5 near-ties, those of the same pipeline
+   with gather_score_plain. One batch of 256 falls through to the brute
+   engine (no K6). 4,096 appended rows ride the tail (the layout's
+   watermark stays) and each comes back first for itself + N(0, 0.01^2)
+   noise; 1,000 deleted rows never come back. Then a `quantized`-profile
+   collection of the same rows: an int8 layout, K6 on its int8 branch,
+   the native f64 re-score, recall@10 >= 0.99 against its exact K2.
+   Every path: p50/p99/QPS, device stage (dispatch to synchronize) and
+   host time; the phase's time and the peak host RSS.
+6. A `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 The native sources build into vectorlite_tpu_torch/csrc/build/
@@ -86,6 +115,7 @@ REPLACES = {
     "scan_block_topw": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_topk_l1": "vectorlite_tpu/kernels/pallas_l1.py:44",
     "pq_rank": "vectorlite_tpu/kernels/pq.py:291",
+    "gather_score": "vectorlite_tpu/kernels/ivf.py:290",
 }
 
 
@@ -417,6 +447,126 @@ def time_pq_kernel(pq, SM, dev, rng, n: int, errs: dict) -> dict:
     return out
 
 
+# the IVF shape: 2,000,000 rows at 512 a cell -> C = 4,096 cells of
+# P = ceil(1.25 * 2e6 / 4096) = 611 -> 640 rows; nprobe 16; batches of 64
+IVF_C, IVF_P, IVF_B, IVF_L = 4096, 640, 64, 16
+
+
+def probe_operands(dev, rng, c, p, d, b, l_probe, dtype):
+    """Random [C * P, D] blocks (bf16 or int8), [B, L] cell ids with a
+    query that probes one cell again and again and one that probes in
+    descending order, and [B, D] f32 queries, on the card."""
+    if dtype == "int8":
+        rows = torch.from_numpy(rng.integers(-127, 128, (c * p, d), dtype=np.int8)).to(dev)
+    else:
+        rows = torch.from_numpy(rng.standard_normal((c * p, d), dtype=np.float32)).to(
+            dev).to(torch.bfloat16)
+    ids = rng.integers(0, c, (b, l_probe)).astype(np.int32)
+    ids[0] = ids[0, 0]
+    if b > 1:
+        ids[1] = np.sort(ids[1])[::-1]
+    q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
+    return rows, torch.from_numpy(np.ascontiguousarray(ids)).to(dev), q
+
+
+def compare_probe(label, got, want) -> float:
+    """K6 against the plain probe: |diff| <= 1e-5 * max(1, max |out|)."""
+    err = float((got - want).abs().max())
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    log(f"  {label:48s} max_abs_err {err:.3g} (tolerance {tol:.3g})")
+    if not err <= tol:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def check_ivf_kernel(ivf, dev, rng) -> float:
+    """Phase 2e: K6 against gather_score_plain at small shapes."""
+    err = 0.0
+    for dtype in ("bf16", "int8"):
+        for d in (384, 100):
+            for c, p, b, l_probe in ((16, 128, 5, 3), (16, 640, 64, 16)):
+                rows, ids, q = probe_operands(dev, rng, c, p, d, b, l_probe, dtype)
+                got = ivf.gather_score_pallas(rows, ids, q, p_width=p)
+                torch.cuda.synchronize()
+                want = ivf.gather_score_plain(rows, ids, q, p_width=p)
+                label = f"gather_score {dtype} C{c} P{p} D{d} B{b} L{l_probe}"
+                err = max(err, compare_probe(label, got, want))
+    return err
+
+
+def time_ivf_kernel(ivf, dev, rng, errs: dict) -> dict:
+    """Phase 2f: K6 at the IVF shape on both layouts, held against the
+    plain probe and timed beside it and a torch.bmm of the same blocks
+    gathered outside the timing; the bound counts each distinct probed
+    block read once. The bf16 layout (the default profile's) is the
+    kernel line's."""
+    out = {}
+    for dtype in ("bf16", "int8"):
+        rows, ids, q = probe_operands(dev, rng, IVF_C, IVF_P, D, IVF_B, IVF_L, dtype)
+        got = ivf.gather_score_cuda(rows, ids, q, p_width=IVF_P)
+        want = ivf.gather_score_plain(rows, ids, q, p_width=IVF_P)
+        err = compare_probe(f"gather_score {dtype} at the IVF shape", got, want)
+        errs["gather_score"] = max(errs.get("gather_score", 0.0), err)
+        del got, want
+        q_op = ivf._query_operand(rows, q).contiguous()
+
+        def kern():
+            return ivf.launch_gather_score(rows, ids, q_op, p_width=IVF_P)
+
+        def plain():
+            return ivf.gather_score_plain(rows, ids, q, p_width=IVF_P)
+
+        # library yardstick: one batched product of the pre-gathered
+        # [B, L * P, D] blocks with the query (bf16, or f32 over the int8
+        # values cast to f32), built outside the timing
+        blocks = rows.reshape(IVF_C, IVF_P, D)[ids.long()].reshape(IVF_B, IVF_L * IVF_P, D)
+        if dtype == "int8":
+            blocks, q_lib = blocks.to(torch.float32), q_op[:, :, None]
+        else:
+            q_lib = q_op.to(torch.bfloat16)[:, :, None]
+        ms, plain_ms = interleaved_ms(kern, plain, reps=50, plain_reps=5)
+        lib_ms = cuda_time_ms(lambda: torch.bmm(blocks, q_lib), 20)
+        checked_ms = cuda_time_ms(
+            lambda: ivf.gather_score_cuda(rows, ids, q, p_width=IVF_P), 20)
+        wrapper_ms = cuda_time_ms(
+            lambda: ivf.gather_score_pallas(rows, ids, q, p_width=IVF_P), 20)
+        del blocks
+        distinct = int(torch.unique(ids).numel())
+        itemsize = 1 if dtype == "int8" else 2
+        nbytes = (distinct * IVF_P * D * itemsize + IVF_B * IVF_L * IVF_P * 4
+                  + IVF_B * IVF_L * 4 + IVF_B * D * 4)
+        pair_bytes = IVF_B * IVF_L * IVF_P * D * itemsize
+        ops = 2.0 * IVF_B * IVF_L * IVF_P * D
+        op_type = "f32" if dtype == "int8" else "bf16"
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
+        out[dtype] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                      "library_ms": lib_ms}
+        log(f"  gather_score {dtype} (C {IVF_C} P {IVF_P} D {D} B {IVF_B} L {IVF_L}, "
+            f"{distinct} distinct cells) kernel {ms:.4f} ms  search wrapper "
+            f"{wrapper_ms:.4f} ms  with the id check {checked_ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  "
+            f"bound {out[dtype]['bound_ms']:.4f} ms ({out[dtype]['bound_by']}, {op_type} "
+            f"rate; each (query, probe) block read once: "
+            f"{pair_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms)")
+        del rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def timed(spent: dict, key: str, fn, sync: bool):
+    """``fn`` with each call's host-clock ms appended to spent[key]; with
+    ``sync`` the time runs to torch.cuda.synchronize()."""
+    def run(*args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        spent[key].append((time.perf_counter() - t) * 1e3)
+        return out
+    return run
+
+
 def run_batches(fn, queries, n_batches: int):
     """Warm call, then n_batches timed calls; (results of the last call,
     per-batch wall-clock ms). Results come back to the host, so each
@@ -477,8 +627,9 @@ def with_env(fn, name: str, value: str):
 
 
 def drive(paths, queries, n_batches, build, card, native=None):
-    """Run each (name, fn) path; returns its results and launch deltas."""
-    results, moved_all = {}, {}
+    """Run each (name, fn) path; returns its results, launch deltas and
+    per-batch ms."""
+    results, moved_all, times = {}, {}, {}
     for name, fn in paths:
         before = {kk.symbol: kk.launches for kk in build.KERNELS}
         calls = native.calls if native is not None else 0
@@ -492,11 +643,12 @@ def drive(paths, queries, n_batches, build, card, native=None):
         extra = f"; native re-scores {native.calls - calls}" if native is not None else ""
         results[name] = res
         moved_all[name] = moved
-        log(f"  {name:42s} QPS {B * n_batches / (ms.sum() / 1e3):.1f}  "
+        times[name] = ms
+        log(f"  {name:42s} QPS {len(queries) * n_batches / (ms.sum() / 1e3):.1f}  "
             f"batch p50 {np.percentile(ms, 50):.3f} ms p99 {np.percentile(ms, 99):.3f} ms  "
             f"slowest #{int(ms.argmax())} of {n_batches}, full GC passes {gc2}  "
             f"(first call + {n_batches} batches {wall:.2f} s; launches {moved}{extra}) [{card}]")
-    return results, moved_all
+    return results, moved_all, times
 
 
 def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
@@ -558,7 +710,7 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     ]
     build.reset_launch_counts()
     calls = native.calls
-    results, _ = drive(paths, queries, n_batches, build, card, native)
+    results, _, _ = drive(paths, queries, n_batches, build, card, native)
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
     for sym, count in launches.items():
         if count == 0 and sym.startswith("scan_"):
@@ -635,19 +787,8 @@ def pq_path(vl, build, pq, native, dev, rows, queries, exact_ids, card: str,
     # the device stage (dispatch to synchronize) and the host re-score,
     # each timed apart on the host clock
     spent = {"device": [], "rescore": []}
-
-    def timed(key, fn, sync):
-        def run(*args, **kw):
-            t = time.perf_counter()
-            out = fn(*args, **kw)
-            if sync:
-                torch.cuda.synchronize()
-            spent[key].append((time.perf_counter() - t) * 1e3)
-            return out
-        return run
-
-    index._device_topk = timed("device", index._device_topk, True)
-    index._exact_rescore = timed("rescore", index._exact_rescore, False)
+    index._device_topk = timed(spent, "device", index._device_topk, True)
+    index._exact_rescore = timed(spent, "rescore", index._exact_rescore, False)
 
     def search(metric, where=None, k=K):
         return lambda qs: client.search_vectors_in_collection(
@@ -665,8 +806,8 @@ def pq_path(vl, build, pq, native, dev, rows, queries, exact_ids, card: str,
     for name, metric, where in paths:
         spent["device"].clear()
         spent["rescore"].clear()
-        res, moved = drive([(name, search(metric, where))], queries, n_batches,
-                           build, card, native)
+        res, moved, _ = drive([(name, search(metric, where))], queries, n_batches,
+                              build, card, native)
         results[name] = res[name]
         log(f"    device stage p50 {np.percentile(spent['device'], 50):.3f} ms, "
             f"host re-score p50 {np.percentile(spent['rescore'], 50):.3f} ms "
@@ -709,9 +850,297 @@ def pq_path(vl, build, pq, native, dev, rows, queries, exact_ids, card: str,
     return launches
 
 
+IVF_CLUSTERS = 2048
+IVF_TAIL = 4096
+IVF_DELETES = 1000
+
+
+def clustered_mixture(d: int, n_clusters: int, seed: int):
+    """bench/probe_scale8m.py:50 make_clustered's mixture: unit centres,
+    eigen-decaying noise 0.2 / sqrt(1 + i). Returns (rng, centres, noise
+    scale); clustered_rows draws rows from it."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_clusters, d), dtype=np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    scale = 0.2 / np.sqrt(1.0 + np.arange(d, dtype=np.float32))
+    return rng, centers, scale
+
+
+def clustered_rows(rng, centers, scale, n: int) -> np.ndarray:
+    """n unit-norm f32 rows of the mixture, drawn as make_clustered draws
+    them (a cluster id, its centre plus the scaled noise, normalised)."""
+    d = centers.shape[1]
+    out = np.empty((n, d), dtype=np.float32)
+    step = 1 << 20
+    for lo in range(0, n, step):
+        m = min(step, n - lo)
+        cid = rng.integers(0, len(centers), m)
+        rows = centers[cid] + rng.standard_normal((m, d), dtype=np.float32) * scale[None, :]
+        rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+        out[lo : lo + m] = rows
+    return out
+
+
+def device_breakdown(label, fn, queries, reps: int = 5, top: int = 10) -> None:
+    """torch.profiler over ``reps`` calls of fn(queries): the device time a
+    batch by kernel, the top ``top`` printed, and the kernels' busy share
+    of the wall time of the same calls without the profiler (the rest is
+    the device's idle share). A first, discarded profiled run warms the
+    profiler up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(queries)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(queries)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    for _ in range(2):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(queries)
+            torch.cuda.synchronize()
+        wall_on = (time.perf_counter() - t0) * 1e3 / reps
+    # kernel rows only: the operator rows and the spans' device-side ranges
+    # (vectorlite.* from observability.profile_span) repeat their kernels' time
+    rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3 / reps, e.count // reps, e.key)
+            for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("vectorlite.")]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        log(f"  {label}: the profiler recorded no device time (not measured)")
+        return
+    log(f"  {label}: kernels {busy:.3f} ms a batch, {100 * busy / wall:.1f}% of the "
+        f"{wall:.3f} ms wall a batch without the profiler (device idle "
+        f"{100 - 100 * busy / wall:.1f}%; {wall_on:.3f} ms with it); by kernel, "
+        f"ms a batch:")
+    for ms, calls, name in rows[:top]:
+        log(f"    {ms:8.4f}  x{calls:<3d} {name[:90]}")
+
+
+def in_batches(fn, queries, batch: int):
+    """fn over ``queries`` in batches of ``batch``; the rows concatenated."""
+    out = []
+    for lo in range(0, len(queries), batch):
+        out += fn(queries[lo : lo + batch])
+    return out
+
+
+def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
+    """Phase 5: the IVF rung through the SDK; returns K6's launches on the
+    IVF paths of the default profile."""
+    SM = vl.SimilarityMetric
+    started = time.perf_counter()
+    rng, centers, scale = clustered_mixture(D, IVF_CLUSTERS, args.seed)
+    rows = clustered_rows(rng, centers, scale, args.ivf_rows)
+    queries = clustered_rows(rng, centers, scale, B).astype(np.float64)
+    log(f"  data {args.ivf_rows} x {D} ({IVF_CLUSTERS} clusters) made in "
+        f"{time.perf_counter() - started:.2f} s")
+    client = vl.VectorLiteClient(vl.MockEmbeddingFunction(D), device=dev)
+    client.create_collection("ivf", vl.IndexType.FLAT)
+    t0 = time.perf_counter()
+    client.add_vectors_to_collection("ivf", rows)
+    log(f"  add_vectors: {time.perf_counter() - t0:.2f} s")
+    coll = client.get_collection("ivf")
+    with coll.index_read() as index:
+        pass
+    spent = {"device": [], "rescore": [], "ivf_build": []}
+    index._ivf_build = timed(spent, "ivf_build", index._ivf_build, True)
+    t0 = time.perf_counter()
+    client.search_vectors_in_collection("ivf", queries[:IVF_B], K)  # builds
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    if not index._ivf_active:
+        raise AssertionError("IVF did not activate on the clustered corpus")
+    c, p_width, floor = int(index._ivf_cent_sq.shape[0]), index._ivf_p, index._ivf_nprobe_floor
+    nprobe = int(np.clip(max(ivf.NPROBE, floor), 1, c))
+    batch = IVF_B
+    while batch > 1 and batch * nprobe * p_width > index._count // 2:
+        batch //= 2
+    log(f"  first search {first:.2f} s (device build, then the IVF build "
+        f"{spent['ivf_build'][0] / 1e3:.2f} s: training, top-2 assignment, layout, "
+        f"guards, upload): C {c}, P {p_width}, nprobe floor {floor} (serving nprobe "
+        f"{nprobe}), extras {len(index._ivf_extra_slots_np)}, layout "
+        f"{index._ivf_rows.dtype}, precision guard risky {index._precision_risky}; "
+        f"batch {batch}")
+    qb = queries[:batch]
+    index._device_topk = timed(spent, "device", index._device_topk, True)
+
+    def search(metric, k=K):
+        return lambda qs: client.search_vectors_in_collection("ivf", qs, k, metric)
+
+    def exact(qs):
+        with coll.index_read() as idx:
+            return idx.search_batch(qs, K, SM.COSINE, approx=False)
+
+    def run_path(name, fn, qs, must, must_not):
+        """One path, counts zeroed just before and read just after."""
+        spent["device"].clear()
+        build.reset_launch_counts()
+        res, _, ms = drive([(name, fn)], qs, args.batches, build, card)
+        counts = {kk.symbol: kk.launches for kk in build.KERNELS}
+        dev_p50 = float(np.percentile(spent["device"], 50))
+        log(f"    device stage p50 {dev_p50:.3f} ms ({len(spent['device'])} calls), "
+            f"host (batch p50 - device p50) {np.percentile(ms[name], 50) - dev_p50:.3f} ms; "
+            f"launches {dict((s, n) for s, n in counts.items() if n)}")
+        for sym in must:
+            if not counts[sym]:
+                raise AssertionError(f"{name}: {sym} did not launch")
+        for sym in must_not:
+            if counts[sym]:
+                raise AssertionError(f"{name}: {sym} launched")
+        return res[name], counts
+
+    ivf_paths = [("ivf cosine (default call)", SM.COSINE),
+                 ("ivf euclidean", SM.EUCLIDEAN),
+                 ("ivf dot", SM.DOT_PRODUCT)]
+    results, k6 = {}, 0
+    for name, metric in ivf_paths:
+        results[name], counts = run_path(
+            name, search(metric), qb, ["gather_score"],
+            ["scan_topk_exact", "scan_block_topw"])
+        k6 += counts["gather_score"]
+    run_path("exact approx=False (K1, brute)", exact, qb, ["scan_topk_exact"],
+             ["gather_score"])
+    # what the default call runs on this collection without the layout:
+    # the speed path (K3), or K1 where the precision guard refuses it.
+    # The layout stays built (VECTORLITE_IVF=0 would drop it)
+    aside = "default call with IVF set aside (brute)"
+    index._ivf_active = False
+    try:
+        run_path(aside, search(SM.COSINE), qb,
+                 ["scan_topk_exact" if index._precision_risky else "scan_block_topw"],
+                 ["gather_score"])
+        device_breakdown(aside, search(SM.COSINE), qb)
+    finally:
+        index._ivf_active = True
+    device_breakdown("ivf cosine (default call)", search(SM.COSINE), qb)
+    device_breakdown("exact approx=False (K1, brute)", exact, qb)
+
+    # agreement: recall against K1 on 256 queries; ids against the same
+    # pipeline with the plain probe
+    exact_ids = ids_of(in_batches(exact, queries, batch))
+    cos_ids = ids_of(in_batches(search(SM.COSINE), queries, batch))
+    r = recall(cos_ids, exact_ids)
+    log(f"  recall@10 ivf cosine vs exact K1 ({B} queries): {r:.5f}")
+    if r < 0.99:
+        raise AssertionError(f"ivf recall@10 {r} < 0.99")
+    for name, metric in ivf_paths:
+        saved = ivf.gather_score_pallas
+        ivf.gather_score_pallas = ivf.gather_score_plain
+        try:
+            ref = search(metric, K + 1)(qb)
+        finally:
+            ivf.gather_score_pallas = saved
+        got = results[name]
+        bad = ids_match(scores_of(ref), ids_of(ref), scores_of(got), ids_of(got))
+        log(f"  {name} vs the plain-probe pipeline: id mismatches beyond ties {bad}")
+        if bad:
+            raise AssertionError(f"{name} disagrees with the plain-probe pipeline")
+
+    # a batch of 256 probes more than half the corpus: the brute engines
+    build.reset_launch_counts()
+    big = ids_of(search(SM.COSINE)(queries))
+    counts = {kk.symbol: kk.launches for kk in build.KERNELS}
+    if counts["gather_score"]:
+        raise AssertionError("a batch of 256 launched K6")
+    if index._precision_risky:
+        ok = counts["scan_topk_exact"] and np.array_equal(big, exact_ids)
+    else:
+        ok = counts["scan_block_topw"] and recall(big, exact_ids) >= 0.99
+    log(f"  batch of {B}: fell through, launches "
+        f"{dict((s, n) for s, n in counts.items() if n)}, ids "
+        f"{'equal to K1' if index._precision_risky else 'recall vs K1'} {bool(ok)}")
+    if not ok:
+        raise AssertionError("the batch of 256 did not fall through to the brute engine")
+
+    # the tail: appended rows are found at once, the layout stays
+    hi = index._ivf_hi
+    tail = clustered_rows(rng, centers, scale, IVF_TAIL)
+    tail_ids = np.asarray(client.add_vectors_to_collection("ivf", tail))
+    noisy = tail.astype(np.float64) + rng.normal(0.0, 0.01, tail.shape)
+    build.reset_launch_counts()
+    top1 = ids_of(in_batches(search(SM.COSINE, 1), noisy, batch))[:, 0]
+    found = float(np.mean(top1 == tail_ids))
+    log(f"  tail: {IVF_TAIL} rows appended, layout watermark {hi} -> {index._ivf_hi}, "
+        f"self-hit {found:.5f}, K6 launches {ivf.GATHER_SCORE.launches}")
+    if index._ivf_hi != hi or found < 1.0 or not ivf.GATHER_SCORE.launches:
+        raise AssertionError("tail rows were not served from the tail")
+
+    # deletes: the 1,000 rows nearest the queries never come back
+    gone = list(dict.fromkeys(exact_ids.ravel().tolist()))[:IVF_DELETES]
+    for vid in gone:
+        client.delete_from_collection("ivf", int(vid))
+    build.reset_launch_counts()
+    after = ids_of(in_batches(search(SM.COSINE), queries, batch))
+    back = len(set(gone) & set(after.ravel().tolist()))
+    log(f"  deletes: {len(gone)} rows deleted, {back} came back; K6 launches "
+        f"{ivf.GATHER_SCORE.launches}")
+    if back or not ivf.GATHER_SCORE.launches:
+        raise AssertionError("deleted rows came back")
+    client.delete_collection("ivf")
+    del index, coll, client
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the quantized profile: an int8 layout and the host f64 re-score
+    qclient = vl.VectorLiteClient(
+        vl.MockEmbeddingFunction(D),
+        config=vl.VectorLiteConfig.profile("quantized"), device=dev,
+    )
+    qclient.create_collection("ivf", vl.IndexType.FLAT)
+    qclient.add_vectors_to_collection("ivf", rows)
+    del rows
+    coll = qclient.get_collection("ivf")
+    with coll.index_read() as index:
+        pass
+    t0 = time.perf_counter()
+    qclient.search_vectors_in_collection("ivf", qb, K)  # builds
+    torch.cuda.synchronize()
+    log(f"  quantized: first search {time.perf_counter() - t0:.2f} s; IVF active "
+        f"{index._ivf_active}, layout {index._ivf_rows.dtype if index._ivf_active else None}")
+    if not index._ivf_active or index._ivf_rows.dtype != torch.int8:
+        raise AssertionError("the quantized collection did not build an int8 layout")
+    index._device_topk = timed(spent, "device", index._device_topk, True)
+    index._exact_rescore = timed(spent, "rescore", index._exact_rescore, False)
+    calls = native.calls
+    spent["rescore"].clear()
+
+    def qsearch(qs):
+        return qclient.search_vectors_in_collection("ivf", qs, K)
+
+    def qexact(qs):
+        with coll.index_read() as idx:
+            return idx.search_batch(qs, K, SM.COSINE, approx=False)
+
+    run_path("ivf quantized cosine (int8 layout + f64 re-score)", qsearch, qb,
+             ["gather_score"], ["scan_topk_exact_int8", "scan_block_topw"])
+    log(f"    host re-score p50 {np.percentile(spent['rescore'], 50):.3f} ms "
+        f"({len(spent['rescore'])} calls); native re-scores {native.calls - calls}")
+    if native.calls == calls:
+        raise AssertionError("the native f64 re-score never served the quantized IVF path")
+    run_path("quantized exact approx=False (K2)", qexact, qb,
+             ["scan_topk_exact_int8"], ["gather_score"])
+    r = recall(ids_of(in_batches(qsearch, queries, batch)),
+               ids_of(in_batches(qexact, queries, batch)))
+    log(f"  recall@10 quantized ivf vs its exact K2 ({B} queries): {r:.5f}")
+    if r < 0.99:
+        raise AssertionError(f"quantized ivf recall@10 {r} < 0.99")
+    qclient.delete_collection("ivf")
+    log(f"  phase 5: {time.perf_counter() - started:.1f} s; host peak RSS "
+        f"{peak_rss_gb():.2f} GB")
+    return k6
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
+    ap.add_argument("--ivf-rows", type=int, default=2_000_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batches", type=int, default=20)
     args = ap.parse_args()
@@ -722,7 +1151,7 @@ def main() -> int:
     import vectorlite_tpu_torch as vl
     from vectorlite_tpu_torch import native
     from vectorlite_tpu_torch.core import metrics as metrics_mod
-    from vectorlite_tpu_torch.kernels import _build, pq, scan
+    from vectorlite_tpu_torch.kernels import _build, ivf, pq, scan
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -743,9 +1172,15 @@ def main() -> int:
     log("[2] kernels against their plain versions")
     errs = check_kernels(scan, metrics_mod, dev, rng)
     errs["pq_rank"] = check_pq_kernel(pq, vl.SimilarityMetric, dev, rng)
+    # K6's operands come from a stream of their own: the corpus of phases
+    # 3-4 depends only on --seed and the K1-K5 checks
+    ivf_rng = np.random.default_rng([args.seed, 6])
+    errs["gather_score"] = check_ivf_kernel(ivf, dev, ivf_rng)
     log(f"    at the main-path shape (N={args.rows}, D={D}, B={B}) [{card}]")
     timing = time_kernels(scan, metrics_mod, dev, rng, args.rows, errs)
     timing["pq_rank"] = time_pq_kernel(pq, vl.SimilarityMetric, dev, rng, args.rows, errs)
+    log(f"    K6 at the IVF shape [{card}]")
+    timing["gather_score"] = time_ivf_kernel(ivf, dev, ivf_rng, errs)["bf16"]
     torch.cuda.empty_cache()
 
     log(f"[3] main path through the SDK (N={args.rows}, D={D}, B={B}, k={K})")
@@ -763,8 +1198,14 @@ def main() -> int:
     launches["pq_rank"] = pq_path(
         vl, _build, pq, native.RESCORE, dev, rows, queries, exact_ids, card,
         args.batches, rng)
-    log(f"  host peak RSS after phase 4: {peak_rss_gb():.2f} GB; smoke run "
-        f"{time.perf_counter() - started:.1f} s, builds included")
+    log(f"  host peak RSS after phase 4: {peak_rss_gb():.2f} GB")
+    del rows, queries, exact_ids
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[5] the IVF rung through the SDK (N={args.ivf_rows}, D={D}, k={K})")
+    launches["gather_score"] = ivf_path(vl, _build, ivf, native.RESCORE, dev, args, card)
+    log(f"  smoke run {time.perf_counter() - started:.1f} s, builds included")
 
     by_symbol = {kern.symbol: kern for kern in _build.KERNELS}
     if set(by_symbol) != set(REPLACES):

@@ -26,6 +26,17 @@ Here:
   live rows, uint8 product-quantization codes + learned codebooks replace
   the f32 cache (kernels/pq.py); every query ranks with the ADC kernel K5
   over the codes, and a wide pool is re-scored in exact f64 on the host.
+* **IVF rung** — past ``VECTORLITE_IVF_MIN_ROWS`` live rows (2M) on the
+  f32/bf16 rungs and the int8 rung (not ``pq``), a k-means coarse
+  quantizer and a cell-contiguous bf16 (int8 on the int8 rung, or when a
+  bf16 layout would bust the memory budget) copy of the corpus are built
+  next to the rung buffers (kernels/ivf.py), once a measured cell-recall
+  guard and a window-scaled precision guard pass. Unfiltered,
+  non-Manhattan ``approx`` searches then read only the ``nprobe`` nearest
+  cells (K6), the overflow extras and the rows appended since the build,
+  and re-score the pool exactly in f32; batches whose probes would read
+  more than half the corpus fall through to the brute kernels. Serves on
+  CUDA, and on the CPU only under ``VECTORLITE_IVF_FORCE``.
 * **Delete** — validity-mask clear (the reference's ``retain``
   semantics: deleting an absent id succeeds, reference: src/index/flat.rs:93-96).
 
@@ -33,13 +44,15 @@ Returned scores are exact (f64 host math — the native streaming
 re-score of ``native.py``, or numpy — or f32 device re-scoring);
 selection is exact on the host path and on ``approx=False``.
 
-Not yet ported: the IVF rung, the device mesh, the pipelined
-``search_batch_stream``, the disk-backed truth matrix, and
-``delete_where`` / ``list_vectors`` / ``update_metadata``.
+Not yet ported: the device mesh, the pipelined ``search_batch_stream``,
+the disk-backed truth matrix, and ``delete_where`` / ``list_vectors`` /
+``update_metadata``.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
 from typing import Optional, Sequence
 
@@ -50,7 +63,7 @@ from ..config import resolve_device
 from ..core.metrics import SimilarityMetric, disable_tf32, quantize_rows_int8
 from ..core.types import SearchResult, Vector
 from ..errors import DimensionMismatch, DuplicateVectorId
-from ..kernels import pq, scan
+from ..kernels import ivf, pq, scan
 from ..kernels.topk import (
     next_pow2,
     row_sqnorms,
@@ -61,6 +74,8 @@ from ..kernels.topk import (
 from ..native import RESCORE
 from ..utils import env_number
 from .base import validate_batch_arrays
+
+logger = logging.getLogger(__name__)
 
 _MIN_CAPACITY = 256
 
@@ -183,7 +198,10 @@ _GUARD_DISPLACEMENT = 32.0
 
 
 def _bf16_selection_risky(
-    vals32: np.ndarray, valid: np.ndarray, size: int
+    vals32: np.ndarray,
+    valid: np.ndarray,
+    size: int,
+    competitor_rows: Optional[int] = None,
 ) -> bool:
     """Estimate whether reduced-precision candidate selection could
     displace true top-k members beyond the oversampled candidate pool.
@@ -195,7 +213,8 @@ def _bf16_selection_risky(
     geometry (cosine risk); if either exceeds _GUARD_DISPLACEMENT the
     index refuses reduced-precision selection and serves the exact
     kernel instead. O(sample^2 * D) on the host, run only on wholesale
-    device rebuilds (capacity growth), never per query.
+    device rebuilds (capacity growth) and IVF layout builds, never per
+    query.
     """
     live = np.flatnonzero(valid[:size])
     if live.size < 256:
@@ -225,8 +244,12 @@ def _bf16_selection_risky(
 
     # per-rank gaps shrink ~linearly with corpus density: the sampled
     # statistic sees a len(take)-point subsample, the serving scan sees
-    # all live rows — correct the displacement estimate accordingly
-    density = live.size / len(take)
+    # all live rows — correct the displacement estimate accordingly.
+    # ``competitor_rows`` overrides the competing population for scans
+    # that rank within a bounded window (the IVF probed cells)
+    density = (
+        competitor_rows if competitor_rows is not None else live.size
+    ) / len(take)
     raw = displacement(rows)
     norms = np.linalg.norm(rows, axis=1, keepdims=True)
     normed = rows / np.maximum(norms, 1e-300)
@@ -254,6 +277,12 @@ def _hbm_budget_bytes(device: torch.device) -> int:
         env_number("VECTORLITE_AUTO_BF16_GB", default / (1 << 30), cast=float)
         * (1 << 30)
     )
+
+
+def _ivf_base_nprobe(c: int) -> int:
+    """The IVF probe width before the guard's floor:
+    VECTORLITE_IVF_NPROBE (kernels/ivf.NPROBE), clipped to [1, C]."""
+    return int(np.clip(int(env_number("VECTORLITE_IVF_NPROBE", ivf.NPROBE)), 1, c))
 
 
 def _use_pallas(capacity: int) -> bool:
@@ -416,6 +445,24 @@ class FlatIndex:
         # code width of the live cache, frozen at the wholesale build: the
         # env knob read later must not re-shape the pool floor
         self._pq_bits_active: Optional[int] = None
+        # IVF partitioned-scan state (kernels/ivf.py): a cell-contiguous
+        # bf16 (or int8 + scales) copy of the corpus with slot / norm /
+        # validity tables, built lazily past the size gate
+        self._ivf_rows: Optional[torch.Tensor] = None  # [C*P, D] bf16/int8
+        self._ivf_scales: Optional[torch.Tensor] = None  # int8 layout only
+        self._ivf_slots: Optional[torch.Tensor] = None  # [C*P] int32
+        self._ivf_sq: Optional[torch.Tensor] = None  # [C*P] f32
+        self._ivf_valid: Optional[torch.Tensor] = None  # [C*P] bool
+        self._ivf_centroids: Optional[torch.Tensor] = None  # [C, D] f32
+        self._ivf_cent_sq: Optional[torch.Tensor] = None  # [C] f32
+        self._ivf_extra: tuple = ()  # (rows, slots, sq, valid, scales)
+        self._ivf_p = 0  # partition pad width P
+        self._ivf_hi = 0  # slots below this are inside the layout
+        self._ivf_active = False
+        self._ivf_slots_np: Optional[np.ndarray] = None
+        self._ivf_extra_slots_np: Optional[np.ndarray] = None
+        self._ivf_nprobe_floor = 0  # guard-raised probe width (0 = default)
+        self._ivf_refused_at = 0  # live count when the guard last refused
         self._dirty_lo = 0
         self._dirty_hi = 0
         self._mask_dirty = True
@@ -538,6 +585,7 @@ class FlatIndex:
         self._host_f32_finite = True
         self._drop_device()
         self._dirty_lo, self._dirty_hi = 0, n
+        self._ivf_drop()  # compaction renumbers slots
         self._epoch += 1
         self._mask_dirty = True
 
@@ -1040,8 +1088,6 @@ class FlatIndex:
     def _scan_copy_dtype(self) -> torch.dtype:
         """int8 by default (a quarter of the f32 bytes);
         VECTORLITE_SCAN_DTYPE=bf16 selects bf16."""
-        import os
-
         name = os.environ.get("VECTORLITE_SCAN_DTYPE", "int8").lower()
         return torch.bfloat16 if name in ("bf16", "bfloat16") else torch.int8
 
@@ -1182,6 +1228,21 @@ class FlatIndex:
                 # filtered searches are exhaustive (see _resolve_approx)
                 valid = valid & where_dev
                 approx = False
+            queries = torch.from_numpy(q).to(self._device)
+            if (
+                approx
+                and self._ivf_active
+                and where_dev is None
+                and metric is not SimilarityMetric.MANHATTAN
+            ):
+                # IVF partitioned scan: reads only the probed cells and
+                # the insert tail; None when one brute corpus read
+                # amortizes better over this batch (see _ivf_topk). It
+                # comes before the precision guard's downgrade: an active
+                # layout passed the window-scaled check in _ivf_build
+                res = self._ivf_topk(queries, k_pad, metric)
+                if res is not None:
+                    return res
             # the precision guard's verdict: f32 storage serves the exact
             # kernel on risky corpora
             if (
@@ -1192,7 +1253,6 @@ class FlatIndex:
                 approx = False
             if approx and not self._block_selection_feasible(k_pad):
                 approx = False
-            queries = torch.from_numpy(q).to(self._device)
             if self._pq_active:
                 return self._pq_topk(queries, k_pad, metric, valid)
             tile = (
@@ -1340,10 +1400,22 @@ class FlatIndex:
         return torch.from_numpy(array).to(self._device)
 
     def _sync_device(self) -> None:
-        """Bring the device tensors up to the host truth: a wholesale
-        build when there are none, else the dirty rows in place. An
-        active PQ rung has freed the f32 cache, so its check comes
-        first."""
+        """Bring every device cache up to the host truth: the rung tensors
+        (_sync_device_core) and, past the gate, the IVF layout. The mask
+        and dirty range are snapshotted first because the core sync
+        consumes them."""
+        mask_was_dirty = self._mask_dirty
+        dirty_lo, dirty_hi = self._dirty_lo, self._dirty_hi
+        self._sync_device_core()
+        if self._ivf_wanted():
+            self._sync_device_ivf(mask_was_dirty, dirty_lo, dirty_hi)
+        elif self._ivf_rows is not None:
+            self._ivf_drop()
+
+    def _sync_device_core(self) -> None:
+        """The rung tensors: a wholesale build when there are none, else
+        the dirty rows in place. An active PQ rung has freed the f32
+        cache, so its check comes first."""
         if self._pq and self._sync_device_pq():
             return
         if self._dev_values is None:
@@ -1516,6 +1588,361 @@ class FlatIndex:
         self._dev_valid = self._to_device(self._valid)
         self._dirty_lo = self._dirty_hi = self._size
         self._mask_dirty = False
+
+    # ------------------------------------------------------ IVF scale rung
+
+    def _ivf_wanted(self) -> bool:
+        """Gate for the IVF partitioned scan (kernels/ivf.py): off under
+        VECTORLITE_IVF=0, otherwise engaged on corpora of at least
+        VECTORLITE_IVF_MIN_ROWS live rows (default 2M). Serves the
+        f32/bf16 rungs and the int8 rung on a CUDA device; the PQ rung
+        keeps its ADC engine. On the CPU it serves only under
+        VECTORLITE_IVF_FORCE (tests), the reference's own switch for its
+        CPU backend. Not vetoed by _precision_risky: that
+        flag estimates displacement against the whole corpus, and
+        _ivf_build re-runs the statistic against the probed window."""
+        if env_number("VECTORLITE_IVF", 1) != 1:
+            return False
+        if self._pq:
+            return False
+        if self._device.type != "cuda" and not os.environ.get(
+            "VECTORLITE_IVF_FORCE"
+        ):
+            return False
+        min_rows = int(env_number("VECTORLITE_IVF_MIN_ROWS", 2_000_000))
+        if self._count < max(min_rows, 4 * 128):
+            return False
+        # refusal cache: the guard found the geometry unservable within
+        # the probe budget; retry once the corpus doubles
+        if self._ivf_refused_at and self._count < 2 * self._ivf_refused_at:
+            return False
+        return True
+
+    def _ivf_drop(self) -> None:
+        """Drop the layout. The centroids survive (retrained only when the
+        cell count changes), and so does the refusal cache, which keeps
+        _ivf_wanted from re-running k-means on every sync of a corpus the
+        guard already refused."""
+        self._ivf_rows = None
+        self._ivf_scales = None
+        self._ivf_slots = None
+        self._ivf_sq = None
+        self._ivf_valid = None
+        self._ivf_extra = ()
+        self._ivf_active = False
+        self._ivf_hi = 0
+        self._ivf_slots_np = None
+        self._ivf_extra_slots_np = None
+        self._ivf_nprobe_floor = 0
+
+    def _sync_device_ivf(
+        self, mask_was_dirty: bool, dirty_lo: int, dirty_hi: int
+    ) -> None:
+        """Maintain the IVF layout next to the rung tensors.
+
+        Slots below ``_ivf_hi`` live in the layout (or its extras); slots
+        in ``[_ivf_hi, _size)`` are the tail, brute-scanned by every IVF
+        query, so appends never touch the layout. It rebuilds wholesale
+        when the tail outgrows its budget, when a dirty range reaches
+        below the watermark (capacity growth re-marks every row), or
+        after compaction renumbers slots (_compact drops it). Tombstone
+        flips only refresh the validity tables."""
+        if self._ivf_rows is not None:
+            if dirty_hi > dirty_lo and dirty_lo < self._ivf_hi:
+                self._ivf_drop()
+            else:
+                tail = self._size - self._ivf_hi
+                tail_max = max(
+                    int(env_number("VECTORLITE_IVF_TAIL_MAX", 131072)),
+                    int(0.05 * self._count),
+                )
+                if tail > tail_max:
+                    self._ivf_drop()
+        if self._ivf_rows is None:
+            self._ivf_build()
+            return
+        if mask_was_dirty:
+            self._ivf_refresh_valid()
+
+    def _ivf_guard_nprobe(
+        self, live: np.ndarray, assign: np.ndarray
+    ) -> Optional[int]:
+        """Measured cell-recall guard. ``assign`` is the cell each live row
+        is stored in (-1 = extras, which every probe scans). 64 sampled
+        live rows take their exact cosine top-10 over the whole corpus;
+        the guard measures what share of those neighbours' cells the
+        coarse quantizer ranks inside the probe window. Returns 0 when the
+        default nprobe clears ``VECTORLITE_IVF_GUARD_RECALL`` (0.985), the
+        smallest of 2x and 4x that does, or None to refuse.
+        ``VECTORLITE_IVF_GUARD=0`` skips the guard."""
+        if env_number("VECTORLITE_IVF_GUARD", 1) != 1:
+            return 0
+        thr = float(env_number("VECTORLITE_IVF_GUARD_RECALL", 0.985))
+        n_live = len(live)
+        rng = np.random.default_rng(1)
+        nq = int(np.clip(n_live // 8, 1, 64))
+        qsel = rng.choice(n_live, nq, replace=False)
+        qrows = self._values64[live[qsel]].astype(np.float32)
+        qn = np.maximum(np.linalg.norm(qrows, axis=1, keepdims=True), 1e-30)
+        q = qrows / qn
+        k_t = min(10, n_live - 1)
+        step = 1 << 20
+        top_s = np.full((nq, 0), 0.0, np.float32)
+        top_p = np.full((nq, 0), 0, np.int64)
+        for lo in range(0, n_live, step):
+            blk = self._values64[live[lo : lo + step]].astype(np.float32)
+            bn = np.maximum(np.linalg.norm(blk, axis=1), 1e-30)
+            s = (q @ blk.T) / bn[None, :]
+            m = s.shape[1]
+            kk = min(k_t + 1, m)  # +1 so the self-hit can be dropped
+            part = np.argpartition(-s, kk - 1, axis=1)[:, :kk]
+            top_s = np.concatenate(
+                [top_s, np.take_along_axis(s, part, axis=1)], axis=1
+            )
+            top_p = np.concatenate([top_p, part + lo], axis=1)
+        # drop self-hits, keep the global top-k_t positions (into live)
+        top_s = np.where(top_p == qsel[:, None], -np.inf, top_s)
+        keep = np.argpartition(-top_s, k_t - 1, axis=1)[:, :k_t]
+        truth = np.take_along_axis(top_p, keep, axis=1)
+        truth_cells = assign[truth]  # [nq, k_t]
+        # query -> ranked cells by the serving surrogate (cosine)
+        cents = self._ivf_centroids.cpu().numpy()
+        csq = np.maximum(np.einsum("cd,cd->c", cents, cents), 1e-30)
+        crank = (q @ cents.T) / np.sqrt(csq)[None, :]
+        order = np.argsort(-crank, axis=1)
+        c = cents.shape[0]
+        base = _ivf_base_nprobe(c)
+        for mult in (1, 2, 4):
+            l_probe = min(base * mult, c)
+            window = order[:, :l_probe]
+            # cell -1: the row lives in the extras, an unconditional hit
+            hits = sum(
+                float(
+                    (
+                        np.isin(truth_cells[i], window[i])
+                        | (truth_cells[i] < 0)
+                    ).sum()
+                )
+                for i in range(nq)
+            )
+            if hits / (nq * k_t) >= thr:
+                return l_probe if mult > 1 else 0
+            if l_probe == c:
+                break
+        return None
+
+    def _ivf_build(self) -> None:
+        """Wholesale layout build: k-means centroids on a live-row sample
+        (retrained only when the cell count changes), top-2 assignment of
+        every live row, the layout, the two guards, then the cell-contiguous
+        copy uploaded in bounded chunks."""
+        live = np.nonzero(self._valid[: self._size])[0]
+        n_live = len(live)
+        part_rows = max(64, int(env_number("VECTORLITE_IVF_PART_ROWS", 512)))
+        c = int(np.clip(next_pow2(max(1, n_live // part_rows)), 64, 65536))
+        if (
+            self._ivf_centroids is None
+            or int(self._ivf_centroids.shape[0]) != c
+        ):
+            sample_n = min(
+                n_live,
+                max(int(env_number("VECTORLITE_IVF_TRAIN_SAMPLE", 262144)), 2 * c),
+            )
+            if sample_n < n_live:
+                sel = np.random.default_rng(0).choice(live, sample_n, replace=False)
+                sel.sort()
+            else:
+                sel = live
+            self._ivf_centroids = ivf.train_centroids(
+                self._values64[sel].astype(np.float32),
+                c,
+                iters=int(env_number("VECTORLITE_IVF_ITERS", 8)),
+                device=self._device,
+            )
+            self._ivf_cent_sq = torch.sum(
+                self._ivf_centroids * self._ivf_centroids, dim=1
+            )
+        # top-2 assignment: rows of over-full cells spill to their
+        # runner-up cell before falling to the brute-scanned extras
+        assign2 = ivf.assign_rows(
+            self._values64, live, self._ivf_centroids, top2=True
+        )
+        part_slots, extra_slots = ivf.build_layout(
+            assign2, live, c,
+            pad_factor=float(env_number("VECTORLITE_IVF_PAD", ivf.PAD_FACTOR)),
+        )
+        p_width = part_slots.shape[1]
+        cp = c * p_width
+        # the guard measures the layout that will serve: each row's cell
+        # from part_slots (-1 = extras)
+        cells_of = np.repeat(np.arange(c, dtype=np.int32), p_width)
+        ps_flat = part_slots.reshape(-1)
+        in_layout = ps_flat >= 0
+        slot_cell = np.full(self._size, -1, dtype=np.int32)
+        slot_cell[ps_flat[in_layout]] = cells_of[in_layout]
+        floor = self._ivf_guard_nprobe(live, slot_cell[live])
+        if floor is None:
+            # cell-recall below the bar within the probe budget (iid
+            # high-D corpora): the brute engine keeps serving; retry once
+            # the corpus doubles (_ivf_wanted)
+            self._ivf_refused_at = self._count
+            self._ivf_drop()
+            logger.info(
+                "IVF guard: cell-recall below target within the probe "
+                "budget at %d rows; keeping the brute engine", self._count,
+            )
+            return
+        self._ivf_nprobe_floor = floor
+        if self._precision_risky:
+            # the whole-corpus displacement estimate refused reduced-
+            # precision selection, but IVF ranks within ~nprobe * P rows:
+            # re-run the statistic with that window as the competitors.
+            # Kept as the reference has it: the bf16 epsilon also for an
+            # int8 layout, and the window without the extras (ROADMAP §4)
+            window_rows = max(_ivf_base_nprobe(c), floor) * p_width
+            if _bf16_selection_risky(
+                self._values64, self._valid, self._size,
+                competitor_rows=window_rows,
+            ):
+                self._ivf_refused_at = self._count
+                self._ivf_drop()
+                logger.info(
+                    "IVF guard: window-scaled precision displacement still "
+                    "above target at %d rows; keeping the exact engine",
+                    self._count,
+                )
+                return
+        # layout dtype: int8 (+ scales) on the int8 rung; otherwise bf16
+        # unless storage + a bf16 layout would bust the memory budget,
+        # where int8 takes over (not itself checked to fit, as in the
+        # reference)
+        layout_i8 = bool(self._quantized)
+        if not layout_i8:
+            storage_bytes = self._capacity * self.dim * (
+                2 if self._device_dtype == torch.bfloat16 else 4
+            )
+            if self._dev_scan is not None:
+                storage_bytes += self._dev_scan.numel() * self._dev_scan.element_size()
+            layout_i8 = storage_bytes + cp * self.dim * 2 > _hbm_budget_bytes(
+                self._device
+            )
+        rows_dev = torch.zeros(
+            (cp, self.dim), dtype=torch.int8 if layout_i8 else torch.bfloat16,
+            device=self._device,
+        )
+        scales_np = np.zeros(cp, dtype=np.float32) if layout_i8 else None
+        sq_np = np.zeros(cp, dtype=np.float32)
+        chunk = 262144
+        for lo in range(0, cp, chunk):
+            sl = ps_flat[lo : lo + chunk]
+            rows32 = self._values64[np.maximum(sl, 0)].astype(np.float32)
+            rows32[sl < 0] = 0.0
+            sq_np[lo : lo + chunk] = np.einsum("nd,nd->n", rows32, rows32)
+            if layout_i8:
+                q8, qs = _quantize_rows_int8_np(rows32)
+                scales_np[lo : lo + chunk] = qs
+                update_rows(rows_dev, self._to_device(q8), lo)
+            else:
+                update_rows(
+                    rows_dev,
+                    torch.from_numpy(rows32).to(torch.bfloat16).to(self._device),
+                    lo,
+                )
+        self._ivf_rows = rows_dev
+        self._ivf_scales = self._to_device(scales_np) if layout_i8 else None
+        self._ivf_slots = self._to_device(ps_flat.astype(np.int32))
+        self._ivf_sq = self._to_device(sq_np)
+        self._ivf_slots_np = ps_flat
+        # overflow extras, padded to max(128, next_pow2(e)) rows
+        e = len(extra_slots)
+        e_pad = max(128, next_pow2(e)) if e else 0
+        ex_dtype = torch.int8 if layout_i8 else torch.bfloat16
+        if e_pad:
+            ex32 = np.zeros((e_pad, self.dim), dtype=np.float32)
+            ex32[:e] = self._values64[extra_slots].astype(np.float32)
+            ex_slots = np.zeros(e_pad, dtype=np.int32)
+            ex_slots[:e] = extra_slots
+            ex_valid = np.zeros(e_pad, dtype=bool)
+            ex_valid[:e] = self._valid[extra_slots]
+            if layout_i8:
+                ex8, ex_sc = _quantize_rows_int8_np(ex32)
+                ex_rows = self._to_device(ex8)
+                ex_scales = self._to_device(ex_sc)
+            else:
+                ex_rows = torch.from_numpy(ex32).to(torch.bfloat16).to(self._device)
+                ex_scales = None
+            self._ivf_extra = (
+                ex_rows,
+                self._to_device(ex_slots),
+                self._to_device(np.einsum("nd,nd->n", ex32, ex32)),
+                self._to_device(ex_valid),
+                ex_scales,
+            )
+        else:
+            self._ivf_extra = (
+                torch.zeros((0, self.dim), dtype=ex_dtype, device=self._device),
+                torch.zeros(0, dtype=torch.int32, device=self._device),
+                torch.zeros(0, dtype=torch.float32, device=self._device),
+                torch.zeros(0, dtype=torch.bool, device=self._device),
+                torch.zeros(0, dtype=torch.float32, device=self._device)
+                if layout_i8 else None,
+            )
+        self._ivf_extra_slots_np = extra_slots
+        self._ivf_p = p_width
+        self._ivf_hi = self._size
+        self._ivf_valid = self._to_device(
+            (ps_flat >= 0) & self._valid[np.maximum(ps_flat, 0)]
+        )
+        self._ivf_active = True
+        self._ivf_refused_at = 0
+
+    def _ivf_refresh_valid(self) -> None:
+        """Tombstone flips: re-gather the layout's validity tables from the
+        host mask (the layout itself is untouched)."""
+        ps = self._ivf_slots_np
+        self._ivf_valid = self._to_device(
+            (ps >= 0) & self._valid[np.maximum(ps, 0)]
+        )
+        ex = self._ivf_extra_slots_np
+        if len(ex):
+            rows, slots, sq, old_valid, ex_sc = self._ivf_extra
+            ex_valid = np.zeros(int(old_valid.shape[0]), dtype=bool)
+            ex_valid[: len(ex)] = self._valid[ex]
+            self._ivf_extra = (rows, slots, sq, self._to_device(ex_valid), ex_sc)
+
+    def _ivf_topk(self, queries, k_pad: int, metric: SimilarityMetric):
+        """Dispatch the IVF serving step, or None when the brute engines
+        are the better program for this batch: probe traffic scales with
+        B * nprobe * P, while one corpus read amortizes over the whole
+        batch, so IVF serves only while the probes read at most half the
+        live rows."""
+        b = int(queries.shape[0])
+        c = int(self._ivf_cent_sq.shape[0])
+        # the guard-measured recall floor never exceeds C
+        nprobe = max(_ivf_base_nprobe(c), self._ivf_nprobe_floor)
+        if b * nprobe * self._ivf_p > max(1, self._count) // 2:
+            return None
+        tail_len = self._size - self._ivf_hi
+        tail_pad = 0 if tail_len <= 0 else max(256, next_pow2(tail_len))
+        k_sel = min(nprobe * self._ivf_p, max(_K_SEL_MIN, next_pow2(2 * k_pad)))
+        ex_rows, ex_slots, ex_sq, ex_valid, ex_scales = self._ivf_extra
+        return ivf.ivf_search_topk_rescored(
+            self._ivf_rows, self._ivf_slots, self._ivf_sq, self._ivf_valid,
+            self._ivf_centroids, self._ivf_cent_sq,
+            ex_rows, ex_slots, ex_sq, ex_valid,
+            self._dev_values, self._dev_valid, queries,
+            self._ivf_hi, self._size,
+            part_scales=self._ivf_scales,
+            extra_scales=ex_scales,
+            values_scales=self._dev_scales if self._quantized else None,
+            metric=metric,
+            k=k_pad,
+            k_sel=k_sel,
+            nprobe=nprobe,
+            p_width=self._ivf_p,
+            tail_pad=tail_pad,
+            tombstones=self._count != self._size,
+        )
 
     # ----------------------------------------------------------- persistence
 
