@@ -6,16 +6,17 @@ Phases (any failure raises and the exit code is not 0):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every native source under vectorlite_tpu_torch/csrc (scan.cu,
-   pq.cu, ivf.cu with nvcc, host_rescore.cpp with g++; one compiler per
-   source, all started together).
+   lanes.cu, pq.cu, ivf.cu with nvcc, host_rescore.cpp with g++; one
+   compiler per source, all started together).
 2. Kernels against their plain-torch versions on the card: K1 on f32 and
    bf16 rows, with k > 32 (shared-memory lists) and k > 256 (lists in the
    output), K2, K3 on f32, bf16 and int8 rows (three metrics), K4 on f32
    and bf16 rows, at N=65,536 x 384, B=64, and at an odd shape (8,192 x
    100, B=5). Then each kernel at the main-path shape (2^20 x 384, B=256,
    four query blocks): timed beside its plain version and the PyTorch
-   library path where one exists, and its output held against the plain
-   version's. Everywhere: ids equal except among scores within 1e-5 of
+   library path (K3's: a bf16 torch.mm over the int8 values cast outside
+   the timing, then torch.topk of each lane group), and its output held
+   against the plain version's. Everywhere: ids equal except among scores within 1e-5 of
    each other, scores within rtol/atol 1e-5.
    K5 (pq_rank) against pq_rank_plain: 4 metrics x {packed 4-bit, unpacked
    4-bit, kc = 256} at 65,536 x 384, B = 64, and at an odd shape (8,192
@@ -33,6 +34,18 @@ Phases (any failure raises and the exit code is not 0):
    plain version and a torch.bmm of the blocks gathered outside the
    timing (the library yardstick). Tolerance: |diff| <= 1e-5 * max(1,
    max |out|) (f32 sums of the same products taken in another order).
+   K7 (scan_merge_topw) against merge_topw_plain: f32 and bf16 rows, three
+   metrics, W 1-3, 5% invalid rows and a lane group with one live row, at
+   65,536 x 384, B 64 (tile 16,384) and 8,192 x 100, B 5 (tile 2,048);
+   K8 (scan_fold_probe) against fold_probe_plain in every mode at tiles
+   8,192 and 16,384 (65,536 x 384, B 64; 16,384 x 100, B 5). Then both at
+   the headline shape (2^20 x 384 bf16 rows, B 256): K7 at W 2 and 3,
+   tile 16,384 (cosine), beside a bf16 torch.mm + per-lane-group
+   torch.topk; K8 in every mode at both tiles beside a bf16 torch.mm +
+   row max. Tolerance: the same -inf pattern, scores within rtol/atol
+   1e-5, ids equal per lane group except among scores within 1e-5 (K8
+   maxonly: a list may differ where it holds two scores within 1e-5); K8
+   none's raw dots as K6's.
 3. Main path through the SDK at 2^20 x 384 (random rows from the seed),
    batches of 256, k=10: the default call with the precision guard on
    (whichever kernel it picks on this corpus), then with the guard off
@@ -76,7 +89,19 @@ Phases (any failure raises and the exit code is not 0):
    the native f64 re-score, recall@10 >= 0.99 against its exact K2.
    Every path: p50/p99/QPS, device stage (dispatch to synchronize) and
    host time; the phase's time and the peak host RSS.
-6. A `kernels` JSON line, the card line, and last
+6. bench/probe_headline_r5.py's merge-engine probe, after the phase-5
+   collections are freed: 2^20 x 384 N(0, 1) rows (f32, and a bf16 copy)
+   and 256 queries from --seed, k = 16, k_sel 128, cosine. The tournament
+   merge (K7) + exact f32 re-score as merge_w2_t16k, merge_w3_t16k and
+   merge_w2_t32k, beside the K3 engine (bf16 copy, tile 4096, W 2) and
+   exact K1: p50 ms and QPS from CUDA events, recall@10 against float64
+   truth (>= 0.99 each); each merge configuration's ids equal, beyond
+   1e-5 near-ties, those of the same pipeline with the plain K7; a
+   tombstoned pass (5% of rows invalid) returns none of them; then K8's
+   decomposition (none / maxonly / full at tiles 8192 and 16384) beside
+   K3 at the same shape. Launch counts are zeroed just before and read
+   just after; K7 and K8 must have launched.
+7. A `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 The native sources build into vectorlite_tpu_torch/csrc/build/
@@ -116,6 +141,8 @@ REPLACES = {
     "scan_topk_l1": "vectorlite_tpu/kernels/pallas_l1.py:44",
     "pq_rank": "vectorlite_tpu/kernels/pq.py:291",
     "gather_score": "vectorlite_tpu/kernels/ivf.py:290",
+    "scan_merge_topw": "vectorlite_tpu/kernels/pallas_merge.py:66",
+    "scan_fold_probe": "bench/decompose.py:68",
 }
 
 
@@ -156,6 +183,15 @@ def interleaved_ms(kernel_fn, plain_fn, reps: int, plain_reps: int):
     k2 = cuda_time_ms(kernel_fn, reps)
     p2 = cuda_time_ms(plain_fn, plain_reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(nbytes: float, ops: float, op_type: str) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak of their type."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
 
 
 def ids_match(ps, pi, ks, ki, tol=1e-5) -> int:
@@ -279,7 +315,8 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     q = torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).to(dev)
     qsq = (q * q).sum(-1, keepdim=True)
     vq, sc = metrics_mod.quantize_rows_int8(v)
-    vq_f32 = vq.to(torch.float32)  # library path's operand, cast outside timing
+    vq_f32 = vq.to(torch.float32)  # library paths' operands, cast outside timing
+    vq_bf16, qb = vq.to(torch.bfloat16), q.to(torch.bfloat16)
     metrics_mod.disable_tf32()
     dot_ops = 2.0 * B * n * D
     side = n * 4 + n * 1 + B * D * 4  # sqnorms, validity, queries
@@ -328,25 +365,20 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
             def plain(rows=rows, scales=scales, metric=metric, tile_n=tile_n, winners=winners):
                 return scan.block_topw_plain(rows, scales, sq, valid, q, metric=metric,
                                              tile_n=tile_n, winners=winners)
-            lib = None  # no library call selects per lane group
+            # bf16 GEMM over the int8 values, then each lane group's top W
+            def lib(tile_n=tile_n, winners=winners):
+                return torch.topk(torch.mm(qb, vq_bf16.T).view(
+                    B, n // tile_n, tile_n // 128, 128), winners, dim=2)
         plain_reps = 2 if metric is SM.MANHATTAN else 5
         ms, plain_ms = interleaved_ms(kern, plain, reps=20, plain_reps=plain_reps)
-        lib_ms = cuda_time_ms(lib, 10) if lib is not None else None
+        lib_ms = cuda_time_ms(lib, 10)
         err = compare(f"{name} at the main-path shape (top {k})",
                       merged(scan, kern(), B, k), merged(scan, plain(), B, k + 1))
         errs[name] = max(errs.get(name, 0.0), err)
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
-        out[name] = {
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": lib_ms,
-        }
+        t = out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         **bound(nbytes, ops, op_type)}
         log(f"  {name:22s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
-            f"bound {max(t_bytes, t_ops):.4f} ms ({out[name]['bound_by']}, "
+            f"library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{op_type} rate)")
     return out
 
@@ -436,11 +468,8 @@ def time_pq_kernel(pq, SM, dev, rng, n: int, errs: dict) -> dict:
     del rank
     ops = 2.0 * B * rows * m * kc  # the one-hot bf16 contraction
     nbytes = rows * (m // 2) + B * m * kc * 2 + B * rows * 4  # pq.py:385-389
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S["bf16"] * 1e3
-    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes > t_ops else "operations",
-           "library_ms": lib_ms}
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           **bound(nbytes, ops, "bf16")}
     log(f"  pq_rank (chunk {rows} x M {m}, B {B}) kernel {ms:.4f} ms  plain "
         f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {out['bound_ms']:.4f} ms "
         f"({out['bound_by']}, bf16 rate); chunk selection (top 288) {sel_ms:.4f} ms")
@@ -538,11 +567,8 @@ def time_ivf_kernel(ivf, dev, rng, errs: dict) -> dict:
         pair_bytes = IVF_B * IVF_L * IVF_P * D * itemsize
         ops = 2.0 * IVF_B * IVF_L * IVF_P * D
         op_type = "f32" if dtype == "int8" else "bf16"
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
-        out[dtype] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes > t_ops else "operations",
-                      "library_ms": lib_ms}
+        out[dtype] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      **bound(nbytes, ops, op_type)}
         log(f"  gather_score {dtype} (C {IVF_C} P {IVF_P} D {D} B {IVF_B} L {IVF_L}, "
             f"{distinct} distinct cells) kernel {ms:.4f} ms  search wrapper "
             f"{wrapper_ms:.4f} ms  with the id check {checked_ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  "
@@ -552,6 +578,194 @@ def time_ivf_kernel(ivf, dev, rng, errs: dict) -> dict:
         del rows
         torch.cuda.empty_cache()
     return out
+
+
+def lane_lists(s, i, winners: int):
+    """K7's [W, B, 128] or K8's [T, B, W*128] as numpy ([M, W] scores,
+    [M, W] ids), one row per (tile, query, lane group)."""
+    if s.shape[0] == winners and s.shape[-1] == 128:  # K7
+        s, i = s.permute(1, 2, 0), i.permute(1, 2, 0)
+    else:
+        t, b = s.shape[:2]
+        s = s.reshape(t, b, winners, 128).transpose(2, 3)
+        i = i.reshape(t, b, winners, 128).transpose(2, 3)
+    return (s.reshape(-1, winners).cpu().numpy(),
+            i.reshape(-1, winners).cpu().numpy())
+
+
+def compare_lanes(label, kern, plain, winners: int, distinct=False) -> float:
+    """Lane-group lists of a kernel against the plain version's lists of
+    W + 1: the same -inf pattern, finite scores within rtol/atol 1e-5, ids
+    equal except among scores within 1e-5 of each other. ``distinct``
+    (K8 maxonly, ids 0): a list whose scores differ beyond that is excused
+    where either list holds two scores within 1e-5 (one side may hold
+    them as one value). Returns the largest score difference."""
+    ks, ki = lane_lists(*kern, winners)
+    ps, pi = lane_lists(*plain, winners + 1)
+    pw = ps[:, :winners]
+    same_inf = np.array_equal(np.isneginf(ks), np.isneginf(pw))
+    fin = ~np.isneginf(pw) & ~np.isneginf(ks)
+    diff = np.where(fin, np.abs(ks - np.where(fin, pw, 0.0)), 0.0)
+    err = float(diff.max()) if fin.any() else 0.0
+    off = (diff > 1e-5 + 1e-5 * np.abs(np.where(fin, pw, 0.0))).any(axis=1)
+    excused = 0
+    if distinct and off.any():
+        def near(a):
+            a = np.where(np.isneginf(a), np.nan, a)
+            gap = np.abs(np.diff(a, axis=1))
+            return (gap <= 1e-5 * np.maximum(1.0, np.abs(a[:, 1:]))).any(axis=1)
+        ok = near(ks[off]) | near(ps[off])
+        excused = int(ok.sum())
+        off[np.flatnonzero(off)[ok]] = False
+    bad = 0
+    for m in np.flatnonzero((pi[:, :winners] != ki).any(axis=1)):
+        for p in np.flatnonzero(pi[m, :winners] != ki[m]):
+            close = np.abs(ps[m] - ps[m, p]) <= 1e-5 * max(1.0, abs(ps[m, p]))
+            close[p] = False
+            bad += not close.any()
+    log(f"  {label:48s} max_abs_err {err:.3g} -inf pattern equal {same_inf} "
+        f"scores off {int(off.sum())} (near-ties excused {excused}) id mismatches "
+        f"beyond ties {bad}")
+    if not same_inf or off.any() or bad:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def check_merge_kernel(merge, SM, dev, rng) -> float:
+    """Phase 2g: K7 against merge_topw_plain: f32 and bf16 rows, three
+    metrics, W 1-3, 5% invalid rows and one lane group with one live row."""
+    err = 0.0
+    for n, d, b, tile_n in ((65536, D, 64, 16384), (8192, 100, 5, 2048)):
+        v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+        valid = torch.from_numpy(rng.random(n) > 0.05).to(dev)
+        valid[3::128] = False
+        valid[3 + 128 * 5] = True
+        q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
+        sq = (v * v).sum(-1)
+        for label, rows in (("f32", v), ("bf16", v.to(torch.bfloat16))):
+            for metric in (SM.COSINE, SM.EUCLIDEAN, SM.DOT_PRODUCT):
+                for w in (1, 2, 3):
+                    got = merge.merge_topw_cuda(rows, sq, valid, q, metric=metric,
+                                                winners=w, tile_n=tile_n)
+                    torch.cuda.synchronize()
+                    want = merge.merge_topw_plain(rows, sq, valid, q, metric=metric,
+                                                  winners=w + 1)
+                    err = max(err, compare_lanes(
+                        f"scan_merge_topw {label} {n}x{d} B{b} {metric.name} W{w}",
+                        got, want, w))
+    return err
+
+
+def check_fold_kernel(decompose, dev, rng) -> float:
+    """Phase 2h: K8 against fold_probe_plain, every mode, tiles 8192 and
+    16384, at 65,536 x 384, B 64, and at 16,384 x 100, B 5."""
+    err = 0.0
+    for n, d, b in ((65536, D, 64), (16384, 100, 5)):
+        v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(
+            dev).to(torch.bfloat16)
+        q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
+        for tile_n in (8192, 16384):
+            for mode in decompose.MODES:
+                label = f"scan_fold_probe {mode} tile {tile_n} {n}x{d} B{b}"
+                got = decompose.fold_probe_cuda(v, q, mode=mode, tile_n=tile_n, winners=2)
+                torch.cuda.synchronize()
+                if mode == "none":
+                    want = decompose.fold_probe_plain(v, q, mode=mode, tile_n=tile_n)
+                    err = max(err, compare_first_cols(label, got, want))
+                else:  # the plain lists of 3 cover a near-tie at the 2nd place
+                    want = decompose.fold_probe_plain(v, q, mode=mode, tile_n=tile_n,
+                                                      winners=3)
+                    err = max(err, compare_lanes(label, got, want, 2,
+                                                 distinct=mode == "maxonly"))
+    return err
+
+
+def compare_first_cols(label, got, want) -> float:
+    """K8 `none`: raw dots of every magnitude, so K6's rule: |diff| <=
+    1e-5 * max(1, max |out|) (f32 sums taken in another order); ids all 0."""
+    if got[1].any():
+        raise AssertionError(f"{label}: ids are not 0")
+    return compare_probe(label, got[0], want[0])
+
+
+def time_merge_kernel(merge, SM, dev, rng, n: int, errs: dict) -> dict:
+    """Phase 2i: K7 at the headline shape (2^20 x 384 bf16 rows, B 256,
+    cosine, tile 16384) for W 2 and 3, held against the plain version and
+    timed beside it and a bf16 torch.mm + per-lane-group torch.topk; the
+    W 2 line is the kernel line's."""
+    v = torch.from_numpy(rng.standard_normal((n, D), dtype=np.float32)).to(dev)
+    sq = (v * v).sum(-1)
+    vb = v.to(torch.bfloat16)
+    del v
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    q = torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).to(dev)
+    qb = q.to(torch.bfloat16)
+    out = {}
+    for w in (2, 3):
+        def kern(w=w):
+            return merge.merge_topw_cuda(vb, sq, valid, q, metric=SM.COSINE,
+                                         winners=w, tile_n=merge.DEFAULT_TILE_N)
+
+        def plain(w=w):
+            return merge.merge_topw_plain(vb, sq, valid, q, metric=SM.COSINE, winners=w)
+
+        err = compare_lanes(f"scan_merge_topw at the headline shape, W {w}",
+                            kern(), merge.merge_topw_plain(
+                                vb, sq, valid, q, metric=SM.COSINE, winners=w + 1), w)
+        errs["scan_merge_topw"] = max(errs.get("scan_merge_topw", 0.0), err)
+        ms, plain_ms = interleaved_ms(kern, plain, reps=10, plain_reps=2)
+        lib_ms = cuda_time_ms(
+            lambda w=w: torch.topk(torch.mm(qb, vb.T).view(B, n // 128, 128), w, dim=1),
+            10)
+        nbytes = n * D * 2 + n * 4 + n + B * D * 4 + w * B * 128 * 8
+        out[w] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  **bound(nbytes, 2.0 * B * n * D, "bf16")}
+        log(f"  scan_merge_topw (W {w}, tile {merge.DEFAULT_TILE_N}) kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
+            f"{out[w]['bound_ms']:.4f} ms ({out[w]['bound_by']}, bf16 rate)")
+    del vb
+    torch.cuda.empty_cache()
+    return out[2]
+
+
+def time_fold_kernel(decompose, dev, rng, n: int, errs: dict) -> dict:
+    """Phase 2j: K8 at its shape (2^20 x 384 bf16 rows, B 256, W 2) in
+    every mode at tiles 8192 and 16384, held against the plain version and
+    timed beside it and a bf16 torch.mm + row max; `full` at 16384 is the
+    kernel line's."""
+    v = torch.from_numpy(rng.standard_normal((n, D), dtype=np.float32)).to(dev).to(
+        torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).to(dev)
+    lib_ms = cuda_time_ms(lambda: decompose.dot_rowmax_library(v, q), 10)
+    out = {}
+    for tile_n in (8192, 16384):
+        for mode in decompose.MODES:
+            def kern(mode=mode, tile_n=tile_n):
+                return decompose.fold_probe_cuda(v, q, mode=mode, tile_n=tile_n, winners=2)
+
+            def plain(mode=mode, tile_n=tile_n):
+                return decompose.fold_probe_plain(v, q, mode=mode, tile_n=tile_n, winners=2)
+
+            label = f"scan_fold_probe {mode} at its shape, tile {tile_n}"
+            if mode == "none":
+                err = compare_first_cols(label, kern(), plain())
+            else:
+                err = compare_lanes(label, kern(), decompose.fold_probe_plain(
+                    v, q, mode=mode, tile_n=tile_n, winners=3), 2,
+                    distinct=mode == "maxonly")
+            errs["scan_fold_probe"] = max(errs.get("scan_fold_probe", 0.0), err)
+            ms, plain_ms = interleaved_ms(kern, plain, reps=10, plain_reps=2)
+            n_out = 128 if mode == "none" else 256
+            nbytes = n * D * 2 + B * D * 4 + (n // tile_n) * B * n_out * 8
+            out[(mode, tile_n)] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                   **bound(nbytes, 2.0 * B * n * D, "bf16")}
+            t = out[(mode, tile_n)]
+            log(f"  scan_fold_probe {mode:7s} tile {tile_n:5d} kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} "
+                f"ms ({t['bound_by']}, bf16 rate)")
+    del v
+    torch.cuda.empty_cache()
+    return out[("full", 16384)]
 
 
 def timed(spent: dict, key: str, fn, sync: bool):
@@ -712,8 +926,8 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     calls = native.calls
     results, _, _ = drive(paths, queries, n_batches, build, card, native)
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
-    for sym, count in launches.items():
-        if count == 0 and sym.startswith("scan_"):
+    for sym in ("scan_topk_exact", "scan_topk_exact_int8", "scan_block_topw", "scan_topk_l1"):
+        if not launches[sym]:
             raise AssertionError(f"{sym} was never launched on the main path")
     if native.calls == calls:
         raise AssertionError("the native f64 re-score never served the quantized paths")
@@ -1137,6 +1351,124 @@ def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
     return k6
 
 
+HEADLINE_K = 16  # bench/probe_headline_r5.py: k 16, k_sel 128, cosine
+HEADLINE_CONFIGS = (("merge_w2_t16k", 2, 16384), ("merge_w3_t16k", 3, 16384),
+                    ("merge_w2_t32k", 2, 32768))
+
+
+def event_ms(fn, reps: int) -> np.ndarray:
+    """Each of ``reps`` calls of fn timed with CUDA events, after a warm call."""
+    fn()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return np.asarray(out)
+
+
+def headline_path(merge, decompose, scan, build, SM, dev, args, card) -> dict:
+    """Phase 6: bench/probe_headline_r5.py's merge-engine probe in torch:
+    the tournament merge (K7) + exact f32 re-score over a bf16 copy of
+    N(0, 1) rows, beside the K3 engine and exact K1; recall@10 against
+    float64 truth; the merge engine's ids against the same pipeline with
+    the plain K7; a tombstoned pass; then K8's decomposition beside K3.
+    Counts zeroed just before, read just after; returns them."""
+    started = time.perf_counter()
+    n = args.rows
+    rng = np.random.default_rng([args.seed, 7])
+    rows = rng.standard_normal((n, D), dtype=np.float32)
+    queries = rng.standard_normal((B, D), dtype=np.float32)
+    values = torch.from_numpy(rows).to(dev)
+    scan_bf16 = values.to(torch.bfloat16)
+    sq = (values * values).sum(-1)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    q = torch.from_numpy(queries).to(dev)
+    live_hi = torch.tensor(n, device=dev)
+    truth = truth_topk(rows, queries.astype(np.float64), "cosine", dev)[1][:, :10]
+    del rows
+    log(f"  data {n} x {D} (bf16 copy on the card) and f64 truth in "
+        f"{time.perf_counter() - started:.2f} s")
+
+    def merge_engine(winners, tile_n, k=HEADLINE_K, ok=valid, tombstones=False):
+        return lambda: merge.pallas_search_merge_topk_rescored(
+            scan_bf16, values, sq, ok, q, metric=SM.COSINE, k=k, k_sel=128,
+            tile_n=tile_n, winners=winners, tombstones=tombstones,
+            live_hi=None if tombstones else live_hi)
+
+    engines = [(name, merge_engine(w, t)) for name, w, t in HEADLINE_CONFIGS]
+    engines += [
+        ("k3_w2_t4k (K3 + re-score)", lambda: scan.pallas_search_block_topk_rescored(
+            scan_bf16, values, sq, valid, q, metric=SM.COSINE, k=HEADLINE_K,
+            k_sel=128, tile_n=4096, winners=2)),
+        ("exact (K1)", lambda: scan.pallas_search_topk(
+            values, sq, valid, q, metric=SM.COSINE, k=HEADLINE_K, tile_n=2048)),
+    ]
+    build.reset_launch_counts()
+    out = {}
+    for name, fn in engines:
+        before = {kk.symbol: kk.launches for kk in build.KERNELS}
+        s, i = fn()
+        ms = event_ms(fn, 10)
+        r = recall(i[:, :10].cpu().numpy(), truth)
+        moved = {kk.symbol: kk.launches - before[kk.symbol]
+                 for kk in build.KERNELS if kk.launches != before[kk.symbol]}
+        out[name] = (s, i)
+        log(f"  {name:28s} p50 {np.percentile(ms, 50):.4f} ms  QPS "
+            f"{B / np.percentile(ms, 50) * 1e3:.1f}  recall@10 vs f64 truth "
+            f"{r:.5f}  (launches {moved}) [{card}]")
+        if r < 0.99:
+            raise AssertionError(f"{name}: recall@10 {r} < 0.99")
+
+    # the same pipeline with the plain K7
+    saved = merge.merge_topw_cuda
+    merge.merge_topw_cuda = lambda tile_n, **kw: merge.merge_topw_plain(**kw)
+    try:
+        refs = {name: merge_engine(w, t, HEADLINE_K + 1)() for name, w, t in HEADLINE_CONFIGS}
+    finally:
+        merge.merge_topw_cuda = saved
+    for name, ref in refs.items():
+        ks, ki = (t.cpu().numpy() for t in out[name])
+        bad = ids_match(*(t.cpu().numpy() for t in ref), ks, ki)
+        log(f"  {name} vs the plain-K7 pipeline: id mismatches beyond ties {bad}")
+        if bad:
+            raise AssertionError(f"{name} disagrees with the plain-K7 pipeline")
+    del refs
+
+    dead = torch.from_numpy(rng.random(n) < 0.05).to(dev)
+    _, i = merge_engine(2, 16384, ok=~dead, tombstones=True)()
+    back = int(dead[i.long()].sum())
+    log(f"  tombstoned pass ({int(dead.sum())} rows invalid): {back} came back")
+    if back:
+        raise AssertionError("the merge engine returned a tombstoned row")
+
+    # K8's decomposition of the scan at the same shape, beside K3
+    k3_ms = cuda_time_ms(lambda: scan.block_topw_cuda(
+        scan_bf16, None, sq, valid, q, metric=SM.COSINE, tile_n=4096, winners=2), 10)
+    for tile_n in (8192, 16384):
+        t = {(mode, w): cuda_time_ms(lambda mode=mode, w=w: decompose.fold_probe(
+            scan_bf16, q, mode=mode, tile_n=tile_n, winners=w), 10)
+            for mode, w in (("none", 2), ("maxonly", 2), ("full", 2), ("full", 1))}
+        none = t[("none", 2)]
+        log(f"  decomposition, tile {tile_n}: contraction (none) {none:.4f} ms, "
+            f"maxonly {t[('maxonly', 2)]:.4f} (+{t[('maxonly', 2)] - none:.4f}), full "
+            f"{t[('full', 2)]:.4f} (+{t[('full', 2)] - none:.4f}), full at W 1 (lists "
+            f"of 64 KB: two blocks an SM, as none) {t[('full', 1)]:.4f} "
+            f"(+{t[('full', 1)] - none:.4f}); K3 (cosine, tile 4096, W 2) "
+            f"{k3_ms:.4f} (+{k3_ms - none:.4f}) [{card}]")
+    launches = {kk.symbol: kk.launches for kk in build.KERNELS}
+    for sym in ("scan_merge_topw", "scan_fold_probe"):
+        if not launches[sym]:
+            raise AssertionError(f"{sym} did not launch in phase 6")
+    log(f"  phase 6: {time.perf_counter() - started:.1f} s; launches "
+        f"{dict((s, c) for s, c in launches.items() if c)}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
@@ -1151,7 +1483,7 @@ def main() -> int:
     import vectorlite_tpu_torch as vl
     from vectorlite_tpu_torch import native
     from vectorlite_tpu_torch.core import metrics as metrics_mod
-    from vectorlite_tpu_torch.kernels import _build, ivf, pq, scan
+    from vectorlite_tpu_torch.kernels import _build, decompose, ivf, merge, pq, scan
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -1176,11 +1508,18 @@ def main() -> int:
     # 3-4 depends only on --seed and the K1-K5 checks
     ivf_rng = np.random.default_rng([args.seed, 6])
     errs["gather_score"] = check_ivf_kernel(ivf, dev, ivf_rng)
+    merge_rng = np.random.default_rng([args.seed, 7])  # K7/K8: a stream of their own
+    errs["scan_merge_topw"] = check_merge_kernel(merge, vl.SimilarityMetric, dev, merge_rng)
+    errs["scan_fold_probe"] = check_fold_kernel(decompose, dev, merge_rng)
     log(f"    at the main-path shape (N={args.rows}, D={D}, B={B}) [{card}]")
     timing = time_kernels(scan, metrics_mod, dev, rng, args.rows, errs)
     timing["pq_rank"] = time_pq_kernel(pq, vl.SimilarityMetric, dev, rng, args.rows, errs)
     log(f"    K6 at the IVF shape [{card}]")
     timing["gather_score"] = time_ivf_kernel(ivf, dev, ivf_rng, errs)["bf16"]
+    log(f"    K7 and K8 at the headline shape (N={args.rows}, D={D}, B={B}) [{card}]")
+    timing["scan_merge_topw"] = time_merge_kernel(
+        merge, vl.SimilarityMetric, dev, merge_rng, args.rows, errs)
+    timing["scan_fold_probe"] = time_fold_kernel(decompose, dev, merge_rng, args.rows, errs)
     torch.cuda.empty_cache()
 
     log(f"[3] main path through the SDK (N={args.rows}, D={D}, B={B}, k={K})")
@@ -1205,7 +1544,15 @@ def main() -> int:
 
     log(f"[5] the IVF rung through the SDK (N={args.ivf_rows}, D={D}, k={K})")
     launches["gather_score"] = ivf_path(vl, _build, ivf, native.RESCORE, dev, args, card)
-    log(f"  smoke run {time.perf_counter() - started:.1f} s, builds included")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[6] the merge-engine probe (N={args.rows}, D={D}, B={B}, k={HEADLINE_K})")
+    six = headline_path(merge, decompose, scan, _build, vl.SimilarityMetric, dev, args, card)
+    launches["scan_merge_topw"] = six["scan_merge_topw"]
+    launches["scan_fold_probe"] = six["scan_fold_probe"]
+    log(f"  smoke run {time.perf_counter() - started:.1f} s, builds included; host "
+        f"peak RSS {peak_rss_gb():.2f} GB")
 
     by_symbol = {kern.symbol: kern for kern in _build.KERNELS}
     if set(by_symbol) != set(REPLACES):

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds); each ``csrc/<name>.cpp`` (host code) compiles with ``g++``
 the same way. Libraries go under ``csrc/build/``, keyed by a hash of the
-source and the flags: an edited source builds anew, an unchanged one loads
-the library already built. ``build_all`` starts one compiler per source,
+source, the flags and, for a ``.cu`` source, every ``csrc/*.cuh`` header:
+an edited source or header builds anew, an unchanged one loads the library
+already built. ``build_all`` starts one compiler per source,
 all at once. Nothing here runs at import time.
 
 ``Kernel`` is one C entry of a CUDA library with the count of its
@@ -86,6 +87,9 @@ def _target(name: str) -> Path:
     src = _source(name)
     flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
     digest = hashlib.sha256(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.read_bytes())
     digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
