@@ -18,22 +18,31 @@ Phases (any failure raises and the exit code is not 0):
    the timing, then torch.topk of each lane group), and its output held
    against the plain version's. Everywhere: ids equal except among scores within 1e-5 of
    each other, scores within rtol/atol 1e-5.
-   K5 (pq_rank) against pq_rank_plain: 4 metrics x {packed 4-bit, unpacked
-   4-bit, kc = 256} at 65,536 x 384, B = 64, and at an odd shape (8,192
-   rows, M = 33, B = 5); then at the main-path shape (2^20 rows, M = 192
-   packed, B = 256, every 2^18-row chunk the PQ path hands it, all 256
-   queries) held against the plain rank and timed beside it, beside a
-   bf16 torch.mm with a prebuilt one-hot (the library yardstick) and
-   beside the chunk selection that follows it. Tolerance: the same -inf
-   pattern, finite ranks within rtol/atol 2e-5 (f32 sums of bf16 values
-   taken in another order).
+   K5 against pq_rank_plain, both entries: the tensor-core entry
+   (pq_rank_mma) on 4-bit codes, packed and unpacked, and the look-up
+   entry (pq_rank) on kc = 256 and on 4-bit codes, 4 metrics each, at
+   65,536 x 384, B = 64, and at an odd shape (8,192 rows, M = 33, B = 5);
+   then at the main-path shape (2^20 rows, M = 192 packed, B = 256, every
+   2^18-row chunk the 4-bit PQ path hands it, all 256 queries) the
+   tensor-core entry held against the plain rank and timed beside the
+   look-up entry, the plain rank, a bf16 torch.mm with a prebuilt one-hot
+   (the library yardstick) and the chunk selection, with the L2 bytes the
+   design reads; then the look-up entry at the 8-bit path's shape (the
+   chunk the index hands it, 2^16 rows, M 96, kc 256, B 256), held and
+   timed beside its plain version and the same one-hot torch.mm.
+   Tolerance: the same -inf pattern, finite ranks within rtol/atol 2e-5
+   (f32 sums of the same exact bf16 values taken in another order).
    K6 (gather_score) against gather_score_plain: bf16 and int8 blocks,
-   D = 384 and 100, P = 128 and 640, B = 5 and 64, L = 3 and 16, with
-   repeated and out-of-order cell ids; then at the IVF shape (C = 4,096,
-   P = 640, D = 384, B = 64, L = 16) on both layouts, timed beside the
-   plain version and a torch.bmm of the blocks gathered outside the
-   timing (the library yardstick). Tolerance: |diff| <= 1e-5 * max(1,
-   max |out|) (f32 sums of the same products taken in another order).
+   D = 384 and 100, P = 128 and 640, B = 5, 64 and 320, L = 3 and 16, with ids
+   random (one query probing one cell again and again, one in descending
+   order), shared (every query probes the same L cells) and all on one
+   cell; then at the IVF shape (C = 4,096, P = 640, D = 384, B = 64,
+   L = 16) on both layouts and every id pattern, the random ids timed
+   beside the plain version and a torch.bmm of the blocks gathered
+   outside the timing (the library yardstick), the shared and single-cell
+   ids beside their bound. Tolerance: |diff| <= 1e-5
+   * max(1, max |out|) (f32 sums of the same products taken in another
+   order).
    K7 (scan_merge_topw) against merge_topw_plain: f32 and bf16 rows, three
    metrics, W 1-3, 5% invalid rows and a lane group with one live row, at
    65,536 x 384, B 64 (tile 16,384) and 8,192 x 100, B 5 (tile 2,048);
@@ -61,8 +70,12 @@ Phases (any failure raises and the exit code is not 0):
    freed: the same rows and queries in a `pq`-profile collection (training
    and encoding on the card), batches of 256, k=10: the default call
    (cosine), euclidean, manhattan (the euclidean proxy under rotation)
-   and a where filter. Launch counts are zeroed just before and read just
-   after; K5 and the native re-score must have served. Each path's ids
+   and a where filter; then the 8-bit layout (kc 256) on the first 2^18
+   rows. Launch counts are zeroed just before the four 4-bit paths and
+   read just after them, then zeroed again just before the 8-bit path and
+   read just after it; K5's tensor-core entry must serve every 4-bit path
+   and its look-up entry the 8-bit one, and the native re-score must have
+   served. Each path's ids
    must equal, beyond 1e-5 near-ties, those of the same pipeline with the
    plain rank; self-hit (256 stored rows + N(0, 0.01^2) noise return
    their row first) >= 0.99; recall@10 of the cosine path against phase
@@ -139,6 +152,7 @@ REPLACES = {
     "scan_topk_exact_int8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_block_topw": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_topk_l1": "vectorlite_tpu/kernels/pallas_l1.py:44",
+    "pq_rank_mma": "vectorlite_tpu/kernels/pq.py:291",
     "pq_rank": "vectorlite_tpu/kernels/pq.py:291",
     "gather_score": "vectorlite_tpu/kernels/ivf.py:290",
     "scan_merge_topw": "vectorlite_tpu/kernels/pallas_merge.py:66",
@@ -383,7 +397,7 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     return out
 
 
-PQ_CHUNK = 1 << 18  # rows per K5 launch on the PQ path (index/flat.py)
+PQ8_ROWS = 1 << 18  # rows of phase 4's 8-bit collection
 
 
 def compare_rank(label, got, want) -> float:
@@ -414,66 +428,123 @@ def pq_inputs(pq, dev, rng, n, d, m, kc, b, packed, metric):
     return lut, codes, sq, valid
 
 
-def check_pq_kernel(pq, SM, dev, rng) -> float:
-    """Phase 2c: K5 against pq_rank_plain on every layout and metric."""
-    err = 0.0
+def check_pq_kernel(pq, SM, dev, rng, errs: dict) -> None:
+    """Phase 2c: both K5 entries against pq_rank_plain on every layout and
+    metric: the tensor-core entry on 4-bit codes (packed and unpacked); the
+    look-up entry on kc = 256 and, as the design it replaces, on 4-bit
+    codes."""
     shapes = [(65536, D, 64, (192, 16, True), (192, 16, False), (96, 256, False)),
               (8192, 99, 5, (33, 16, False), (33, 256, False))]
     for n, d, b, *layouts in shapes:
         for m, kc, packed in layouts:
             for metric in SM:
                 lut, codes, sq, valid = pq_inputs(pq, dev, rng, n, d, m, kc, b, packed, metric)
-                got = pq.pq_rank(lut, codes, sq, valid, metric=metric, packed=packed)
-                torch.cuda.synchronize()
                 want = pq.pq_rank_plain(lut, codes, sq, valid, metric=metric, packed=packed)
-                label = f"pq_rank {n}x{m}x{kc}{' packed' if packed else ''} B{b} {metric.name}"
-                err = max(err, compare_rank(label, got, want))
-    return err
+                runs = [("pq_rank", lambda: pq.launch_rank_lookup(
+                    lut, codes, sq, valid, metric=metric, packed=packed))]
+                if kc == pq.MMA_KC:
+                    runs.append(("pq_rank_mma", lambda: pq.launch_rank_mma(
+                        lut, codes, sq, valid, metric=metric, packed=packed)))
+                else:  # the dispatching wrapper sends kc = 256 to the look-ups
+                    runs[0] = ("pq_rank", lambda: pq.pq_rank(
+                        lut, codes, sq, valid, metric=metric, packed=packed))
+                for name, fn in runs:
+                    got = fn()
+                    torch.cuda.synchronize()
+                    label = f"{name} {n}x{m}x{kc}{' packed' if packed else ''} B{b} {metric.name}"
+                    errs[name] = max(errs.get(name, 0.0), compare_rank(label, got, want))
 
 
-def time_pq_kernel(pq, SM, dev, rng, n: int, errs: dict) -> dict:
-    """Phase 2d: K5 at the main-path shape (every chunk held against the
-    plain rank for all 256 queries; one chunk timed), the library
-    yardstick, and the chunk selection timed apart."""
+def onehot_yardstick(pq, lut, codes, packed):
+    """The library yardstick of K5: the [B, M * kc] bf16 LUT and the rows'
+    [N, M * kc] bf16 one-hot, built outside the timing, so that one
+    torch.mm(lut, onehot.T) computes the rank's ADC sums."""
+    b, m, kc = lut.shape
+    u = (pq.unpack_nibbles(codes) if packed else codes).to(torch.int16)
+    onehot = u[:, :, None] == torch.arange(kc, device=codes.device, dtype=torch.int16)
+    return lut.reshape(b, m * kc), onehot.to(torch.bfloat16).reshape(len(codes), m * kc)
+
+
+def time_pq_kernel(pq, SM, dev, rng, n: int, errs: dict) -> tuple[dict, dict]:
+    """Phase 2d: K5 at the main-path shape (2^18-row chunks, M 192 packed,
+    B 256): the tensor-core entry held against the plain rank on every
+    chunk for all 256 queries, then on one chunk timed beside the look-up
+    entry it replaces, the plain rank, a bf16 torch.mm with a prebuilt
+    one-hot (the library yardstick) and the chunk selection; the L2 bytes
+    the design reads. Then the look-up entry at its own serving shape (the
+    8-bit path's 2^16-row chunk: kc 256, M 96), held and timed beside its
+    plain version and the same yardstick. Returns the two kernel lines'
+    timings."""
+    from vectorlite_tpu_torch.index.flat import _pq_scan_chunk  # the path's chunks
+
+    chunk4, chunk8 = _pq_scan_chunk(4), _pq_scan_chunk(8)
     m, kc = D // 2, 16
     lut, codes, sq, valid = pq_inputs(pq, dev, rng, n, D, m, kc, B, True, SM.COSINE)
     valid[:] = True
-    chunks = [slice(lo, lo + PQ_CHUNK) for lo in range(0, n, PQ_CHUNK)]
+    chunks = [slice(lo, lo + chunk4) for lo in range(0, n, chunk4)]
     for i, c in enumerate(chunks):
         got = pq.pq_rank_cuda(lut, codes[c], sq[c], valid[c], metric=SM.COSINE, packed=True)
         want = pq.pq_rank_plain(lut, codes[c], sq[c], valid[c], metric=SM.COSINE, packed=True)
-        err = compare_rank(f"pq_rank at the main-path shape, chunk {i}", got, want)
-        errs["pq_rank"] = max(errs.get("pq_rank", 0.0), err)
+        err = compare_rank(f"pq_rank_mma at the main-path shape, chunk {i}", got, want)
+        errs["pq_rank_mma"] = max(errs.get("pq_rank_mma", 0.0), err)
         del got, want
     c = chunks[0]
-    rows = min(PQ_CHUNK, n)
+    rows = min(chunk4, n)
+    args = (lut, codes[c], sq[c], valid[c])
 
     def kern():
-        return pq.pq_rank_cuda(lut, codes[c], sq[c], valid[c], metric=SM.COSINE, packed=True)
+        return pq.pq_rank_cuda(*args, metric=SM.COSINE, packed=True)
 
     def plain():
-        return pq.pq_rank_plain(lut, codes[c], sq[c], valid[c], metric=SM.COSINE, packed=True)
+        return pq.pq_rank_plain(*args, metric=SM.COSINE, packed=True)
 
-    # library yardstick: one bf16 product of the LUT with a one-hot of the
-    # chunk's codes, built outside the timing
-    onehot = (pq.unpack_nibbles(codes[c]).to(torch.int16)[:, :, None]
-              == torch.arange(kc, device=dev, dtype=torch.int16))
-    onehot = onehot.to(torch.bfloat16).reshape(rows, m * kc)
-    lut2 = lut.reshape(B, m * kc)
+    def lookup():
+        return pq.launch_rank_lookup(*args, metric=SM.COSINE, packed=True)
+
+    err = compare_rank("pq_rank (look-ups) at the main-path shape", lookup(), plain())
+    errs["pq_rank"] = max(errs.get("pq_rank", 0.0), err)
+    lut2, onehot = onehot_yardstick(pq, lut, codes[c], True)
     ms, plain_ms = interleaved_ms(kern, plain, reps=20, plain_reps=3)
+    lookup_ms = cuda_time_ms(lookup, 20)
+    relayout_ms = cuda_time_ms(lambda: pq.mma_lut_operand(lut, pq.mma_query_tile(B)), 20)
     lib_ms = cuda_time_ms(lambda: torch.mm(lut2, onehot.T), 10)
-    del onehot
+    del lut2, onehot
     rank = kern()
     sel_ms = cuda_time_ms(lambda: pq.select_topk(rank, 256 + 32), 10)
     del rank
     ops = 2.0 * B * rows * m * kc  # the one-hot bf16 contraction
     nbytes = rows * (m // 2) + B * m * kc * 2 + B * rows * 4  # pq.py:385-389
-    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+    mma = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            **bound(nbytes, ops, "bf16")}
-    log(f"  pq_rank (chunk {rows} x M {m}, B {B}) kernel {ms:.4f} ms  plain "
-        f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']}, bf16 rate); chunk selection (top 288) {sel_ms:.4f} ms")
-    return out
+    l2 = -(-rows // 128) * B * m * kc * 2  # every 128-row tile streams the LUT
+    log(f"  pq_rank_mma (chunk {rows} x M {m}, B {B}) kernel {ms:.4f} ms (the LUT "
+        f"relayout alone {relayout_ms:.4f})  look-up entry (the design it replaced) {lookup_ms:.4f} ms  "
+        f"plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {mma['bound_ms']:.4f} ms "
+        f"({mma['bound_by']}, bf16 rate); LUT bytes from L2 a chunk {l2 / 1e9:.2f} GB; "
+        f"chunk selection (top 288) {sel_ms:.4f} ms")
+
+    # the look-up entry where it serves: the 8-bit path's chunk
+    rows8, m8, kc8 = min(chunk8, n), D // 4, 256
+    lut, codes, sq, valid = pq_inputs(pq, dev, rng, rows8, D, m8, kc8, B, False, SM.COSINE)
+    err = compare_rank("pq_rank (look-ups) at the 8-bit path's shape",
+                       pq.pq_rank_cuda(lut, codes, sq, valid, metric=SM.COSINE, packed=False),
+                       pq.pq_rank_plain(lut, codes, sq, valid, metric=SM.COSINE, packed=False))
+    errs["pq_rank"] = max(errs.get("pq_rank", 0.0), err)
+    ms8, plain8 = interleaved_ms(
+        lambda: pq.pq_rank_cuda(lut, codes, sq, valid, metric=SM.COSINE, packed=False),
+        lambda: pq.pq_rank_plain(lut, codes, sq, valid, metric=SM.COSINE, packed=False),
+        reps=20, plain_reps=2)
+    lut2, onehot = onehot_yardstick(pq, lut, codes, False)
+    lib8 = cuda_time_ms(lambda: torch.mm(lut2, onehot.T), 10)
+    del lut2, onehot
+    # the look-up form's work: one f32 add a (query, row, subspace)
+    lookup_line = {"ms": ms8, "plain_ms": plain8, "library_ms": lib8,
+                   **bound(rows8 * m8 + B * m8 * kc8 * 2 + B * rows8 * 4,
+                           1.0 * B * rows8 * m8, "f32")}
+    log(f"  pq_rank (chunk {rows8} x M {m8}, kc {kc8}, B {B}) kernel {ms8:.4f} ms  plain "
+        f"{plain8:.4f} ms  library {lib8:.4f} ms  bound {lookup_line['bound_ms']:.4f} ms "
+        f"({lookup_line['bound_by']}, f32 rate)")
+    return mma, lookup_line
 
 
 # the IVF shape: 2,000,000 rows at 512 a cell -> C = 4,096 cells of
@@ -481,10 +552,15 @@ def time_pq_kernel(pq, SM, dev, rng, n: int, errs: dict) -> dict:
 IVF_C, IVF_P, IVF_B, IVF_L = 4096, 640, 64, 16
 
 
-def probe_operands(dev, rng, c, p, d, b, l_probe, dtype):
-    """Random [C * P, D] blocks (bf16 or int8), [B, L] cell ids with a
-    query that probes one cell again and again and one that probes in
-    descending order, and [B, D] f32 queries, on the card."""
+#: K6's id patterns: random cells (query 0 probing one cell again and
+#: again, query 1 in descending order); every query probing the same L
+#: cells, each in its own order; every pair probing one cell
+PROBE_IDS = ("random", "shared", "one")
+
+
+def probe_operands(dev, rng, c, p, d, b, l_probe, dtype, ids_mode="random"):
+    """Random [C * P, D] blocks (bf16 or int8), [B, L] int32 cell ids in
+    one of PROBE_IDS' patterns, and [B, D] f32 queries, on the card."""
     if dtype == "int8":
         rows = torch.from_numpy(rng.integers(-127, 128, (c * p, d), dtype=np.int8)).to(dev)
     else:
@@ -494,6 +570,10 @@ def probe_operands(dev, rng, c, p, d, b, l_probe, dtype):
     ids[0] = ids[0, 0]
     if b > 1:
         ids[1] = np.sort(ids[1])[::-1]
+    if ids_mode == "shared":
+        ids = np.stack([rng.permutation(ids[-1]) for _ in range(b)]).astype(np.int32)
+    elif ids_mode == "one":
+        ids[:] = ids[-1, 0]
     q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
     return rows, torch.from_numpy(np.ascontiguousarray(ids)).to(dev), q
 
@@ -509,18 +589,31 @@ def compare_probe(label, got, want) -> float:
 
 
 def check_ivf_kernel(ivf, dev, rng) -> float:
-    """Phase 2e: K6 against gather_score_plain at small shapes."""
+    """Phase 2e: K6 against gather_score_plain at small shapes, in every
+    id pattern (cells repeated within a query, shared across queries)."""
     err = 0.0
     for dtype in ("bf16", "int8"):
         for d in (384, 100):
-            for c, p, b, l_probe in ((16, 128, 5, 3), (16, 640, 64, 16)):
-                rows, ids, q = probe_operands(dev, rng, c, p, d, b, l_probe, dtype)
-                got = ivf.gather_score_pallas(rows, ids, q, p_width=p)
-                torch.cuda.synchronize()
-                want = ivf.gather_score_plain(rows, ids, q, p_width=p)
-                label = f"gather_score {dtype} C{c} P{p} D{d} B{b} L{l_probe}"
-                err = max(err, compare_probe(label, got, want))
+            for c, p, b, l_probe in ((16, 128, 5, 3), (16, 640, 64, 16), (16, 128, 320, 16)):
+                for mode in PROBE_IDS:
+                    rows, ids, q = probe_operands(dev, rng, c, p, d, b, l_probe, dtype, mode)
+                    got = ivf.gather_score_pallas(rows, ids, q, p_width=p)
+                    torch.cuda.synchronize()
+                    want = ivf.gather_score_plain(rows, ids, q, p_width=p)
+                    label = f"gather_score {dtype} C{c} P{p} D{d} B{b} L{l_probe} {mode}"
+                    err = max(err, compare_probe(label, got, want))
     return err
+
+
+def probe_bound(ids, dtype: str) -> dict:
+    """K6's bound at the IVF shape: each distinct probed cell read once,
+    the [B, L, P] scores written once, 2 B L P D operations at the rate of
+    the layout's contraction."""
+    itemsize = 1 if dtype == "int8" else 2
+    distinct = int(torch.unique(ids).numel())
+    nbytes = (distinct * IVF_P * D * itemsize + IVF_B * IVF_L * IVF_P * 4
+              + IVF_B * IVF_L * 4 + IVF_B * D * 4)
+    return bound(nbytes, 2.0 * IVF_B * IVF_L * IVF_P * D, "f32" if dtype == "int8" else "bf16")
 
 
 def time_ivf_kernel(ivf, dev, rng, errs: dict) -> dict:
@@ -531,12 +624,20 @@ def time_ivf_kernel(ivf, dev, rng, errs: dict) -> dict:
     kernel line's."""
     out = {}
     for dtype in ("bf16", "int8"):
-        rows, ids, q = probe_operands(dev, rng, IVF_C, IVF_P, D, IVF_B, IVF_L, dtype)
-        got = ivf.gather_score_cuda(rows, ids, q, p_width=IVF_P)
-        want = ivf.gather_score_plain(rows, ids, q, p_width=IVF_P)
-        err = compare_probe(f"gather_score {dtype} at the IVF shape", got, want)
-        errs["gather_score"] = max(errs.get("gather_score", 0.0), err)
-        del got, want
+        for mode in PROBE_IDS[::-1]:  # the random ids last: those are timed
+            rows, ids, q = probe_operands(dev, rng, IVF_C, IVF_P, D, IVF_B, IVF_L, dtype, mode)
+            got = ivf.gather_score_cuda(rows, ids, q, p_width=IVF_P)
+            want = ivf.gather_score_plain(rows, ids, q, p_width=IVF_P)
+            err = compare_probe(f"gather_score {dtype} at the IVF shape, {mode} ids", got, want)
+            errs["gather_score"] = max(errs.get("gather_score", 0.0), err)
+            if mode != "random":
+                q_op = ivf._query_operand(rows, q).contiguous()
+                shared_ms = cuda_time_ms(
+                    lambda: ivf.launch_gather_score(rows, ids, q_op, p_width=IVF_P), 50)
+                log(f"  gather_score {dtype}, {mode} ids ({int(torch.unique(ids).numel())} "
+                    f"distinct cells): kernel {shared_ms:.4f} ms  bound "
+                    f"{probe_bound(ids, dtype)['bound_ms']:.4f} ms")
+            del got, want
         q_op = ivf._query_operand(rows, q).contiguous()
 
         def kern():
@@ -561,14 +662,10 @@ def time_ivf_kernel(ivf, dev, rng, errs: dict) -> dict:
             lambda: ivf.gather_score_pallas(rows, ids, q, p_width=IVF_P), 20)
         del blocks
         distinct = int(torch.unique(ids).numel())
-        itemsize = 1 if dtype == "int8" else 2
-        nbytes = (distinct * IVF_P * D * itemsize + IVF_B * IVF_L * IVF_P * 4
-                  + IVF_B * IVF_L * 4 + IVF_B * D * 4)
-        pair_bytes = IVF_B * IVF_L * IVF_P * D * itemsize
-        ops = 2.0 * IVF_B * IVF_L * IVF_P * D
+        pair_bytes = IVF_B * IVF_L * IVF_P * D * (1 if dtype == "int8" else 2)
         op_type = "f32" if dtype == "int8" else "bf16"
         out[dtype] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      **bound(nbytes, ops, op_type)}
+                      **probe_bound(ids, dtype)}
         log(f"  gather_score {dtype} (C {IVF_C} P {IVF_P} D {D} B {IVF_B} L {IVF_L}, "
             f"{distinct} distinct cells) kernel {ms:.4f} ms  search wrapper "
             f"{wrapper_ms:.4f} ms  with the id check {checked_ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  "
@@ -974,7 +1071,8 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
 
 def pq_path(vl, build, pq, native, dev, rows, queries, exact_ids, card: str,
             n_batches: int, rng) -> dict:
-    """Phase 4: the `pq` profile through the SDK; returns K5's launches."""
+    """Phase 4: the `pq` profile through the SDK, then its 8-bit layout on
+    one chunk of the rows; returns the launches of K5's two entries."""
     SM = vl.SimilarityMetric
     n = len(rows)
     metas = [{"shard": i % 8} for i in range(n)]
@@ -1026,9 +1124,9 @@ def pq_path(vl, build, pq, native, dev, rows, queries, exact_ids, card: str,
         log(f"    device stage p50 {np.percentile(spent['device'], 50):.3f} ms, "
             f"host re-score p50 {np.percentile(spent['rescore'], 50):.3f} ms "
             f"({len(spent['rescore'])} calls)")
-        if not moved[name].get("pq_rank"):
-            raise AssertionError(f"{name}: K5 did not launch")
-    launches = pq.PQ_RANK.launches
+        if not moved[name].get("pq_rank_mma") or moved[name].get("pq_rank"):
+            raise AssertionError(f"{name}: the tensor-core K5 entry did not serve the 4-bit path")
+    launches = {"pq_rank_mma": pq.PQ_RANK_MMA.launches}
     if native.calls == calls:
         raise AssertionError("the native f64 re-score never served the pq paths")
 
@@ -1061,6 +1159,57 @@ def pq_path(vl, build, pq, native, dev, rows, queries, exact_ids, card: str,
     if r < 0.90:
         raise AssertionError(f"pq recall@10 {r} < 0.90")
     client.delete_collection("pq")
+    del client, index
+    gc.collect()
+
+    # the 8-bit profile (kc 256) on the look-up entry: one chunk of the rows
+    n8 = min(n, PQ8_ROWS)
+    os.environ["VECTORLITE_PQ_BITS"] = "8"
+    try:
+        client8 = vl.VectorLiteClient(
+            vl.MockEmbeddingFunction(D), config=vl.VectorLiteConfig.profile("pq"),
+            device=dev,
+        )
+        client8.create_collection("pq8", vl.IndexType.FLAT)
+        client8.add_vectors_to_collection("pq8", rows[:n8])
+        t0 = time.perf_counter()
+        client8.search_vectors_in_collection("pq8", queries, K)  # trains and encodes
+        torch.cuda.synchronize()
+        with client8.get_collection("pq8").index_read() as index8:
+            pass
+        if not index8._pq_active or index8._pq_bits_active != 8:
+            raise AssertionError("the 8-bit pq rung did not engage")
+        log(f"  8-bit profile on {n8} rows: first search (training "
+            f"{tuple(index8._dev_codebooks.shape)} codebooks) {time.perf_counter() - t0:.2f} s")
+        name8 = "pq 8-bit (kc 256, look-ups; cosine)"
+
+        def search8(qs, k=K):
+            return client8.search_vectors_in_collection("pq8", qs, k)
+
+        build.reset_launch_counts()
+        res, moved, _ = drive([(name8, search8)], queries, n_batches, build, card, native)
+        if not moved[name8].get("pq_rank") or moved[name8].get("pq_rank_mma"):
+            raise AssertionError(f"{name8}: the look-up K5 entry did not serve kc 256")
+        launches["pq_rank"] = pq.PQ_RANK.launches
+        saved = pq.pq_rank
+        pq.pq_rank = pq.pq_rank_plain
+        try:
+            ref = search8(queries, K + 1)
+        finally:
+            pq.pq_rank = saved
+        got = res[name8]
+        bad = ids_match(scores_of(ref), ids_of(ref), scores_of(got), ids_of(got))
+        pick = rng.choice(n8, B, replace=False)
+        noisy = rows[pick].astype(np.float64) + rng.normal(0.0, 0.01, (B, D))
+        self8 = float(np.mean(ids_of(search8(noisy))[:, 0] == pick))
+        log(f"  {name8} vs the plain-rank pipeline: id mismatches beyond ties {bad}; "
+            f"self-hit {self8:.5f}")
+        if bad or self8 < 0.99:
+            raise AssertionError(f"{name8} disagrees with the plain-rank pipeline or "
+                                 f"misses its own rows")
+        client8.delete_collection("pq8")
+    finally:
+        os.environ.pop("VECTORLITE_PQ_BITS", None)
     return launches
 
 
@@ -1503,7 +1652,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     log("[2] kernels against their plain versions")
     errs = check_kernels(scan, metrics_mod, dev, rng)
-    errs["pq_rank"] = check_pq_kernel(pq, vl.SimilarityMetric, dev, rng)
+    check_pq_kernel(pq, vl.SimilarityMetric, dev, rng, errs)
     # K6's operands come from a stream of their own: the corpus of phases
     # 3-4 depends only on --seed and the K1-K5 checks
     ivf_rng = np.random.default_rng([args.seed, 6])
@@ -1513,7 +1662,8 @@ def main() -> int:
     errs["scan_fold_probe"] = check_fold_kernel(decompose, dev, merge_rng)
     log(f"    at the main-path shape (N={args.rows}, D={D}, B={B}) [{card}]")
     timing = time_kernels(scan, metrics_mod, dev, rng, args.rows, errs)
-    timing["pq_rank"] = time_pq_kernel(pq, vl.SimilarityMetric, dev, rng, args.rows, errs)
+    timing["pq_rank_mma"], timing["pq_rank"] = time_pq_kernel(
+        pq, vl.SimilarityMetric, dev, rng, args.rows, errs)
     log(f"    K6 at the IVF shape [{card}]")
     timing["gather_score"] = time_ivf_kernel(ivf, dev, ivf_rng, errs)["bf16"]
     log(f"    K7 and K8 at the headline shape (N={args.rows}, D={D}, B={B}) [{card}]")
@@ -1534,9 +1684,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log(f"[4] the pq profile through the SDK (N={args.rows}, D={D}, B={B}, k={K})")
-    launches["pq_rank"] = pq_path(
+    launches.update(pq_path(
         vl, _build, pq, native.RESCORE, dev, rows, queries, exact_ids, card,
-        args.batches, rng)
+        args.batches, rng))
     log(f"  host peak RSS after phase 4: {peak_rss_gb():.2f} GB")
     del rows, queries, exact_ids
     gc.collect()

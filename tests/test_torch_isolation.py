@@ -15,7 +15,8 @@ PACKAGE = ROOT / "vectorlite_tpu_torch"
 
 
 def port_sources():
-    return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PACKAGE.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "probe_k6_read_once.py"]
 
 
 def test_importing_every_module_loads_no_jax():

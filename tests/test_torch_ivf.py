@@ -193,7 +193,7 @@ def test_train_centroids_quality_and_no_dead_centroid():
     sample = corpus(4000, clusters=24).astype(np.float32)
     c = 32
     j_c = np.asarray(jivf.train_centroids(sample, c, iters=8, chunk=1000))
-    t_c = tivf.train_centroids(sample, c, iters=8, chunk=1000)
+    t_c = tivf.train_centroids(sample, c, iters=8, chunk=1000, device="cpu")
     assert t_c.shape == (c, D) and t_c.dtype == torch.float32
 
     def inertia(cents):
@@ -210,6 +210,18 @@ def test_train_centroids_quality_and_no_dead_centroid():
 def test_train_centroids_refuses_a_small_sample():
     with pytest.raises(ValueError, match="sample >= C"):
         tivf.train_centroids(np.zeros((10, 4), np.float32), 16)
+
+
+def test_train_centroids_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the trainer resolves the card as every entry of
+    the port does: with none it raises the port's error naming
+    device='cpu', and never trains on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sample = corpus(256, clusters=4).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        tivf.train_centroids(sample, 8, iters=1, chunk=128)
+    out = tivf.train_centroids(sample, 8, iters=1, chunk=128, device="cpu")
+    assert out.device.type == "cpu" and out.shape == (8, D)
 
 
 def test_centroids_from_reference():
@@ -255,6 +267,22 @@ def test_gather_score_plain_matches_reference(dtype, d):
     # the wrapper takes the plain version for CPU tensors
     np.testing.assert_array_equal(
         tivf.gather_score_pallas(t_rows, t(ids), t(q), p_width=p).numpy(), got)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_gather_score_plain_matches_reference_on_shared_cells(dtype):
+    """Every query probes the same cells in its own order, one of them
+    twice (the pairs K6 scores in one pass over each cell): the plain
+    probe against the reference's Pallas kernel in interpret mode."""
+    j_rows, t_rows, ids, q, p = probe_inputs(dtype, 64, b=6, l_probe=4)
+    rng = np.random.default_rng(9)
+    cells = np.array([3, 5, 0, 3], dtype=np.int32)
+    ids = np.stack([rng.permutation(cells) for _ in range(len(ids))]).astype(np.int32)
+    got = tivf.gather_score_plain(t_rows, t(ids), t(q), p_width=p).numpy()
+    want = np.asarray(jivf.gather_score_pallas(
+        j_rows, jnp.asarray(ids), jnp.asarray(q), p_width=p, interpret=True))
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
 
 
 def meta_probe(**change):

@@ -8,6 +8,9 @@ The trainers draw different random numbers, so the FlatIndex tests carry
 the JAX index's trained codebooks across (``codebooks_from_reference``).
 """
 
+import contextlib
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -373,7 +376,115 @@ def test_cuda_wrapper_checks_its_operands(change, match, monkeypatch):
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     with pytest.raises(ValueError, match=match):
         tpq.pq_rank_cuda(**inp, metric=TM.COSINE, packed=True)
-    assert tpq.PQ_RANK.launches == 0
+    assert tpq.PQ_RANK.launches == 0 and tpq.PQ_RANK_MMA.launches == 0
+
+
+@pytest.mark.parametrize(
+    "change, match",
+    [
+        (dict(codes=torch.zeros((256, 32), dtype=torch.uint8, device="meta"),
+              lut_sel=torch.zeros((2, 31, 16), dtype=torch.bfloat16, device="meta")),
+         "unpacked"),
+        (dict(lut_sel=torch.zeros((2, 32, 16), dtype=torch.bfloat16, device="meta")[:, ::2]
+              .repeat_interleave(2, dim=1).transpose(0, 1)), "contiguous"),
+        (dict(lut_sel=torch.zeros((2, 32, 32), dtype=torch.bfloat16, device="meta")),
+         "packed codes need kc = 16"),
+    ],
+    ids=["unpacked-width", "lut-layout", "packed-kc"],
+)
+def test_tensor_core_entry_checks_its_operands(change, match, monkeypatch):
+    """kc = 16 goes to the tensor-core entry; its operands are checked as
+    the look-up entry's are, before any launch."""
+    inp = {**meta_inputs(), **change}
+    packed = "codes" not in change
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    with pytest.raises(ValueError, match=match):
+        tpq.pq_rank_cuda(**inp, metric=TM.COSINE, packed=packed)
+    assert tpq.PQ_RANK_MMA.launches == 0 and tpq.PQ_RANK.launches == 0
+
+
+@pytest.mark.parametrize(
+    "m, kc, packed, entry",
+    [(32, 16, True, "pq_rank_mma"), (33, 16, False, "pq_rank_mma"),
+     (16, 256, False, "pq_rank"), (2620, 16, True, None)],
+    ids=["4bit-packed", "4bit-unpacked", "kc256", "4bit-wide"],
+)
+@pytest.mark.parametrize("b", [5, 256, 300])
+def test_cuda_wrapper_sends_kc16_to_the_tensor_cores(m, kc, packed, entry, b, monkeypatch):
+    """pq_rank_cuda sends kc = 16, packed or unpacked, to the tensor-core
+    entry with its query tile, and any other kc to the
+    look-up entry; nothing reaches the plain rank. A fake CUDA device lets
+    the host side run here."""
+    n = 200
+    lut = torch.zeros((b, m, kc), dtype=torch.bfloat16)
+    codes = torch.zeros((n, m // 2 if packed else m), dtype=torch.uint8)
+    launched = []
+    for kern in (tpq.PQ_RANK_MMA, tpq.PQ_RANK):
+        monkeypatch.setattr(kern, "launch", lambda *a, kern=kern: launched.append((kern.symbol, a)))
+    monkeypatch.setattr(tpq, "pq_rank_plain", lambda *a, **k: launched.append("plain"))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
+    if entry is None:  # a tile's codes too wide for the tensor-core entry's shared memory
+        entry = "pq_rank_mma" if tpq.mma_fits(b, codes.shape[1]) else "pq_rank"
+        assert entry == ("pq_rank_mma" if b == 5 else "pq_rank")
+    out = tpq.pq_rank_cuda(lut, codes, torch.zeros(n), torch.ones(n, dtype=torch.bool),
+                           metric=TM.EUCLIDEAN, packed=packed)
+    assert out.shape == (b, n) and out.dtype == torch.float32
+    assert [sym for sym, _ in launched] == [entry]
+    args = launched[0][1]
+    if entry == "pq_rank_mma":
+        nt = {5: 8, 256: 256, 300: 256}[b]
+        assert args[5:] == (n, b, m, codes.shape[1], int(packed), 1, nt, 0)
+    else:
+        assert args[5:] == (n, b, m, kc, codes.shape[1], int(packed), 1, 0)
+
+
+@pytest.mark.parametrize("b, nt", [(1, 8), (5, 8), (8, 8), (9, 16), (64, 64), (65, 128),
+                                   (256, 256), (300, 256)])
+def test_mma_query_tile(b, nt):
+    assert tpq.mma_query_tile(b) == nt
+
+
+@pytest.mark.parametrize("m, packed", [(32, True), (33, False)], ids=["packed", "unpacked"])
+@pytest.mark.parametrize("b", [5, 256, 300])
+@pytest.mark.parametrize("metric", METRICS)
+def test_mma_lut_operand_contracts_to_the_plain_rank(b, m, packed, metric):
+    """The tensor-core entry's LUT operand, read as the kernel addresses it
+    (a subspace's slice of a query tile is nt x 32 bytes; in it 8 queries x
+    8 codes a core matrix, the two code halves 128 bytes apart, groups of 8
+    queries 256 bytes apart) and contracted with the codes' one-hot in
+    plain torch, gives pq_rank_plain's rank; the padded queries are zero."""
+    rng = np.random.default_rng(b + m)
+    n = 300
+    lut = torch.from_numpy(rng.normal(size=(b, m, 16)).astype(np.float32)).to(torch.bfloat16)
+    codes = torch.from_numpy(rng.integers(0, 16, (n, m)).astype(np.uint8))
+    stored = tpq.pack_nibbles(codes) if packed else codes
+    sq = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    valid = torch.from_numpy(rng.random(n) > 0.1)
+    nt = tpq.mma_query_tile(b)
+    op = tpq.mma_lut_operand(lut, nt)
+    qt = -(-b // nt)
+    assert op.dtype == torch.bfloat16 and op.is_contiguous() and op.numel() == qt * nt * m * 16
+    flat = op.reshape(-1).to(torch.float32)
+    bq = torch.arange(qt * nt)
+    tile, q = bq // nt, bq % nt
+    mm = torch.arange(m)
+    k = torch.arange(16)
+    index = (
+        (((tile[:, None, None] * m + mm[None, :, None]) * (nt // 8) + (q // 8)[:, None, None]) * 2
+         + (k // 8)[None, None, :]) * 64
+        + ((q % 8) * 8)[:, None, None] + (k % 8)[None, None, :]
+    )
+    read = flat[index]  # [tiles * nt, M, 16] as the kernel reads it
+    assert torch.equal(read[:b], lut.to(torch.float32))
+    assert not read[b:].any()
+    onehot = (codes.to(torch.int64)[:, :, None] == k).to(torch.float32)  # [N, M, 16]
+    adc = torch.einsum("bmk,nmk->bn", read[:b], onehot)
+    want = tpq.pq_rank_plain(lut, stored, sq, valid, metric=TM[metric], packed=packed)
+    got = torch.where(valid[None, :], tpq._rank_surrogate(adc, TM[metric], sq[None, :]),
+                      tpq.NEG_INF)
+    assert_rank_close(got.numpy(), want.numpy())
 
 
 # ----------------------------------------------------------- FlatIndex

@@ -36,6 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..core.metrics import SimilarityMetric, disable_tf32
 from . import _build
 from .amk import _exact_rescore_device, _matmul, _rank_scores
@@ -103,9 +104,10 @@ def train_centroids(
     seed: int = 0,
     device=None,
 ) -> torch.Tensor:
-    """Full-dimension k-means codebook [C, D] f32 on ``device`` (the CPU
-    when None). The sample is padded with its own leading rows to a chunk
-    multiple."""
+    """Full-dimension k-means codebook [C, D] f32 on ``device``: the
+    current CUDA device when None, which raises where there is none (pass
+    ``device="cpu"`` for the CPU). The sample is padded with its own
+    leading rows to a chunk multiple."""
     s, _d = sample32.shape
     if s < c:
         raise ValueError(f"IVF needs sample >= C rows ({s} < {c})")
@@ -116,7 +118,7 @@ def train_centroids(
     if pad:
         sample32 = np.concatenate([sample32, sample32[:pad]], axis=0)
     disable_tf32()
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return _kmeans(

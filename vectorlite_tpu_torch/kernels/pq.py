@@ -21,9 +21,11 @@ match the scalar reference formulas and only the ranking is approximate.
 * **Encoding** (``encode_rows``): the same assignment, one subspace at a
   time.
 * **Search** (``pq_search_topk``): a per-query LUT ``[B, M, kc]`` rounded
-  to bf16; per corpus chunk the ``[B, chunk]`` selection rank (K5,
-  ``csrc/pq.cu`` ``pq_rank``, for CUDA tensors; ``pq_rank_plain`` for CPU
-  tensors); the top k + 32 of each chunk, ties to the lowest row; the
+  to bf16; per corpus chunk the ``[B, chunk]`` selection rank (K5 for CUDA
+  tensors: ``csrc/pq.cu`` ``pq_rank_mma``, the one-hot product on the
+  tensor cores, for kc = 16, and ``pq_rank``, shared-memory look-ups, for
+  any other kc; ``pq_rank_plain`` for CPU tensors); the top k + 32 of each
+  chunk, ties to the lowest row; the
   merged top k + 32; an exact-f32 ADC re-score of that pool with the f32
   LUT, the full metric formula and the validity mask.
 
@@ -57,8 +59,8 @@ _EXACT_MARGIN = 32
 #: bytes of one-hot operand the plain rank builds at a time
 _PLAIN_ONEHOT_BYTES = 1 << 30
 
-#: shared memory one K5 block can hold (Hopper: 227 KB); one query's f32
-#: LUT must fit in it
+#: shared memory one block of K5's look-up entry can hold (Hopper: 227 KB);
+#: one query's f32 LUT must fit in it
 _SMEM_MAX = 232448
 
 _METRIC_CODE = {
@@ -74,6 +76,22 @@ _I = ctypes.c_int
 PQ_RANK = _build.Kernel(
     "pq", "pq_rank", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 )
+PQ_RANK_MMA = _build.Kernel(
+    "pq", "pq_rank_mma",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+)
+
+#: codes a subspace the tensor-core entry takes: one bf16 MMA k-step
+MMA_KC = 16
+
+#: queries of the widest tile of the tensor-core entry (one wgmma's N)
+_MMA_MAX_TILE = 256
+
+#: the tensor-core entry's tile: 128 rows, their codes and the two
+#: warpgroups' one-hot A tiles in shared memory beside at least two LUT
+#: stages of 4 subspaces (csrc/pq.cu layout_for)
+_MMA_ROWS = 128
+_MMA_GROUP = 4
 
 
 def rotation_matrix(dim: int, seed: int = 0) -> np.ndarray:
@@ -248,11 +266,49 @@ def pq_rank_plain(lut_sel, codes, sqnorms, valid, *, metric, packed):
     return torch.where(valid[None, :], rank, NEG_INF)
 
 
-def pq_rank_cuda(lut_sel, codes, sqnorms, valid, *, metric, packed):
-    """K5 on the card: same output as ``pq_rank_plain``."""
+def mma_query_tile(b: int) -> int:
+    """Queries a tile of the tensor-core entry: the least power of two from
+    8 to 256 that holds ``b``, else 256 (the batch then takes several
+    tiles)."""
+    nt = 8
+    while nt < min(b, _MMA_MAX_TILE):
+        nt *= 2
+    return nt
+
+
+def mma_fits(b: int, ms: int) -> bool:
+    """Whether a tile of the tensor-core entry fits a block's shared memory
+    for a batch of ``b`` and ``ms`` code bytes a row: the tile's codes
+    beside two LUT stages (the rest of the ring is sized to what fits)."""
+    nt = mma_query_tile(b)
+    ring = 2 * _MMA_GROUP * nt * 32
+    a_tiles = -(-(ring + _MMA_ROWS * ms) // 128) * 128 + 2 * 2 * _MMA_GROUP * 64 * 16 * 2
+    staging = nt * (_MMA_ROWS + 4) * 4  # the epilogue's [query][row] tile
+    need = -(-max(a_tiles, staging) // 16) * 16 + 2 * 2 * 8  # + barriers
+    return need <= _SMEM_MAX
+
+
+def mma_lut_operand(lut_sel: torch.Tensor, nt: int) -> torch.Tensor:
+    """The [B, M, 16] bf16 LUT as the tensor-core entry streams it:
+    ``[ceil(B / nt), M, nt / 8, 2, 8, 8]`` (query tile, subspace, group of 8
+    queries, half of the 16 codes, query, code), zero past B. One
+    subspace's slice of a tile is then one contiguous run of nt x 32 bytes
+    in wgmma's core-matrix order (8 queries x 8 codes, the two code halves
+    128 bytes apart, the query groups 256 bytes apart)."""
+    b, m, kc = lut_sel.shape
+    qt = -(-b // nt)
+    if qt * nt != b:
+        lut_sel = torch.cat([lut_sel, lut_sel.new_zeros((qt * nt - b, m, kc))])
+    return (
+        lut_sel.reshape(qt, nt // 8, 8, m, 2, kc // 2)
+        .permute(0, 3, 1, 4, 2, 5)
+        .contiguous()
+    )
+
+
+def _check_rank_operands(lut_sel, codes, sqnorms, valid, packed):
+    """Type, shape and layout of K5's operands; returns kc."""
     dev = codes.device
-    if not codes.is_cuda:
-        raise ValueError(f"no kernel for tensors on {dev}")
     if codes.dtype != torch.uint8 or codes.dim() != 2 or not codes.is_contiguous():
         raise ValueError("codes must be a contiguous [N, ms] uint8 tensor")
     n, ms = codes.shape
@@ -268,13 +324,40 @@ def pq_rank_cuda(lut_sel, codes, sqnorms, valid, *, metric, packed):
         raise ValueError(f"packed codes need kc = 16 and M = 2 * {ms}")
     if not packed and (m != ms or kc > 256):
         raise ValueError(f"unpacked codes need M = {ms} and kc <= 256")
-    if m * kc * 4 > _SMEM_MAX:
-        raise ValueError(f"an f32 LUT of {m} x {kc} exceeds a block's shared memory")
     if n >= 1 << 31:
         raise ValueError("the kernel indexes rows with 32-bit integers")
     for name, t, dtype in (("sqnorms", sqnorms, torch.float32), ("valid", valid, torch.bool)):
         if t.device != dev or t.dtype != dtype or t.shape != (n,) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [{n}] {dtype} tensor on {dev}")
+    return kc
+
+
+def launch_rank_mma(lut_sel, codes, sqnorms, valid, *, metric, packed):
+    """Launch the tensor-core entry ``pq_rank_mma`` (kc = 16) on operands
+    ``pq_rank_cuda`` has checked."""
+    n, ms = codes.shape
+    b, m, _kc = lut_sel.shape
+    dev = codes.device
+    nt = mma_query_tile(b)
+    lut_t = mma_lut_operand(lut_sel, nt)
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        PQ_RANK_MMA.launch(
+            lut_t.data_ptr(), codes.data_ptr(), sqnorms.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), n, b, m, ms, int(packed),
+            _METRIC_CODE[metric], nt, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    return out
+
+
+def launch_rank_lookup(lut_sel, codes, sqnorms, valid, *, metric, packed):
+    """Launch the look-up entry ``pq_rank`` (any kc) on operands
+    ``pq_rank_cuda`` has checked."""
+    n, ms = codes.shape
+    b, m, kc = lut_sel.shape
+    dev = codes.device
+    if m * kc * 4 > _SMEM_MAX:
+        raise ValueError(f"an f32 LUT of {m} x {kc} exceeds a block's shared memory")
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         PQ_RANK.launch(
@@ -283,6 +366,20 @@ def pq_rank_cuda(lut_sel, codes, sqnorms, valid, *, metric, packed):
             _METRIC_CODE[metric], torch.cuda.current_stream(dev).cuda_stream,
         )
     return out
+
+
+def pq_rank_cuda(lut_sel, codes, sqnorms, valid, *, metric, packed):
+    """K5 on the card: same output as ``pq_rank_plain``. kc = 16 (the
+    4-bit profile, packed or unpacked) runs the tensor-core entry, unless a
+    tile's codes are too wide for its shared memory (``mma_fits``: at a
+    batch of 256, more than ~1,040 code bytes a row); any other kc, and
+    those, the look-up entry."""
+    if not codes.is_cuda:
+        raise ValueError(f"no kernel for tensors on {codes.device}")
+    kc = _check_rank_operands(lut_sel, codes, sqnorms, valid, packed)
+    if kc == MMA_KC and mma_fits(lut_sel.shape[0], codes.shape[1]):
+        return launch_rank_mma(lut_sel, codes, sqnorms, valid, metric=metric, packed=packed)
+    return launch_rank_lookup(lut_sel, codes, sqnorms, valid, metric=metric, packed=packed)
 
 
 def pq_rank(lut_sel, codes, sqnorms, valid, *, metric, packed):
