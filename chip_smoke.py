@@ -43,18 +43,23 @@ Phases (any failure raises and the exit code is not 0):
    ids beside their bound. Tolerance: |diff| <= 1e-5
    * max(1, max |out|) (f32 sums of the same products taken in another
    order).
-   K7 (scan_merge_topw) against merge_topw_plain: f32 and bf16 rows, three
-   metrics, W 1-3, 5% invalid rows and a lane group with one live row, at
-   65,536 x 384, B 64 (tile 16,384) and 8,192 x 100, B 5 (tile 2,048);
-   K8 (scan_fold_probe) against fold_probe_plain in every mode at tiles
-   8,192 and 16,384 (65,536 x 384, B 64; 16,384 x 100, B 5). Then both at
+   K7 (scan_merge_topw) against merge_topw_plain: f32 rows (the CUDA-core
+   body) and bf16 rows (the tensor-core body), three metrics, W 1-3, 5%
+   invalid rows and a lane group with one live row, at 65,536 x 384, B 64
+   (tile 16,384), 8,192 x 100, B 5 (tile 2,048: 200-byte rows, which TMA
+   refuses, take the plain-load staging) and 8,192 x 768, B 70 (tile
+   2,048: the query terms too wide to stay in shared memory ride each
+   stage; two query blocks); K8 (scan_fold_probe, the tensor-core body)
+   against fold_probe_plain in every mode at tiles 8,192 and 16,384
+   (65,536 x 384, B 64; 16,384 x 100, B 5; 16,384 x 768, B 70). Then both at
    the headline shape (2^20 x 384 bf16 rows, B 256): K7 at W 2 and 3,
    tile 16,384 (cosine), beside a bf16 torch.mm + per-lane-group
    torch.topk; K8 in every mode at both tiles beside a bf16 torch.mm +
-   row max. Tolerance: the same -inf pattern, scores within rtol/atol
-   1e-5, ids equal per lane group except among scores within 1e-5 (K8
-   maxonly: a list may differ where it holds two scores within 1e-5); K8
-   none's raw dots as K6's.
+   row max; each line with the bound (one bf16 pass, the table's) and the
+   tensor work of the design's three bf16 passes. Tolerance: the same -inf
+   pattern, scores within rtol/atol 1e-5, ids equal per lane group except
+   among scores within 1e-5 (K8 maxonly: a list may differ where it holds
+   two scores within 1e-5); K8 none's raw dots as K6's.
 3. Main path through the SDK at 2^20 x 384 (random rows from the seed),
    batches of 256, k=10: the default call with the precision guard on
    (whichever kernel it picks on this corpus), then with the guard off
@@ -111,9 +116,11 @@ Phases (any failure raises and the exit code is not 0):
    truth (>= 0.99 each); each merge configuration's ids equal, beyond
    1e-5 near-ties, those of the same pipeline with the plain K7; a
    tombstoned pass (5% of rows invalid) returns none of them; then K8's
-   decomposition (none / maxonly / full at tiles 8192 and 16384) beside
-   K3 at the same shape. Launch counts are zeroed just before and read
-   just after; K7 and K8 must have launched.
+   decomposition of the tensor-core body (none: its contraction; maxonly
+   and full: the lane-group selection on the accumulators on top of it;
+   tiles 8192 and 16384) beside K3 (the CUDA-core body) at the same
+   shape. Launch counts are zeroed just before and read just after; K7
+   and K8 must have launched.
 7. A `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -732,7 +739,8 @@ def check_merge_kernel(merge, SM, dev, rng) -> float:
     """Phase 2g: K7 against merge_topw_plain: f32 and bf16 rows, three
     metrics, W 1-3, 5% invalid rows and one lane group with one live row."""
     err = 0.0
-    for n, d, b, tile_n in ((65536, D, 64, 16384), (8192, 100, 5, 2048)):
+    for n, d, b, tile_n in ((65536, D, 64, 16384), (8192, 100, 5, 2048),
+                            (8192, 768, 70, 2048)):
         v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
         valid = torch.from_numpy(rng.random(n) > 0.05).to(dev)
         valid[3::128] = False
@@ -755,9 +763,10 @@ def check_merge_kernel(merge, SM, dev, rng) -> float:
 
 def check_fold_kernel(decompose, dev, rng) -> float:
     """Phase 2h: K8 against fold_probe_plain, every mode, tiles 8192 and
-    16384, at 65,536 x 384, B 64, and at 16,384 x 100, B 5."""
+    16384, at 65,536 x 384, B 64, at 16,384 x 100, B 5, and at 16,384 x
+    768, B 70."""
     err = 0.0
-    for n, d, b in ((65536, D, 64), (16384, 100, 5)):
+    for n, d, b in ((65536, D, 64), (16384, 100, 5), (16384, 768, 70)):
         v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(
             dev).to(torch.bfloat16)
         q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
@@ -783,6 +792,13 @@ def compare_first_cols(label, got, want) -> float:
     if got[1].any():
         raise AssertionError(f"{label}: ids are not 0")
     return compare_probe(label, got[0], want[0])
+
+
+def design_work(n: int) -> str:
+    """The tensor work of the tensor-core body at n rows, B queries: three
+    bf16 passes (the f32 queries' terms) of 2 B n D at the bf16 peak."""
+    ms = 3 * 2.0 * B * n * D / PEAK_OPS_PER_S["bf16"] * 1e3
+    return f"tensor work {ms:.4f} ms (3 bf16 passes)"
 
 
 def time_merge_kernel(merge, SM, dev, rng, n: int, errs: dict) -> dict:
@@ -819,7 +835,8 @@ def time_merge_kernel(merge, SM, dev, rng, n: int, errs: dict) -> dict:
                   **bound(nbytes, 2.0 * B * n * D, "bf16")}
         log(f"  scan_merge_topw (W {w}, tile {merge.DEFAULT_TILE_N}) kernel {ms:.4f} ms  "
             f"plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound "
-            f"{out[w]['bound_ms']:.4f} ms ({out[w]['bound_by']}, bf16 rate)")
+            f"{out[w]['bound_ms']:.4f} ms ({out[w]['bound_by']}, bf16 rate)  "
+            f"{design_work(n)}")
     del vb
     torch.cuda.empty_cache()
     return out[2]
@@ -859,7 +876,7 @@ def time_fold_kernel(decompose, dev, rng, n: int, errs: dict) -> dict:
             t = out[(mode, tile_n)]
             log(f"  scan_fold_probe {mode:7s} tile {tile_n:5d} kernel {ms:.4f} ms  plain "
                 f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} "
-                f"ms ({t['bound_by']}, bf16 rate)")
+                f"ms ({t['bound_by']}, bf16 rate)  {design_work(n)}")
     del v
     torch.cuda.empty_cache()
     return out[("full", 16384)]
@@ -1603,12 +1620,12 @@ def headline_path(merge, decompose, scan, build, SM, dev, args, card) -> dict:
             scan_bf16, q, mode=mode, tile_n=tile_n, winners=w), 10)
             for mode, w in (("none", 2), ("maxonly", 2), ("full", 2), ("full", 1))}
         none = t[("none", 2)]
-        log(f"  decomposition, tile {tile_n}: contraction (none) {none:.4f} ms, "
-            f"maxonly {t[('maxonly', 2)]:.4f} (+{t[('maxonly', 2)] - none:.4f}), full "
-            f"{t[('full', 2)]:.4f} (+{t[('full', 2)] - none:.4f}), full at W 1 (lists "
-            f"of 64 KB: two blocks an SM, as none) {t[('full', 1)]:.4f} "
-            f"(+{t[('full', 1)] - none:.4f}); K3 (cosine, tile 4096, W 2) "
-            f"{k3_ms:.4f} (+{k3_ms - none:.4f}) [{card}]")
+        log(f"  decomposition of the tensor-core body, tile {tile_n}: contraction "
+            f"(none) {none:.4f} ms, maxonly {t[('maxonly', 2)]:.4f} "
+            f"(+{t[('maxonly', 2)] - none:.4f}), full {t[('full', 2)]:.4f} "
+            f"(+{t[('full', 2)] - none:.4f}), full at W 1 {t[('full', 1)]:.4f} "
+            f"(+{t[('full', 1)] - none:.4f}); K3 (the CUDA-core body: cosine, tile "
+            f"4096, W 2) {k3_ms:.4f} [{card}]")
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
     for sym in ("scan_merge_topw", "scan_fold_probe"):
         if not launches[sym]:
@@ -1646,8 +1663,11 @@ def main() -> int:
     log(f"    built {sources} in {time.perf_counter() - t0:.2f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line and "C7519" not in line) or "spill" in line:
                 log(f"    {name} ptxas:", line.strip())
+        fences = text.count("warpgroup.arrive is injected")
+        if fences:
+            log(f"    {name} ptxas: warpgroup.arrive injected {fences} times")
 
     rng = np.random.default_rng(args.seed)
     log("[2] kernels against their plain versions")

@@ -132,16 +132,69 @@ def test_fold_probe_refusals(rng, monkeypatch):
                                   tile_n=1024)
 
 
+def lanes_close(got, want, winners, distinct):
+    """chip_smoke.py's rule for K8's lists: the kernel's W against the plain
+    W + 1, the same -inf pattern, scores within rtol/atol 1e-5, ids equal
+    except among scores within 1e-5; maxonly (distinct) excuses a list
+    holding two scores within 1e-5 (one side may keep them as one)."""
+    t, b = got[0].shape[:2]
+    ks, ki = (x.cpu().reshape(t, b, winners, 128) for x in got)
+    ps, pi = (x.cpu().reshape(t, b, winners + 1, 128) for x in want)
+    assert torch.equal(ks == float("-inf"), ps[:, :, :winners] == float("-inf"))
+    pw = ps[:, :, :winners]
+    fin = ks != float("-inf")
+    off = ((ks - pw).abs() > 1e-5 + 1e-5 * pw.abs()) & fin
+    for tile, bq, w, lane in torch.nonzero(off).tolist():
+        assert distinct, (tile, bq, w, lane)
+        near = [(col[1:] - col[:-1]).abs().le(1e-5 * col[1:].abs().clamp(min=1.0)).any()
+                for col in (ks[tile, bq, :, lane], ps[tile, bq, :, lane])]
+        assert any(bool(x) for x in near), (tile, bq, w, lane)
+    for tile, bq, w, lane in torch.nonzero(ki != pi[:, :, :winners]).tolist():
+        col = ps[tile, bq, :, lane]
+        near = (col - col[w]).abs() <= 1e-5 * max(1.0, abs(float(col[w])))
+        near[w] = False
+        assert bool(near.any()), (tile, bq, w, lane)
+
+
 @pytest.mark.cuda
-def test_fold_probe_kernel_matches_plain_on_the_card(rng):
+@pytest.mark.parametrize("shape", ["4096x64-B8", "16384x100-B5", "16384x768-B70"])
+def test_fold_probe_kernel_matches_plain_on_the_card(shape, rng):
+    """K8 on the tensor-core body, every mode, W 1-3. At the tied inputs
+    (TMA staging, D 64; tiles 1024 and 2048) ids exactly and scores within
+    rtol/atol 1e-5. At chip_smoke.py phase 2h's other shapes (tiles 8192
+    and 16384): random rows of 200 bytes (which TMA refuses: the plain-load
+    staging; B 5) and of D 768 (the query terms ride each stage; two query
+    blocks), lists beyond 1e-5 near-ties and `none`'s raw dots within 1e-5
+    x max(1, max |dot|). Lists of raw dots hold rtol 1e-5 only where they
+    keep large dots, as with the 64 rows a lane group or more of those
+    tiles: a dot near 0 of 768 terms is off float64 by ~1e-4 in any f32
+    order, the plain version's included."""
     if not torch.cuda.is_available():
         pytest.skip("K8 is CUDA C++ and runs only on an NVIDIA card")
-    _, (tq, tv) = inputs(rng)
     dev = torch.device("cuda")
+    if shape == "4096x64-B8":
+        _, (tq, tv) = inputs(rng)
+        tiles = (1024, 2048)
+    else:
+        n, d, b = (16384, 100, 5) if shape == "16384x100-B5" else (16384, 768, 70)
+        tv = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(torch.bfloat16)
+        tq = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+        tiles = (8192, 16384)
     tq, tv = tq.to(dev), tv.to(dev)
     for mode in decompose.MODES:
-        for tile_n in (1024, 2048):
-            got = decompose.fold_probe_cuda(tv, tq, mode=mode, tile_n=tile_n, winners=W)
-            want = decompose.fold_probe_plain(tv, tq, mode=mode, tile_n=tile_n, winners=W)
-            assert torch.equal(got[1], want[1])
-            torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+        for tile_n in tiles:
+            for winners in ((W,) if mode == "none" else (1, 2, 3)):
+                kw = dict(mode=mode, tile_n=tile_n)
+                got = decompose.fold_probe_cuda(tv, tq, winners=winners, **kw)
+                if shape == "4096x64-B8":
+                    want = decompose.fold_probe_plain(tv, tq, winners=winners, **kw)
+                    assert torch.equal(got[1], want[1])
+                    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+                elif mode == "none":
+                    want = decompose.fold_probe_plain(tv, tq, winners=winners, **kw)
+                    assert not got[1].any()
+                    scale = max(1.0, float(want[0].abs().max()))
+                    assert float((got[0] - want[0]).abs().max()) <= 1e-5 * scale
+                else:
+                    want = decompose.fold_probe_plain(tv, tq, winners=winners + 1, **kw)
+                    lanes_close(got, want, winners, distinct=mode == "maxonly")

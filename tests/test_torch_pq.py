@@ -754,3 +754,42 @@ def test_client_pq_profile_runs_through_to_pq_search(monkeypatch):
     assert calls == ["pq_search_topk"]
     with client.get_collection("c").index_read() as index:
         assert index._pq and index._pq_active
+
+
+# ---------------------------------------------------------- on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d, b, m, kc, packed, entry", [
+    (65536, 384, 64, 192, 16, True, "PQ_RANK_MMA"),
+    (65536, 384, 64, 192, 16, False, "PQ_RANK_MMA"),
+    (8192, 99, 5, 33, 16, False, "PQ_RANK_MMA"),
+    (65536, 384, 64, 96, 256, False, "PQ_RANK"),
+    (8192, 99, 5, 33, 256, False, "PQ_RANK"),
+], ids=["4bit-packed", "4bit-unpacked", "4bit-odd", "kc256", "kc256-odd"])
+def test_rank_kernels_match_plain_on_the_card(n, d, b, m, kc, packed, entry):
+    """K5 through pq_rank: kc = 16 (packed or unpacked 4-bit codes) on the
+    tensor-core entry, kc = 256 on the look-up entry, at chip_smoke.py
+    phase 2's small shapes, every metric, against pq_rank_plain: the same
+    -inf pattern and ranks within rtol/atol 2e-5 (f32 sums of the same
+    exact bf16 values taken in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("K5 is CUDA C++ and runs only on an NVIDIA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([n, m, kc])
+    kern = getattr(tpq, entry)
+    for metric in TM:
+        codes = torch.from_numpy(rng.integers(
+            0, 256 if packed else kc, (n, m // 2 if packed else m), dtype=np.uint8)).to(dev)
+        cb = torch.from_numpy(rng.normal(size=(m, kc, d // m)).astype(np.float32)).to(dev)
+        q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+        lut = tpq.selection_lut(tpq._adc_lut(q, cb, metric), metric)
+        sq = torch.from_numpy((rng.uniform(0.5, 2.0, n) * d).astype(np.float32)).to(dev)
+        valid = torch.from_numpy(rng.random(n) > 0.05).to(dev)
+        before = kern.launches
+        got = tpq.pq_rank(lut, codes, sq, valid, metric=metric, packed=packed)
+        assert kern.launches == before + 1
+        want = tpq.pq_rank_plain(lut, codes, sq, valid, metric=metric, packed=packed)
+        fin = want != float("-inf")
+        assert torch.equal(got == float("-inf"), ~fin)
+        torch.testing.assert_close(got[fin], want[fin], rtol=2e-5, atol=2e-5)

@@ -316,3 +316,114 @@ def test_cuda_wrapper_needs_the_card():
             torch.zeros((2, 32), device="meta"),
             metric=SimilarityMetric.COSINE, k=4, tile_n=256,
         )
+
+
+# ---------------------------------------------------------- on the card
+#
+# K1-K4 against their plain versions at chip_smoke.py phase 2's small
+# shapes, under its tolerance: the kernel's top k against the plain top
+# k + 1, scores within rtol/atol 1e-5 (f32 sums taken in another order),
+# ids equal except among scores within 1e-5 of each other.
+
+CARD_SHAPES = [(65536, 384, 64), (8192, 100, 5)]
+CARD_IDS = ["65536x384-B64", "8192x100-B5"]
+
+
+def card_inputs(n, d, b, seed=0):
+    """Rows of N(0, 1) times a per-row scale in [0.5, 2] (f32, bf16 and
+    int8 + scales), 5% invalid, and f32 queries, all on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("K1-K4 are CUDA C++ and run only on an NVIDIA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([seed, n, d, b])
+    v = rng.normal(size=(n, d)) * rng.uniform(0.5, 2.0, (n, 1))
+    v = torch.from_numpy(v.astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random(n) > 0.05).to(dev)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+    v8, sc = quantize_rows_int8(v)
+    rows = {"f32": (v, None), "bf16": (v.to(torch.bfloat16), None), "int8": (v8, sc)}
+    return rows, (v * v).sum(-1), valid, q
+
+
+def plain_topk(tiles, b, k):
+    s, i = tiles
+    return scan.merge_topk(s.reshape(b, -1), i.reshape(b, -1), k)
+
+
+def assert_topk_matches(got, want):
+    ks, ki = (x.cpu().numpy() for x in got)
+    ps, pi = (x.cpu().numpy() for x in want)
+    k = ks.shape[1]
+    np.testing.assert_allclose(ks, ps[:, :k], rtol=1e-5, atol=1e-5)
+    for row in range(ks.shape[0]):
+        for p in np.flatnonzero(pi[row, :k] != ki[row]):
+            near = np.abs(ps[row] - ps[row, p]) <= 1e-5 * max(1.0, abs(ps[row, p]))
+            near[p] = False
+            assert near.any(), (row, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=CARD_IDS)
+@pytest.mark.parametrize("dtype, k, tile_n", [
+    ("f32", 16, 2048), ("f32", 100, 2048), ("f32", 300, 2048), ("bf16", 16, 4096),
+], ids=["f32-k16", "f32-k100", "f32-k300", "bf16-k16"])
+def test_exact_kernel_matches_plain_on_the_card(dtype, k, tile_n, shape):
+    """K1 (scan_topk_exact): register lists (k <= 32), shared-memory lists
+    (k > 32) and lists in the output (k > 256)."""
+    rows, sq, valid, q = card_inputs(*shape)
+    v, _ = rows[dtype]
+    for metric in METRICS:
+        m = SimilarityMetric[metric]
+        got = scan.pallas_search_topk(v, sq, valid, q, metric=m, k=k, tile_n=tile_n)
+        want = plain_topk(scan.tile_topk_plain(
+            v, None, sq, valid, q, metric=m, k_tile=min(k + 1, tile_n), tile_n=tile_n),
+            q.shape[0], k + 1)
+        assert_topk_matches(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=CARD_IDS)
+def test_exact_int8_kernel_matches_plain_on_the_card(shape):
+    """K2 (scan_topk_exact_int8): int8 rows times their scales."""
+    rows, sq, valid, q = card_inputs(*shape)
+    v8, sc = rows["int8"]
+    for metric in METRICS:
+        m = SimilarityMetric[metric]
+        got = scan.pallas_search_topk_int8(v8, sc, sq, valid, q, metric=m, k=16, tile_n=2048)
+        want = plain_topk(scan.tile_topk_plain(
+            v8, sc, sq, valid, q, metric=m, k_tile=17, tile_n=2048), q.shape[0], 17)
+        assert_topk_matches(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=CARD_IDS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_block_kernel_matches_plain_on_the_card(dtype, shape):
+    """K3 (scan_block_topw): each lane group's top 2 of a 4096-row tile,
+    then the top 16 of the pool."""
+    rows, sq, valid, q = card_inputs(*shape)
+    v, sc = rows[dtype]
+    for metric in METRICS:
+        m = SimilarityMetric[metric]
+        kw = dict(metric=m, tile_n=4096, winners=2)
+        if sc is None:
+            got = scan.pallas_search_block_topk(v, sq, valid, q, k=16, **kw)
+        else:
+            got = scan.pallas_search_block_topk_int8(v, sc, sq, valid, q, k=16, **kw)
+        want = plain_topk(scan.block_topw_plain(v, sc, sq, valid, q, **kw), q.shape[0], 17)
+        assert_topk_matches(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=CARD_IDS)
+@pytest.mark.parametrize("dtype, k", [("f32", 16), ("f32", 300), ("bf16", 16)],
+                         ids=["f32-k16", "f32-k300", "bf16-k16"])
+def test_l1_kernel_matches_plain_on_the_card(dtype, k, shape):
+    """K4 (scan_topk_l1): Manhattan, 1 / (1 + sum |q - v|)."""
+    rows, sq, valid, q = card_inputs(*shape)
+    v, _ = rows[dtype]
+    got = scan.pallas_search_topk_l1(v, valid, q, k=k, tile_n=2048)
+    want = plain_topk(scan.tile_topk_plain(
+        v, None, sq, valid, q, metric=SimilarityMetric.MANHATTAN, k_tile=k + 1,
+        tile_n=2048), q.shape[0], k + 1)
+    assert_topk_matches(got, want)

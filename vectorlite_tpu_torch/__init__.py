@@ -6,10 +6,13 @@ CUDA kernels for NVIDIA Hopper (``csrc/``). This package imports nothing
 of JAX or of ``vectorlite_tpu``; the modules that carry no JAX are kept
 as copies of their own.
 
-Ported so far: the Flat search path from the SDK client down to the scan
-kernels, and the ``pq`` profile down to the ADC rank kernel with the
-native f64 re-score (see ROADMAP.md for what is still to come). Entry
-points run on the CUDA card unless given ``device="cpu"``.
+Ported so far, each from the SDK client down to its kernels: the Flat
+search path (the scan kernels K1-K4), the ``pq`` profile (the ADC rank
+kernel K5, with the native f64 re-score) and the IVF rung (the partition
+probe K6); beside them, outside the SDK, the tournament-merge engine (K7)
+and the scan-decomposition probe (K8), on a tensor-core body over bf16
+rows. See ROADMAP.md for what is still to come. Entry points run on the
+CUDA card unless given ``device="cpu"``.
 """
 
 from .core.types import DEFAULT_VECTOR_DIMENSION, SearchResult, Vector

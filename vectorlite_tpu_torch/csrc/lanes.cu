@@ -1,29 +1,33 @@
-// Lane-group list kernels for Hopper (sm_90a) on the body in
-// scan_kernel.cuh:
+// Lane-group list kernels for Hopper (sm_90a):
 //
-//   scan_merge_topw  (K7) replaces vectorlite_tpu/kernels/pallas_merge.py
+//   scan_merge_topw  (K7) replaces vectorlite_tpu/kernels/pallas_merge.py:66
 //                    _merge_kernel: each lane group's (row mod 128) top W
 //                    over the whole corpus.
-//   scan_fold_probe  (K8) replaces bench/decompose.py mk_kernel's kern: the
-//                    contraction alone, or with a lane-group fold.
+//   scan_fold_probe  (K8) replaces bench/decompose.py:68 (mk_kernel's kern):
+//                    the contraction alone, or with a lane-group fold.
 //
-// Both are bound by bytes at their shape (2^20 x 384 bf16 rows, B = 256):
-// 805 MB of rows at 3.35 TB/s is 0.24 ms, against 0.21 ms of one bf16
-// pass. The TPU kernel of K7 carries its per-lane-group state across a
-// sequential grid; here a block owns (64 queries, one tile) and walks it
-// in K1's consecutive 128-row chunks, so thread `lane` always holds lane
-// groups lane + 32 jj and owns fixed (query, lane group) pairs: their top-W
-// lists live in shared memory ([W][64][128], 64 KB a rung) and update with
-// no synchronisation. Each tile writes its lists as a partial; a second
-// pass (merge_partials) merges the partials in tile order. K8 is the same
-// block with the state reset per tile (`full`), a distinct-value list
-// (`maxonly`) or no selection at all (`none`). The lists cost occupancy:
-// at W >= 2 one block fits an SM, where K3 has two.
+// Bound at their shape (2^20 x 384 bf16 rows, B = 256): one bf16 pass is
+// 0.21 ms of tensor work, the rows' 805 MB 0.24 ms at 3.35 TB/s; f32
+// queries against bf16 rows take three bf16 passes, 0.63 ms.
+//
+// Over bf16 rows both run on the tensor-core body (scan_mma.cuh): the f32
+// queries split into three bf16 terms, wgmma over TMA-staged row tiles, and
+// each thread's (query, lane group) lists in registers, updated on the
+// accumulators chunk after chunk. K7 over f32 rows is routed by its dtype to
+// the CUDA-core body of scan_kernel.cuh (staged f32 FMA, the lists in shared
+// memory, [W][64][128] a block, one block an SM at W >= 2), whose
+// exactness f32 rows need. The TPU kernel of K7 carries its per-lane-group
+// state across a sequential grid; here a block owns (64 queries, one tile),
+// writes its lists as a partial, and a second pass (merge_partials) merges
+// the partials in tile order. K8 is the same block with the lists reset per
+// tile (`full`), distinct values kept (`maxonly`) or no selection at all
+// (`none`, the contraction of every chunk, its first chunk written).
 //
 // Each C entry launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
 #include "scan_kernel.cuh"
+#include "scan_mma.cuh"
 
 namespace {
 
@@ -66,46 +70,65 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" {
 
 // K7: the tiles' lists into part_s/part_i [n / tile_n, B, W*128], then
-// their merge into out_s/out_i [W, B, 128]. dtype: 0 = float32 rows,
-// 1 = bfloat16 rows.
-int scan_merge_topw(const void* q_t, const void* qsq, const void* values,
-                    int dtype, const void* sqnorms, const void* valid,
-                    void* part_s, void* part_i, void* out_s, void* out_i,
-                    int n, int d, int b, int tile_n, int winners, int metric,
-                    void* stream) {
+// their merge into out_s/out_i [W, B, 128]. dtype 1 (bfloat16 rows): the
+// tensor-core body with the split queries q_img (kernels/scan_mma.py
+// query_operand); dtype 0 (float32 rows): the CUDA-core body with the
+// transposed f32 queries q_t.
+int scan_merge_topw(const void* q_t, const void* qsq, const void* q_img,
+                    const void* values, int dtype, const void* sqnorms,
+                    const void* valid, void* part_s, void* part_i, void* out_s,
+                    void* out_i, int n, int d, int b, int tile_n, int winners,
+                    int metric, void* stream) {
   if (winners < 1 || winners > MAX_WINNERS)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto f = dtype == 1 ? launch_sel<__nv_bfloat16, false, LANE_TOPW, false>
-                      : launch_sel<float, false, LANE_TOPW, false>;
-  int err = f(static_cast<const float*>(q_t), static_cast<const float*>(qsq),
-              values, nullptr, static_cast<const float*>(sqnorms),
-              static_cast<const uint8_t*>(valid), static_cast<float*>(part_s),
-              static_cast<int*>(part_i), n, d, b, 0, tile_n, winners, metric,
-              static_cast<cudaStream_t>(stream));
+  const auto st = static_cast<cudaStream_t>(stream);
+  int err;
+  if (dtype == 1)
+    err = scan_mma::launch_w<scan_mma::TOPW>(
+        winners, values, q_img, static_cast<const float*>(qsq),
+        static_cast<const float*>(sqnorms), static_cast<const uint8_t*>(valid),
+        static_cast<float*>(part_s), static_cast<int*>(part_i), n, d, b, tile_n,
+        metric, 0, st);
+  else
+    err = launch_sel<float, false, LANE_TOPW, false>(
+        static_cast<const float*>(q_t), static_cast<const float*>(qsq), values,
+        nullptr, static_cast<const float*>(sqnorms),
+        static_cast<const uint8_t*>(valid), static_cast<float*>(part_s),
+        static_cast<int*>(part_i), n, d, b, 0, tile_n, winners, metric, st);
   if (err != 0) return err;
   const int threads = b * LANE_GROUPS;
-  merge_partials<<<(threads + THREADS - 1) / THREADS, THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  merge_partials<<<(threads + THREADS - 1) / THREADS, THREADS, 0, st>>>(
       static_cast<const float*>(part_s), static_cast<const int*>(part_i),
       static_cast<float*>(out_s), static_cast<int*>(out_i), n / tile_n, b,
       winners);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8 over bfloat16 rows into [n / tile_n, B, n_out]. mode: 0 = none
-// (n_out 128), 1 = maxonly, 2 = full (n_out W*128).
-int scan_fold_probe(const void* q_t, const void* qsq, const void* values,
-                    void* out_s, void* out_i, int n, int d, int b, int tile_n,
-                    int winners, int mode, void* stream) {
-  if (mode != 0 && (winners < 1 || winners > MAX_WINNERS))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto f = mode == 0   ? launch_sel<__nv_bfloat16, false, FIRST_COLS, false>
-           : mode == 1 ? launch_sel<__nv_bfloat16, false, LANE_DISTINCT, false>
-                       : launch_sel<__nv_bfloat16, false, LANE_TOPW, false>;
-  return f(static_cast<const float*>(q_t), static_cast<const float*>(qsq),
-           values, nullptr, nullptr, nullptr, static_cast<float*>(out_s),
-           static_cast<int*>(out_i), n, d, b, mode == 2 ? 1 : 0, tile_n,
-           mode == 0 ? 1 : winners, METRIC_DOT, static_cast<cudaStream_t>(stream));
+// K8 over bfloat16 rows into [n / tile_n, B, n_out] on the tensor-core body,
+// with the split queries q_img. mode: 0 = none (n_out 128), 1 = maxonly,
+// 2 = full (n_out W*128).
+int scan_fold_probe(const void* q_img, const void* values, void* out_s,
+                    void* out_i, int n, int d, int b, int tile_n, int winners,
+                    int mode, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* os = static_cast<float*>(out_s);
+  auto* oi = static_cast<int*>(out_i);
+  switch (mode) {
+    case 0:
+      return scan_mma::launch_w<scan_mma::FIRST>(
+          1, values, q_img, nullptr, nullptr, nullptr, os, oi, n, d, b, tile_n,
+          scan_mma::DOT, 0, st);
+    case 1:
+      return scan_mma::launch_w<scan_mma::DISTINCT>(
+          winners, values, q_img, nullptr, nullptr, nullptr, os, oi, n, d, b,
+          tile_n, scan_mma::DOT, 0, st);
+    case 2:
+      return scan_mma::launch_w<scan_mma::TOPW>(
+          winners, values, q_img, nullptr, nullptr, nullptr, os, oi, n, d, b,
+          tile_n, scan_mma::DOT, scan_mma::F_GROUP_ROW, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

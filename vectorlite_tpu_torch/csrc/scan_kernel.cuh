@@ -1,10 +1,12 @@
-// The body of the scan kernels for Hopper (sm_90a), shared by csrc/scan.cu
-// (K1-K4) and csrc/lanes.cu (K7, K8): a tiled f32 contraction of a query
-// block against a corpus tile (FMA dots, or |q - v| sums for Manhattan),
-// the similarity metric, the validity mask, and a selection that never
-// leaves the block, chosen at compile time (`Select`). Two translation
-// units build in parallel; kernels/_build.py hashes this header into each
-// one's library key.
+// The CUDA-core body of the scan kernels for Hopper (sm_90a), shared by
+// csrc/scan.cu (K1-K4) and csrc/lanes.cu (K7 over f32 rows; K7 over bf16
+// rows and K8 run on the tensor-core body, scan_mma.cuh, and no entry
+// instantiates LANE_DISTINCT or FIRST_COLS any more): a tiled f32
+// contraction of a query block against a corpus tile (FMA dots, or |q - v|
+// sums for Manhattan), the similarity metric, the validity mask, and a
+// selection that never leaves the block, chosen at compile time
+// (`Select`). Two translation units build in parallel; kernels/_build.py
+// hashes this header into each one's library key.
 //
 // What the design does about the scans' bounds: every corpus element
 // staged in shared memory feeds 64 queries and each thread keeps an 8x4
@@ -17,12 +19,12 @@
 // 32, in shared memory up to SHARED_LIST_MAX, beyond that in the block's
 // own slice of the output), inserting only rows that beat its k-th entry;
 // K3 gives each lane group's 32 rows to the 32 lanes of one warp, so its
-// top-W is a butterfly of shuffles with no shared state; K7/K8 keep each
+// top-W is a butterfly of shuffles with no shared state; K7 keeps each
 // (query, lane group) list in shared memory, owned by one thread. All of
 // it runs on CUDA cores in f32: K1 is within ~3x of its bound, while the
 // kernels priced at one bf16 pass sit far above theirs, which only bf16 /
-// int8 tensor cores (mma or wgmma) can close; double-buffered staging is
-// the other later lever.
+// int8 tensor cores can close (scan_mma.cuh is that body for bf16 rows);
+// double-buffered staging is the other later lever.
 //
 // Ties: the order is (score descending, row ascending) everywhere, which
 // is what the reference's k rounds of max + lowest-column argmax give for

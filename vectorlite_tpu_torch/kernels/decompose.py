@@ -15,9 +15,14 @@ time of the contraction and of the selection can be read apart:
 
 Outputs are ``([N/tile, B, n_out] f32, [N/tile, B, n_out] int32)``,
 ``n_out`` 128 for ``none`` and ``128*W`` otherwise, at position ``w*128 +
-l``. ``fold_probe_cuda`` launches K8 (``csrc/lanes.cu`` ``scan_fold_probe``:
-the scan kernels' staged f32 contraction, so ``none`` times exactly the
-contraction K1-K3 run); ``fold_probe_plain`` serves CPU tensors.
+l``. ``fold_probe_cuda`` launches K8 (``csrc/lanes.cu`` ``scan_fold_probe``)
+on the tensor-core body (``csrc/scan_mma.cuh``: the f32 queries split into
+three bf16 terms by ``scan_mma.query_operand``, wgmma over TMA-staged row
+tiles, each thread's lists in registers), so it decomposes that body:
+``none`` times its contraction, ``full`` minus ``none`` its lane-group
+selection on the accumulators. That is not the f32 FMA contraction K1-K3
+run (``csrc/scan_kernel.cuh``); PERF.md keeps that body's split.
+``fold_probe_plain`` serves CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import ctypes
 import torch
 
 from ..core.metrics import SimilarityMetric
-from . import _build
+from . import _build, scan_mma
 from .merge import LANES, MAX_WINNERS
 from .scan import _check_tiling, _cuda_operands, _stream, _tiles, tile_scores
 
@@ -40,7 +45,7 @@ _I = ctypes.c_int
 
 SCAN_FOLD_PROBE = _build.Kernel(
     "lanes", "scan_fold_probe",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
 
 
@@ -93,7 +98,12 @@ def fold_probe_cuda(values, queries, *, mode, tile_n, winners=2):
     _check_tiling(values.shape[0], tile_n)
     if mode != "none" and not 1 <= winners <= MAX_WINNERS:
         raise ValueError(f"winners must be in [1, {MAX_WINNERS}]")
-    q_t, qsq = _cuda_operands(values, None, None, None, queries, (torch.bfloat16,))
+    if mode != "none" and tile_n > scan_mma.max_tile_rows(winners):
+        raise ValueError(f"tile_n above {scan_mma.max_tile_rows(winners)} at W "
+                         f"{winners}: a list names its rows by {32 // winners}-bit "
+                         "chunk indices")
+    _cuda_operands(values, None, None, None, queries, (torch.bfloat16,))
+    q_op = scan_mma.query_operand(queries)
     n, d = values.shape
     b = queries.shape[0]
     dev = values.device
@@ -102,8 +112,7 @@ def fold_probe_cuda(values, queries, *, mode, tile_n, winners=2):
     out_i = torch.empty(shape, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         SCAN_FOLD_PROBE.launch(
-            q_t.data_ptr(), qsq.data_ptr(), values.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(),
+            q_op.data_ptr(), values.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
             n, d, b, tile_n, winners, MODES.index(mode), _stream(dev),
         )
     return out_s, out_i

@@ -12,12 +12,17 @@ l``, lowest position first among ties, as ``jax.lax.top_k``), and the
 
 * ``merge_topw_plain`` scores ``[B, N]`` with ``scan.tile_scores`` and
   takes each lane group's top W with a stable sort (CPU tensors).
-* ``merge_topw_cuda`` launches K7 (``csrc/lanes.cu`` ``scan_merge_topw``):
-  the scan kernels' staged f32 contraction and metric/validity epilogue,
-  a block per (64 queries, tile) keeping the tile's per-lane-group top W
-  in shared memory, then a reduce pass that merges the tiles' partials in
-  row order. The TPU kernel carries its state across a sequential grid;
-  blocks here run in no order, hence the partials.
+* ``merge_topw_cuda`` launches K7 (``csrc/lanes.cu`` ``scan_merge_topw``),
+  a block per (64 queries, tile) that keeps the tile's per-lane-group top W,
+  then a reduce pass that merges the tiles' partials in row order. The TPU
+  kernel carries its state across a sequential grid; blocks here run in no
+  order, hence the partials. The entry routes by the rows' dtype, both
+  ways to a hand-written kernel: bf16 rows (the merge engine's scan copy)
+  to the tensor-core body (``csrc/scan_mma.cuh``: the f32 queries split
+  into three bf16 terms by ``scan_mma.query_operand``, wgmma over
+  TMA-staged row tiles, the lists in registers), f32 rows to the CUDA-core
+  body of K1-K4 (staged f32 FMA, the lists in shared memory), which keeps
+  f32 rows exact.
 
 ``tile_n`` sets only how the rows are split among blocks: a lane group is
 ``row mod 128`` whatever the tile, so the result does not depend on it.
@@ -43,7 +48,7 @@ import functools
 import torch
 
 from ..core.metrics import SimilarityMetric
-from . import _build
+from . import _build, scan_mma
 from .amk import _exact_rescore_device
 from .scan import (
     _METRIC_CODE,
@@ -61,7 +66,8 @@ NEG_INF = float("-inf")
 LANES = 128
 DEFAULT_TILE_N = 16384
 
-#: K7 keeps [W, 64, 128] (score, row) pairs in shared memory: 64 KB a rung
+#: K7 keeps W (score, row) pairs a list: in registers over bf16 rows, in
+#: shared memory over f32 rows ([W, 64, 128] a block, 64 KB a rung)
 MAX_WINNERS = 3
 
 _P = ctypes.c_void_p
@@ -69,7 +75,7 @@ _I = ctypes.c_int
 
 SCAN_MERGE_TOPW = _build.Kernel(
     "lanes", "scan_merge_topw",
-    [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
 
 
@@ -111,6 +117,12 @@ def merge_topw_cuda(values, sqnorms, valid, queries, *, metric, winners,
     )
     n, d = values.shape
     b = queries.shape[0]
+    bf16 = values.dtype == torch.bfloat16
+    if bf16:  # the tensor-core body: split queries, tiles its lists can name
+        q_op, q_t = scan_mma.query_operand(queries), None
+        tile_n = scan_mma.list_tile(tile_n, winners)
+    else:
+        q_op = None
     dev = values.device
     part = (n // tile_n, b, winners * LANES)
     part_s = torch.empty(part, dtype=torch.float32, device=dev)
@@ -119,9 +131,9 @@ def merge_topw_cuda(values, sqnorms, valid, queries, *, metric, winners,
     out_i = torch.empty((winners, b, LANES), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         SCAN_MERGE_TOPW.launch(
-            q_t.data_ptr(), qsq.data_ptr(), values.data_ptr(),
-            int(values.dtype == torch.bfloat16),
-            sqnorms.data_ptr(), valid.data_ptr(),
+            None if q_t is None else q_t.data_ptr(), qsq.data_ptr(),
+            None if q_op is None else q_op.data_ptr(), values.data_ptr(),
+            int(bf16), sqnorms.data_ptr(), valid.data_ptr(),
             part_s.data_ptr(), part_i.data_ptr(),
             out_s.data_ptr(), out_i.data_ptr(),
             n, d, b, tile_n, winners, _METRIC_CODE[metric], _stream(dev),
