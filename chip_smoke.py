@@ -10,13 +10,16 @@ Phases (any failure raises and the exit code is not 0):
    compiler per source, all started together).
 2. Kernels against their plain-torch versions on the card: K1 on f32 and
    bf16 rows, with k > 32 (shared-memory lists) and k > 256 (lists in the
-   output), K2, K3 on f32, bf16 and int8 rows (three metrics), K4 on f32
-   and bf16 rows, at N=65,536 x 384, B=64, and at an odd shape (8,192 x
-   100, B=5). Then each kernel at the main-path shape (2^20 x 384, B=256,
-   four query blocks): timed beside its plain version and the PyTorch
-   library path (K3's: a bf16 torch.mm over the int8 values cast outside
-   the timing, then torch.topk of each lane group), and its output held
-   against the plain version's. Everywhere: ids equal except among scores within 1e-5 of
+   output), K2, K3 on its three routes (int8 rows: scan_block_topw_s8, the
+   tensor-core body's int8 form; bf16 rows: scan_block_topw_bf16; f32 rows:
+   scan_block_topw, the CUDA-core body; three metrics), K4 on f32 and bf16
+   rows, at N=65,536 x 384, B=64, and at an odd shape (8,192 x 100, B=5).
+   Then each kernel at the main-path shape (2^20 x 384, B=256, four query
+   blocks; K3 on each route): timed beside its plain version and the
+   PyTorch library path (K3's: one torch.mm, bf16 over the int8 or bf16
+   values cast outside the timing, TF32-off f32 over f32 rows, then
+   torch.topk of each lane group), and its output held against the plain
+   version's. Everywhere: ids equal except among scores within 1e-5 of
    each other, scores within rtol/atol 1e-5.
    K5 against pq_rank_plain, both entries: the tensor-core entry
    (pq_rank_mma) on 4-bit codes, packed and unpacked, and the look-up
@@ -29,7 +32,9 @@ Phases (any failure raises and the exit code is not 0):
    (the library yardstick) and the chunk selection, with the L2 bytes the
    design reads; then the look-up entry at the 8-bit path's shape (the
    chunk the index hands it, 2^16 rows, M 96, kc 256, B 256), held and
-   timed beside its plain version and the same one-hot torch.mm.
+   timed beside its plain version and the same one-hot torch.mm and its
+   shared-memory bound (the look-ups' bytes at the SMs' shared-memory
+   rate).
    Tolerance: the same -inf pattern, finite ranks within rtol/atol 2e-5
    (f32 sums of the same exact bf16 values taken in another order).
    K6 (gather_score) against gather_score_plain: bf16 and int8 blocks,
@@ -63,9 +68,9 @@ Phases (any failure raises and the exit code is not 0):
 3. Main path through the SDK at 2^20 x 384 (random rows from the seed),
    batches of 256, k=10: the default call with the precision guard on
    (whichever kernel it picks on this corpus), then with the guard off
-   the speed path (K3 + exact re-score), approx=False (K1), a where
-   filter (K1), manhattan (K4), and a `quantized`-profile collection
-   (K3 on int8 rows, and K2). Launch counts are zeroed just before and
+   the speed path (K3 over the int8 scan copy: scan_block_topw_s8, +
+   exact re-score), approx=False (K1), a where filter (K1), manhattan
+   (K4), and a `quantized`-profile collection (K3 on int8 rows, and K2). Launch counts are zeroed just before and
    read just after; every kernel must have launched. Recall@10 of each
    speed path against its exact path must be >= 0.99; the cosine and
    manhattan exact paths must agree with float64 truth on 32 queries
@@ -111,16 +116,17 @@ Phases (any failure raises and the exit code is not 0):
    collections are freed: 2^20 x 384 N(0, 1) rows (f32, and a bf16 copy)
    and 256 queries from --seed, k = 16, k_sel 128, cosine. The tournament
    merge (K7) + exact f32 re-score as merge_w2_t16k, merge_w3_t16k and
-   merge_w2_t32k, beside the K3 engine (bf16 copy, tile 4096, W 2) and
-   exact K1: p50 ms and QPS from CUDA events, recall@10 against float64
+   merge_w2_t32k, beside the K3 engine (bf16 copy, tile 4096, W 2:
+   scan_block_topw_bf16), the K3 engine over the f32 rows themselves (the
+   CUDA-core scan_block_topw) and exact K1: p50 ms and QPS from CUDA events, recall@10 against float64
    truth (>= 0.99 each); each merge configuration's ids equal, beyond
    1e-5 near-ties, those of the same pipeline with the plain K7; a
    tombstoned pass (5% of rows invalid) returns none of them; then K8's
    decomposition of the tensor-core body (none: its contraction; maxonly
    and full: the lane-group selection on the accumulators on top of it;
-   tiles 8192 and 16384) beside K3 (the CUDA-core body) at the same
-   shape. Launch counts are zeroed just before and read just after; K7
-   and K8 must have launched.
+   tiles 8192 and 16384) beside K3 on the same body at the same shape.
+   Launch counts are zeroed just before and read just after; K7, K8 and
+   K3's bf16 and f32 routes must have launched.
 7. A `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -152,12 +158,14 @@ K = 10
 #: or bf16 rows at DEFAULT precision (one bf16 pass: tensor cores).
 #: Manhattan has no matmul form: elementwise f32 on CUDA cores.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 REPLACES = {
     "scan_topk_exact": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_exact_int8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_block_topw": "vectorlite_tpu/kernels/pallas_scan.py:159",
+    "scan_block_topw_s8": "vectorlite_tpu/kernels/pallas_scan.py:159",
+    "scan_block_topw_bf16": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_topk_l1": "vectorlite_tpu/kernels/pallas_l1.py:44",
     "pq_rank_mma": "vectorlite_tpu/kernels/pq.py:291",
     "pq_rank": "vectorlite_tpu/kernels/pq.py:291",
@@ -165,6 +173,17 @@ REPLACES = {
     "scan_merge_topw": "vectorlite_tpu/kernels/pallas_merge.py:66",
     "scan_fold_probe": "bench/decompose.py:68",
 }
+
+
+#: K3's three routes (kernels/scan.py block_route): int8 rows, the main
+#: path's scan copy, on the tensor-core body's int8 form; bf16 rows on its
+#: bf16 form; f32 rows (and W above 3) on the CUDA-core body
+K3_INT8, K3_BF16, K3_F32 = "scan_block_topw_s8", "scan_block_topw_bf16", "scan_block_topw"
+K3_SYMBOLS = (K3_INT8, K3_BF16, K3_F32)
+
+#: the SMs' shared-memory rate: 128 bytes a clock an SM, 132 SMs at 1.755
+#: GHz (H100 SXM); what K5's look-up entry reads its LUT entries at
+SMEM_BYTES_PER_S = 128 * 132 * 1.755e9
 
 
 def log(*args):
@@ -287,9 +306,9 @@ def variants(scan, SM):
         ("scan_topk_exact", "f32 k300", (SM.COSINE,), *exact(2048), 300),
         ("scan_topk_exact", "bf16", dots, *exact(4096), 16),
         ("scan_topk_exact_int8", "int8", dots, *exact(2048), 16),
-        ("scan_block_topw", "f32", dots, block, block_plain, 16),
-        ("scan_block_topw", "bf16", dots, block, block_plain, 16),
-        ("scan_block_topw", "int8", dots, block, block_plain, 16),
+        (K3_F32, "f32", dots, block, block_plain, 16),
+        (K3_BF16, "bf16", dots, block, block_plain, 16),
+        (K3_INT8, "int8", dots, block, block_plain, 16),
         ("scan_topk_l1", "f32", (SM.MANHATTAN,), *exact(2048), 16),
         ("scan_topk_l1", "f32 k300", (SM.MANHATTAN,), *exact(2048), 300),
         ("scan_topk_l1", "bf16", (SM.MANHATTAN,), *exact(2048), 16),
@@ -338,6 +357,7 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     vq, sc = metrics_mod.quantize_rows_int8(v)
     vq_f32 = vq.to(torch.float32)  # library paths' operands, cast outside timing
     vq_bf16, qb = vq.to(torch.bfloat16), q.to(torch.bfloat16)
+    vb = v.to(torch.bfloat16)
     metrics_mod.disable_tf32()
     dot_ops = 2.0 * B * n * D
     side = n * 4 + n * 1 + B * D * 4  # sqnorms, validity, queries
@@ -356,14 +376,20 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
 
     # the shapes the main path hands each kernel: K1 over f32 rows with
     # k_pad 16; K2 over int8 rows with the 2x pool (32); K3 over the int8
-    # scan copy, 4096-row tiles, W = 2, pool 128; K4 over f32 rows, k_pad 16
+    # scan copy, 4096-row tiles, W = 2, pool 128 (and its two other routes:
+    # a bf16 scan copy, f32 rows without a copy); K4 over f32 rows, k_pad 16
+    k3_out = B * (n // 4096) * 256 * 8
     specs = [
         ("scan_topk_exact", SM.COSINE, v, None, 16, 2048, None, "f32",
          dot_ops, n * D * 4 + side + B * (n // 2048) * 16 * 8),
         ("scan_topk_exact_int8", SM.COSINE, vq, sc, 32, 2048, None, "bf16",
          dot_ops, n * D + n * 4 + side + B * (n // 2048) * 32 * 8),
-        ("scan_block_topw", SM.COSINE, vq, sc, 128, 4096, 2, "bf16",
-         dot_ops, n * D + n * 4 + side + B * (n // 4096) * 256 * 8),
+        (K3_INT8, SM.COSINE, vq, sc, 128, 4096, 2, "int8",
+         dot_ops, n * D + n * 4 + side + k3_out),
+        (K3_BF16, SM.COSINE, vb, None, 128, 4096, 2, "bf16",
+         dot_ops, n * D * 2 + side + k3_out),
+        (K3_F32, SM.COSINE, v, None, 128, 4096, 2, "f32",
+         dot_ops, n * D * 4 + side + k3_out),
         ("scan_topk_l1", SM.MANHATTAN, v, None, 16, 2048, None, "f32",
          3.0 * B * n * D, n * D * 4 + n * 1 + B * D * 4 + B * (n // 2048) * 16 * 8),
     ]
@@ -386,9 +412,12 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
             def plain(rows=rows, scales=scales, metric=metric, tile_n=tile_n, winners=winners):
                 return scan.block_topw_plain(rows, scales, sq, valid, q, metric=metric,
                                              tile_n=tile_n, winners=winners)
-            # bf16 GEMM over the int8 values, then each lane group's top W
-            def lib(tile_n=tile_n, winners=winners):
-                return torch.topk(torch.mm(qb, vq_bf16.T).view(
+            # one GEMM (bf16 over int8 or bf16 rows, TF32-off f32 over f32
+            # rows), then each lane group's top W
+            lq, lrows = {K3_INT8: (qb, vq_bf16), K3_BF16: (qb, vb), K3_F32: (q, v)}[name]
+
+            def lib(tile_n=tile_n, winners=winners, lq=lq, lrows=lrows):
+                return torch.topk(torch.mm(lq, lrows.T).view(
                     B, n // tile_n, tile_n // 128, 128), winners, dim=2)
         plain_reps = 2 if metric is SM.MANHATTAN else 5
         ms, plain_ms = interleaved_ms(kern, plain, reps=20, plain_reps=plain_reps)
@@ -398,9 +427,12 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
         errs[name] = max(errs.get(name, 0.0), err)
         t = out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          **bound(nbytes, ops, op_type)}
+        work = {K3_INT8: f"; tensor work {3 * dot_ops / PEAK_OPS_PER_S['int8'] * 1e3:.4f} "
+                         f"ms (3 int8 passes)",
+                K3_BF16: f"; {design_work(n)}"}.get(name, "")
         log(f"  {name:22s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
-            f"{op_type} rate)")
+            f"{op_type} rate){work}")
     return out
 
 
@@ -525,7 +557,7 @@ def time_pq_kernel(pq, SM, dev, rng, n: int, errs: dict) -> tuple[dict, dict]:
            **bound(nbytes, ops, "bf16")}
     l2 = -(-rows // 128) * B * m * kc * 2  # every 128-row tile streams the LUT
     log(f"  pq_rank_mma (chunk {rows} x M {m}, B {B}) kernel {ms:.4f} ms (the LUT "
-        f"relayout alone {relayout_ms:.4f})  look-up entry (the design it replaced) {lookup_ms:.4f} ms  "
+        f"relayout alone {relayout_ms:.4f})  look-up entry on the same chunk {lookup_ms:.4f} ms  "
         f"plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {mma['bound_ms']:.4f} ms "
         f"({mma['bound_by']}, bf16 rate); LUT bytes from L2 a chunk {l2 / 1e9:.2f} GB; "
         f"chunk selection (top 288) {sel_ms:.4f} ms")
@@ -544,13 +576,18 @@ def time_pq_kernel(pq, SM, dev, rng, n: int, errs: dict) -> tuple[dict, dict]:
     lut2, onehot = onehot_yardstick(pq, lut, codes, False)
     lib8 = cuda_time_ms(lambda: torch.mm(lut2, onehot.T), 10)
     del lut2, onehot
+    # the LUT relayout the wrapper does before each launch
+    q_tile = pq.lookup_query_tile()
+    relayout8 = cuda_time_ms(lambda: pq.lookup_lut_operand(lut, False, q_tile), 20)
     # the look-up form's work: one f32 add a (query, row, subspace)
+    lookups = 1.0 * B * rows8 * m8
     lookup_line = {"ms": ms8, "plain_ms": plain8, "library_ms": lib8,
-                   **bound(rows8 * m8 + B * m8 * kc8 * 2 + B * rows8 * 4,
-                           1.0 * B * rows8 * m8, "f32")}
-    log(f"  pq_rank (chunk {rows8} x M {m8}, kc {kc8}, B {B}) kernel {ms8:.4f} ms  plain "
-        f"{plain8:.4f} ms  library {lib8:.4f} ms  bound {lookup_line['bound_ms']:.4f} ms "
-        f"({lookup_line['bound_by']}, f32 rate)")
+                   **bound(rows8 * m8 + B * m8 * kc8 * 2 + B * rows8 * 4, lookups, "f32")}
+    log(f"  pq_rank (chunk {rows8} x M {m8}, kc {kc8}, B {B}) kernel {ms8:.4f} ms (the LUT "
+        f"relayout alone {relayout8:.4f})  plain {plain8:.4f} ms  library {lib8:.4f} ms  bound "
+        f"{lookup_line['bound_ms']:.4f} ms ({lookup_line['bound_by']}, f32 rate); its "
+        f"{lookups / 1e9:.2f} G look-ups of 2 bytes from shared memory "
+        f"{2 * lookups / SMEM_BYTES_PER_S * 1e3:.4f} ms")
     return mma, lookup_line
 
 
@@ -1040,7 +1077,7 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     calls = native.calls
     results, _, _ = drive(paths, queries, n_batches, build, card, native)
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
-    for sym in ("scan_topk_exact", "scan_topk_exact_int8", "scan_block_topw", "scan_topk_l1"):
+    for sym in ("scan_topk_exact", "scan_topk_exact_int8", K3_INT8, "scan_topk_l1"):
         if not launches[sym]:
             raise AssertionError(f"{sym} was never launched on the main path")
     if native.calls == calls:
@@ -1382,8 +1419,7 @@ def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
     results, k6 = {}, 0
     for name, metric in ivf_paths:
         results[name], counts = run_path(
-            name, search(metric), qb, ["gather_score"],
-            ["scan_topk_exact", "scan_block_topw"])
+            name, search(metric), qb, ["gather_score"], ["scan_topk_exact", *K3_SYMBOLS])
         k6 += counts["gather_score"]
     run_path("exact approx=False (K1, brute)", exact, qb, ["scan_topk_exact"],
              ["gather_score"])
@@ -1394,7 +1430,7 @@ def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
     index._ivf_active = False
     try:
         run_path(aside, search(SM.COSINE), qb,
-                 ["scan_topk_exact" if index._precision_risky else "scan_block_topw"],
+                 ["scan_topk_exact" if index._precision_risky else K3_INT8],
                  ["gather_score"])
         device_breakdown(aside, search(SM.COSINE), qb)
     finally:
@@ -1432,7 +1468,7 @@ def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
     if index._precision_risky:
         ok = counts["scan_topk_exact"] and np.array_equal(big, exact_ids)
     else:
-        ok = counts["scan_block_topw"] and recall(big, exact_ids) >= 0.99
+        ok = counts[K3_INT8] and recall(big, exact_ids) >= 0.99
     log(f"  batch of {B}: fell through, launches "
         f"{dict((s, n) for s, n in counts.items() if n)}, ids "
         f"{'equal to K1' if index._precision_risky else 'recall vs K1'} {bool(ok)}")
@@ -1499,7 +1535,7 @@ def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
             return idx.search_batch(qs, K, SM.COSINE, approx=False)
 
     run_path("ivf quantized cosine (int8 layout + f64 re-score)", qsearch, qb,
-             ["gather_score"], ["scan_topk_exact_int8", "scan_block_topw"])
+             ["gather_score"], ["scan_topk_exact_int8", *K3_SYMBOLS])
     log(f"    host re-score p50 {np.percentile(spent['rescore'], 50):.3f} ms "
         f"({len(spent['rescore'])} calls); native re-scores {native.calls - calls}")
     if native.calls == calls:
@@ -1571,6 +1607,9 @@ def headline_path(merge, decompose, scan, build, SM, dev, args, card) -> dict:
         ("k3_w2_t4k (K3 + re-score)", lambda: scan.pallas_search_block_topk_rescored(
             scan_bf16, values, sq, valid, q, metric=SM.COSINE, k=HEADLINE_K,
             k_sel=128, tile_n=4096, winners=2)),
+        ("k3_f32_w2_t4k (K3 + re-score)", lambda: scan.pallas_search_block_topk_rescored(
+            values, values, sq, valid, q, metric=SM.COSINE, k=HEADLINE_K,
+            k_sel=128, tile_n=4096, winners=2)),
         ("exact (K1)", lambda: scan.pallas_search_topk(
             values, sq, valid, q, metric=SM.COSINE, k=HEADLINE_K, tile_n=2048)),
     ]
@@ -1612,7 +1651,8 @@ def headline_path(merge, decompose, scan, build, SM, dev, args, card) -> dict:
     if back:
         raise AssertionError("the merge engine returned a tombstoned row")
 
-    # K8's decomposition of the scan at the same shape, beside K3
+    # K8's decomposition of the scan at the same shape, beside K3 (over the
+    # same bf16 rows: the tensor-core body's K3 form)
     k3_ms = cuda_time_ms(lambda: scan.block_topw_cuda(
         scan_bf16, None, sq, valid, q, metric=SM.COSINE, tile_n=4096, winners=2), 10)
     for tile_n in (8192, 16384):
@@ -1624,10 +1664,10 @@ def headline_path(merge, decompose, scan, build, SM, dev, args, card) -> dict:
             f"(none) {none:.4f} ms, maxonly {t[('maxonly', 2)]:.4f} "
             f"(+{t[('maxonly', 2)] - none:.4f}), full {t[('full', 2)]:.4f} "
             f"(+{t[('full', 2)] - none:.4f}), full at W 1 {t[('full', 1)]:.4f} "
-            f"(+{t[('full', 1)] - none:.4f}); K3 (the CUDA-core body: cosine, tile "
-            f"4096, W 2) {k3_ms:.4f} [{card}]")
+            f"(+{t[('full', 1)] - none:.4f}); K3 (the same body's K3 form: cosine, "
+            f"tile 4096, W 2) {k3_ms:.4f} [{card}]")
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
-    for sym in ("scan_merge_topw", "scan_fold_probe"):
+    for sym in ("scan_merge_topw", "scan_fold_probe", K3_BF16, K3_F32):
         if not launches[sym]:
             raise AssertionError(f"{sym} did not launch in phase 6")
     log(f"  phase 6: {time.perf_counter() - started:.1f} s; launches "
@@ -1662,9 +1702,8 @@ def main() -> int:
         _build.load(name)
     log(f"    built {sources} in {time.perf_counter() - t0:.2f} s")
     for name, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if ("registers" in line and "C7519" not in line) or "spill" in line:
-                log(f"    {name} ptxas:", line.strip())
+        for line in _build.ptxas_report(name):
+            log(f"    {name} ptxas:", line)
         fences = text.count("warpgroup.arrive is injected")
         if fences:
             log(f"    {name} ptxas: warpgroup.arrive injected {fences} times")
@@ -1719,8 +1758,8 @@ def main() -> int:
 
     log(f"[6] the merge-engine probe (N={args.rows}, D={D}, B={B}, k={HEADLINE_K})")
     six = headline_path(merge, decompose, scan, _build, vl.SimilarityMetric, dev, args, card)
-    launches["scan_merge_topw"] = six["scan_merge_topw"]
-    launches["scan_fold_probe"] = six["scan_fold_probe"]
+    for sym in ("scan_merge_topw", "scan_fold_probe", K3_BF16, K3_F32):
+        launches[sym] = six[sym]
     log(f"  smoke run {time.perf_counter() - started:.1f} s, builds included; host "
         f"peak RSS {peak_rss_gb():.2f} GB")
 

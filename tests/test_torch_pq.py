@@ -425,6 +425,7 @@ def test_cuda_wrapper_sends_kc16_to_the_tensor_cores(m, kc, packed, entry, b, mo
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(tpq, "lookup_query_tile", lambda lib=None: 32)  # the built pq.cu's
     if entry is None:  # a tile's codes too wide for the tensor-core entry's shared memory
         entry = "pq_rank_mma" if tpq.mma_fits(b, codes.shape[1]) else "pq_rank"
         assert entry == ("pq_rank_mma" if b == 5 else "pq_rank")
@@ -437,7 +438,8 @@ def test_cuda_wrapper_sends_kc16_to_the_tensor_cores(m, kc, packed, entry, b, mo
         nt = {5: 8, 256: 256, 300: 256}[b]
         assert args[5:] == (n, b, m, codes.shape[1], int(packed), 1, nt, 0)
     else:
-        assert args[5:] == (n, b, m, kc, codes.shape[1], int(packed), 1, 0)
+        m_pad = -(-m // (8 if packed else 4)) * (8 if packed else 4)
+        assert args[5:] == (n, b, m_pad, codes.shape[1], int(packed), 1, 0)
 
 
 @pytest.mark.parametrize("b, nt", [(1, 8), (5, 8), (8, 8), (9, 16), (64, 64), (65, 128),
@@ -484,6 +486,44 @@ def test_mma_lut_operand_contracts_to_the_plain_rank(b, m, packed, metric):
     want = tpq.pq_rank_plain(lut, stored, sq, valid, metric=TM[metric], packed=packed)
     got = torch.where(valid[None, :], tpq._rank_surrogate(adc, TM[metric], sq[None, :]),
                       tpq.NEG_INF)
+    assert_rank_close(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("lpr", [1, 2, 4])
+@pytest.mark.parametrize("m, kc, packed", [(96, 256, False), (33, 200, False), (34, 16, True)],
+                         ids=["kc256", "kc200-odd-m", "packed"])
+@pytest.mark.parametrize("b", [5, 256, 300])
+def test_lookup_lut_operand_sums_to_the_plain_rank(b, m, kc, packed, lpr):
+    """The look-up entry's LUT operand, read as the kernel addresses it
+    (query tile bq // Q of Q = 8 lpr queries: entry (m, code) of query bq
+    at ((tile m_pad + m) T + code) Q + bq mod Q, T = 256 rows, 16 packed),
+    holds the LUT, zeros past B, M and kc; summing each row's entries by
+    its codes (codes past kc read a zero) gives pq_rank_plain's rank. The
+    entry as built reads its Q from the library (lookup_query_tile: LPR 4);
+    scripts/probe_pq_lookup.py builds the others."""
+    rng = np.random.default_rng(b + m + lpr)
+    n = 300
+    lut = torch.from_numpy(rng.normal(size=(b, m, kc)).astype(np.float32)).to(torch.bfloat16)
+    codes = torch.from_numpy(rng.integers(0, 16 if packed else 256, (n, m)).astype(np.uint8))
+    stored = tpq.pack_nibbles(codes) if packed else codes
+    sq = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    valid = torch.from_numpy(rng.random(n) > 0.1)
+    op = tpq.lookup_lut_operand(lut, packed, 8 * lpr)
+    q, rows, group = 8 * lpr, 16 if packed else 256, 8 if packed else 4
+    qt, m_pad = -(-b // q), -(-m // group) * group
+    assert op.dtype == torch.bfloat16 and op.is_contiguous()
+    assert op.shape == (qt, m_pad, rows, q)
+    flat = op.reshape(-1).to(torch.float32)
+    bq = torch.arange(qt * q)[:, None, None]
+    mm = torch.arange(m_pad)[None, :, None]
+    cc = torch.arange(rows)[None, None, :]
+    read = flat[(((bq // q) * m_pad + mm) * rows + cc) * q + bq % q]  # [qt q, m_pad, T]
+    assert torch.equal(read[:b, :m, :kc], lut.to(torch.float32))
+    assert not read[b:].any() and not read[:, m:].any() and not read[:, :, kc:].any()
+    idx = codes.to(torch.int64)  # [n, m]
+    adc = read[:b, torch.arange(m)[None, :], idx].sum(dim=2)  # [b, n]
+    want = tpq.pq_rank_plain(lut, stored, sq, valid, metric=TM.DOT_PRODUCT, packed=packed)
+    got = torch.where(valid[None, :], adc, tpq.NEG_INF)
     assert_rank_close(got.numpy(), want.numpy())
 
 
@@ -766,13 +806,18 @@ def test_client_pq_profile_runs_through_to_pq_search(monkeypatch):
     (8192, 99, 5, 33, 16, False, "PQ_RANK_MMA"),
     (65536, 384, 64, 96, 256, False, "PQ_RANK"),
     (8192, 99, 5, 33, 256, False, "PQ_RANK"),
-], ids=["4bit-packed", "4bit-unpacked", "4bit-odd", "kc256", "kc256-odd"])
+    (65536, 384, 256, 96, 200, False, "PQ_RANK"),
+    (4096, 5240, 256, 2620, 16, True, "PQ_RANK"),
+], ids=["4bit-packed", "4bit-unpacked", "4bit-odd", "kc256", "kc256-odd", "kc200-codes-past-kc",
+        "4bit-too-wide-for-mma"])
 def test_rank_kernels_match_plain_on_the_card(n, d, b, m, kc, packed, entry):
     """K5 through pq_rank: kc = 16 (packed or unpacked 4-bit codes) on the
-    tensor-core entry, kc = 256 on the look-up entry, at chip_smoke.py
-    phase 2's small shapes, every metric, against pq_rank_plain: the same
-    -inf pattern and ranks within rtol/atol 2e-5 (f32 sums of the same
-    exact bf16 values taken in another order)."""
+    tensor-core entry, any other kc and 4-bit rows too wide for its shared
+    memory (mma_fits) on the look-up entry, at chip_smoke.py phase 2's
+    small shapes and kc 200 with codes up to 255 (those add 0), every
+    metric, against pq_rank_plain: the same -inf pattern and ranks within
+    rtol/atol 2e-5 (f32 sums of the same exact bf16 values taken in another
+    order)."""
     if not torch.cuda.is_available():
         pytest.skip("K5 is CUDA C++ and runs only on an NVIDIA card")
     dev = torch.device("cuda")
@@ -780,7 +825,8 @@ def test_rank_kernels_match_plain_on_the_card(n, d, b, m, kc, packed, entry):
     kern = getattr(tpq, entry)
     for metric in TM:
         codes = torch.from_numpy(rng.integers(
-            0, 256 if packed else kc, (n, m // 2 if packed else m), dtype=np.uint8)).to(dev)
+            0, 256 if packed or kc == 200 else kc, (n, m // 2 if packed else m),
+            dtype=np.uint8)).to(dev)
         cb = torch.from_numpy(rng.normal(size=(m, kc, d // m)).astype(np.float32)).to(dev)
         q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
         lut = tpq.selection_lut(tpq._adc_lut(q, cb, metric), metric)

@@ -4,6 +4,9 @@ Pallas kernels in interpret mode, on the same seeded numpy inputs.
 Scores agree within rtol/atol 1e-5 (f32 sums taken in another order);
 row ids agree exactly, ties included."""
 
+import contextlib
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -14,8 +17,12 @@ from vectorlite_tpu.core.metrics import quantize_rows_int8 as jquantize
 from vectorlite_tpu.kernels import pallas_scan as jscan
 from vectorlite_tpu.kernels.pallas_l1 import pallas_search_topk_l1 as jl1
 from vectorlite_tpu.kernels.topk import search_topk as jsearch_topk
-from vectorlite_tpu_torch.core.metrics import SimilarityMetric, quantize_rows_int8
-from vectorlite_tpu_torch.kernels import scan
+from vectorlite_tpu_torch.core.metrics import (
+    SimilarityMetric,
+    metric_from_dot,
+    quantize_rows_int8,
+)
+from vectorlite_tpu_torch.kernels import scan, scan_mma
 
 METRICS = ["COSINE", "EUCLIDEAN", "DOT_PRODUCT"]
 
@@ -318,6 +325,177 @@ def test_cuda_wrapper_needs_the_card():
         )
 
 
+# ------------------------------------- K3's int8 tensor-core form, host side
+
+
+def int8_query_cases():
+    """f32 queries for the int8 split: N(0, 1), zeros, a max|q| that is a
+    power of two, magnitudes 1e30 and 1e-30, one large element among tiny
+    ones."""
+    rng = np.random.default_rng(5)
+    normal = rng.normal(size=(7, 100)).astype(np.float32)
+    pow2 = rng.uniform(-1.0, 1.0, (3, 64)).astype(np.float32)
+    pow2[:, 5] = 2.0
+    pow2[1, 9] = -4.0
+    spike = (rng.normal(size=(2, 64)) * 1e-6).astype(np.float32)
+    spike[:, 17] = 3.0
+    return {
+        "normal": normal,
+        "zeros": np.zeros((3, 32), np.float32),
+        "max-pow2": pow2,
+        "1e30": (rng.normal(size=(2, 64)) * 1e30).astype(np.float32),
+        "1e-30": (rng.normal(size=(2, 64)) * 1e-30).astype(np.float32),
+        "one-large": spike,
+    }
+
+
+@pytest.mark.parametrize("case", list(int8_query_cases()))
+def test_int8_query_split_is_within_its_bound(case):
+    """Three int8 terms in [-127, 127] and a scale s1 = max|q| / 127 (f32;
+    1 for a zero query): q - s1 (t1 + t2 / 254 + t3 / 254^2) is at most
+    s1 / (2 254^2) an element (kernels/scan_mma.py, csrc/scan_mma.cuh)."""
+    q = torch.from_numpy(int8_query_cases()[case])
+    terms, s1 = scan_mma.split_query_int8(q)
+    assert terms.dtype == torch.int8 and terms.shape == (3, *q.shape)
+    assert s1.dtype == torch.float32 and s1.shape == (q.shape[0],)
+    assert int(terms.to(torch.int32).abs().max()) <= 127
+    amax = q.abs().amax(dim=1).double()
+    want = torch.where(amax > 0, (amax / 127.0).float().double(), torch.ones_like(amax))
+    assert torch.equal(s1.double(), want)
+    s = s1.double()[:, None]
+    back = s * (terms[0].double() + terms[1].double() / 254 + terms[2].double() / 254 ** 2)
+    bound = s / (2 * 254 ** 2)
+    assert torch.all((back - q.double()).abs() <= bound * (1 + 1e-9))
+    if case == "zeros":
+        assert not terms.any()
+    if case == "one-large":  # the large element takes t1 = +-127, the tiny ones t1 = 0
+        assert torch.equal(terms[0][:, 17].abs(), torch.full((2,), 127, dtype=torch.int8))
+        assert not terms[0][:, :17].any()
+
+
+@pytest.mark.parametrize("d", [64, 100, 384])
+@pytest.mark.parametrize("b", [5, 64, 70])
+def test_int8_query_operand_is_the_swizzled_terms(b, d, rng):
+    """The int8 operand read as the kernel addresses it (block j's slice s
+    term t at ((j S + s) 3 + t) x 8192 bytes, S = ceil(D / 128); in it
+    query r's 16-byte chunk c at chunk c ^ (r mod 8) of its 128-byte row)
+    gives back each term; every slot past B and D is zero; the scales are
+    the split's."""
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    op, scales = scan_mma.query_operand_int8(q)
+    nb, ns = -(-b // 64), -(-d // 128)
+    assert op.dtype == torch.int8 and op.is_contiguous()
+    assert op.shape == (nb, ns, 3, 64, 128)
+    terms, s1 = scan_mma.split_query_int8(q)
+    assert torch.equal(scales, s1)
+    flat = op.reshape(-1)
+    r = torch.arange(b)[:, None]
+    col = torch.arange(d)[None, :]
+    rr, kc = r % 64, col % 128
+    for t in range(3):
+        off = ((((r // 64) * ns + col // 128) * 3 + t) * 64 + rr) * 128 + \
+            ((kc // 16) ^ (rr % 8)) * 16 + kc % 16
+        assert torch.equal(flat[off], terms[t])
+    assert int(torch.count_nonzero(op)) == int(torch.count_nonzero(terms))
+
+
+def int8_tensor_core_dots(queries, rows8, row_scales):
+    """The int8 form's contraction on the CPU: each term's exact integer
+    dot (int64 matmul, what s32 wgmma accumulates), then the kernel's f32
+    epilogue: (acc3 / 254^2 + acc2 / 254 + acc1) s1, times the row scale."""
+    terms, s1 = scan_mma.split_query_int8(queries)
+    acc = [(terms[t].to(torch.int64) @ rows8.to(torch.int64).T).to(torch.float32)
+           for t in range(3)]
+    x = (acc[2] * (1.0 / 64516.0) + acc[1] * (1.0 / 254.0)) + acc[0]
+    return (x * s1[:, None]) * row_scales[None, :]
+
+
+@pytest.mark.parametrize("d, b", [(64, 8), (100, 5), (384, 70)])
+def test_int8_term_contraction_matches_tile_scores(d, b, rng):
+    """The int8 form's dots (three exact term passes) against the plain
+    version's f32 dots of the same int8 rows times their scales, within
+    the raw-dot tolerance of chip_smoke.py (1e-5 x max(1, max |dot|))."""
+    n = 512
+    values = (rng.normal(size=(n, d)) * rng.uniform(0.5, 2.0, (n, 1))).astype(np.float32)
+    rows8, scales = quantize_rows_int8(torch.from_numpy(values))
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    got = int8_tensor_core_dots(q, rows8, scales)
+    want = scan.tile_scores(rows8, scales, torch.zeros(n), torch.ones(n, dtype=torch.bool),
+                            q, SimilarityMetric.DOT_PRODUCT)
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_int8_emulated_selection_matches_pallas(metric, rng):
+    """K3's selection over the int8 form's emulated scores (the metric and
+    validity applied as the plain version does) against the JAX K3 int8 in
+    interpret mode: ids equal except among scores within 1e-5, scores
+    within rtol/atol 1e-5."""
+    n, d, b, k, tile_n = 2048, 64, 8, 32, 512
+    values, valid = corpus(rng, n, d, invalid_frac=0.1)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    (_, jsq, jvalid), (_, tsq, tvalid) = both(values, valid)
+    (jq, js), (tq, ts) = quantized(values)
+    jout = jscan.pallas_search_block_topk_int8(
+        jq, js, jsq, jvalid, jnp.asarray(q),
+        metric=JMetric[metric], k=k + 1, tile_n=tile_n, interpret=True, winners=2,
+    )
+    tq32 = torch.from_numpy(q)
+    dot = int8_tensor_core_dots(tq32, tq, ts)
+    qsq = torch.sum(tq32 * tq32, dim=-1, keepdim=True)
+    s = torch.where(tvalid[None, :],
+                    metric_from_dot(dot, qsq, tsq[None, :], SimilarityMetric[metric]),
+                    float("-inf"))
+    got = plain_topk(scan.block_topw_of_scores(s, tile_n=tile_n, winners=2), b, k)
+    assert_topk_matches(got, tuple(torch.from_numpy(np.array(x)) for x in jout))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("winners", [1, 2, 3, 4])
+def test_block_wrapper_routes_rows_by_dtype_and_winners(dtype, winners, monkeypatch):
+    """block_topw_cuda picks K3's kernel from the rows' dtype and W before
+    any launch: int8 rows to scan_block_topw_s8 (the int8 query operand and
+    its scales, the row scales), bf16 rows to scan_block_topw_bf16 (the
+    bf16 operand), both up to MMA_MAX_WINNERS; f32 rows and larger W to the
+    CUDA-core scan_block_topw (the transposed f32 queries, a dtype code).
+    One launch, nothing reaches the plain version; a fake card lets the
+    host side run here."""
+    n, d, b, tile_n = 1024, 100, 5, 512
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    rows = torch.zeros((n, d), dtype=dt)
+    scales = torch.ones(n) if dtype == "int8" else None
+    launched = []
+    kernels = (scan.SCAN_BLOCK_TOPW, scan.SCAN_BLOCK_TOPW_S8, scan.SCAN_BLOCK_TOPW_BF16)
+    for kern in kernels:
+        monkeypatch.setattr(kern, "launch",
+                            lambda *a, kern=kern: launched.append((kern.symbol, a)))
+    monkeypatch.setattr(scan, "block_topw_plain", lambda *a, **k: launched.append("plain"))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=0))
+    s, i = scan.block_topw_cuda(rows, scales, torch.zeros(n), torch.ones(n, dtype=torch.bool),
+                                torch.zeros((b, d)), metric=SimilarityMetric.EUCLIDEAN,
+                                tile_n=tile_n, winners=winners)
+    assert s.shape == i.shape == (b, n // tile_n, winners * 128)
+    mma = winners <= scan.MMA_MAX_WINNERS.get(dt, 0)
+    want = {"int8": "scan_block_topw_s8", "bf16": "scan_block_topw_bf16"}.get(dtype)
+    want = want if mma else "scan_block_topw"
+    assert [sym for sym, _ in launched] == [want]
+    assert scan.block_route(dt, winners).symbol == want
+    args = launched[0][1]
+    if want == "scan_block_topw_s8":
+        assert all(isinstance(x, int) for x in args[:7])
+        assert args[9:15] == (n, d, b, tile_n, winners, 1)
+    elif want == "scan_block_topw_bf16":
+        assert all(isinstance(x, int) for x in args[:5])
+        assert args[7:13] == (n, d, b, tile_n, winners, 1)
+    else:
+        assert args[3] == {"f32": 0, "bf16": 1, "int8": 2}[dtype]
+        assert args[9:15] == (n, d, b, tile_n, winners, 1)
+
+
 # ---------------------------------------------------------- on the card
 #
 # K1-K4 against their plain versions at chip_smoke.py phase 2's small
@@ -395,23 +573,101 @@ def test_exact_int8_kernel_matches_plain_on_the_card(shape):
         assert_topk_matches(got, want)
 
 
+def assert_lane_lists_match(got, want, winners, raw_dots=False):
+    """K3's [B, T, W*128] lists against the plain version's lists of W + 1
+    (W where a lane group has only W rows): the same -inf pattern, finite
+    scores within rtol/atol 1e-5, ids equal except among scores within 1e-5
+    of each other; an empty (-inf) slot names exactly the plain version's
+    row (the lowest rows of its lane group not listed). ``raw_dots`` (the
+    dot metric): raw dots of every magnitude, so chip_smoke.py's rule for
+    them (K6, K8 none): within 1e-5 x max(1, max |score|), f32 sums of the
+    same products taken in another order; lists of a few rows (384-row
+    tiles) hold dots near 0, where two f32 orders differ by more than
+    1e-5."""
+    ks, ki = (x.cpu().numpy() for x in got)
+    ps, pi = (x.cpu().numpy() for x in want)
+    b, t = ks.shape[:2]
+    ks, ki = (x.reshape(b, t, winners, 128).transpose(0, 1, 3, 2).reshape(-1, winners)
+              for x in (ks, ki))
+    wp = ps.shape[2] // 128
+    ps, pi = (x.reshape(b, t, wp, 128).transpose(0, 1, 3, 2).reshape(-1, wp) for x in (ps, pi))
+    empty = np.isneginf(ps[:, :winners])
+    assert np.array_equal(np.isneginf(ks), empty)
+    fin = ps[:, :winners][~empty]
+    if raw_dots:
+        tol = 1e-5 * max(1.0, float(np.abs(fin).max(initial=0.0)))
+        assert float(np.abs(ks[~empty] - fin).max(initial=0.0)) <= tol
+    else:
+        np.testing.assert_allclose(ks[~empty], fin, rtol=1e-5, atol=1e-5)
+    assert np.array_equal(ki[empty], pi[:, :winners][empty])
+    for m in np.flatnonzero((ki != pi[:, :winners]).any(axis=1)):
+        for p in np.flatnonzero(ki[m] != pi[m, :winners]):
+            near = np.abs(ps[m] - ps[m, p]) <= (
+                tol if raw_dots else 1e-5 * max(1.0, abs(ps[m, p])))
+            near[p] = False
+            assert near.any(), (m, p)
+
+
+#: K3's card shapes: (rows, D, B, tile): the phase-2 shapes, D 768, and
+#: 384-row tiles over 2 query blocks (512 (tile, query block) pairs: a
+#: tensor-core block walks several tiles)
+BLOCK_SHAPES = [(65536, 384, 64, 4096), (8192, 100, 5, 4096), (16384, 768, 70, 4096),
+                (98304, 384, 70, 384)]
+BLOCK_IDS = ["65536x384-B64", "8192x100-B5", "16384x768-B70", "98304x384-B70-t384"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", CARD_SHAPES, ids=CARD_IDS)
+@pytest.mark.parametrize("winners", [1, 2, 3])
+@pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=BLOCK_IDS)
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
-def test_block_kernel_matches_plain_on_the_card(dtype, shape):
-    """K3 (scan_block_topw): each lane group's top 2 of a 4096-row tile,
+def test_block_kernel_matches_plain_on_the_card(dtype, shape, winners):
+    """K3 on every route (f32: scan_block_topw; bf16: scan_block_topw_bf16;
+    int8: scan_block_topw_s8, W 3 where ``block_route`` sends it there):
+    each lane group's lists held against the plain version's, with 5%
+    invalid rows, a lane group with one live row and a tile with none;
     then the top 16 of the pool."""
-    rows, sq, valid, q = card_inputs(*shape)
+    check_block_kernel(dtype, shape, winners)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BLOCK_SHAPES[:3], ids=BLOCK_IDS[:3])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_block_kernel_cuda_core_forms_on_the_card(dtype, shape):
+    """bf16 and int8 rows at W 4, past the tensor-core body's lists, run
+    the CUDA-core scan_block_topw's bf16 and int8 forms: held as above."""
+    dt = {"bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    assert scan.block_route(dt, 4) is scan.SCAN_BLOCK_TOPW
+    check_block_kernel(dtype, shape, 4)
+
+
+def check_block_kernel(dtype, shape, winners):
+    """K3 on the kernel ``block_route`` names for ``dtype`` and
+    ``winners``: launched once a metric, its lists and its pool's top 16
+    held against the plain version's."""
+    n, d, b, tile_n = shape
+    rows, sq, valid, q = card_inputs(n, d, b)
+    valid[3::128] = False
+    valid[3 + 128 * 5] = True  # lane group 3 of tile 0: one live row
+    valid[tile_n:2 * tile_n] = False  # tile 1: no live row
     v, sc = rows[dtype]
+    kernel = scan.block_route(v.dtype, winners)
     for metric in METRICS:
         m = SimilarityMetric[metric]
-        kw = dict(metric=m, tile_n=4096, winners=2)
+        before = kernel.launches
+        got = scan.block_topw_cuda(v, sc, sq, valid, q, metric=m, tile_n=tile_n,
+                                   winners=winners)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = scan.block_topw_plain(v, sc, sq, valid, q, metric=m, tile_n=tile_n,
+                                     winners=min(winners + 1, tile_n // 128))
+        assert_lane_lists_match(got, want, winners, raw_dots=metric == "DOT_PRODUCT")
+        kw = dict(metric=m, tile_n=tile_n, winners=winners)
         if sc is None:
-            got = scan.pallas_search_block_topk(v, sq, valid, q, k=16, **kw)
+            top = scan.pallas_search_block_topk(v, sq, valid, q, k=16, **kw)
         else:
-            got = scan.pallas_search_block_topk_int8(v, sc, sq, valid, q, k=16, **kw)
+            top = scan.pallas_search_block_topk_int8(v, sc, sq, valid, q, k=16, **kw)
         want = plain_topk(scan.block_topw_plain(v, sc, sq, valid, q, **kw), q.shape[0], 17)
-        assert_topk_matches(got, want)
+        assert_topk_matches(top, want)
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
-// Inline PTX for Hopper (sm_90a) shared by csrc/pq.cu (K5's tensor-core
-// entry) and csrc/scan_mma.cuh (the tensor-core scan body of K7 and K8):
+// Inline PTX for Hopper (sm_90a) shared by csrc/pq.cu (K5) and
+// csrc/scan_mma.cuh (the tensor-core scan body of K3, K7 and K8):
 // shared-memory addresses, mbarriers, TMA bulk and tensor copies, and the
-// asynchronous warpgroup matrix multiply (wgmma m64nNk16, bf16 operands
-// from shared memory, f32 accumulators in registers). No CUTLASS: what the kernels use
-// of it is these few instructions. kernels/_build.py hashes this header into
+// asynchronous warpgroup matrix multiply (wgmma m64nNk16 over bf16 operands
+// into f32 accumulators, and m64n64k32 over int8 operands into s32 ones,
+// both operands from shared memory, the sums in registers). No CUTLASS:
+// what the kernels use of it is these few instructions. kernels/_build.py hashes this header into
 // every CUDA library's key.
 
 #pragma once
@@ -17,6 +18,13 @@ namespace {
 template <int N>
 struct Acc {
   float v[N / 2];
+};
+
+// The s32 accumulator of one warpgroup's m64nNk32 int8 tile: N / 2
+// registers a thread, in the f32 accumulator's layout.
+template <int N>
+struct AccS {
+  int32_t v[N / 2];
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -92,6 +100,7 @@ __device__ __forceinline__ void wgmma_wait() {
 // (its descriptors, its accumulator) is final before wgmma.fence.
 __device__ __forceinline__ void hold(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
 __device__ __forceinline__ void hold(uint64_t& r) { asm volatile("" : "+l"(r) :: "memory"); }
+__device__ __forceinline__ void hold(int32_t& r) { asm volatile("" : "+r"(r) :: "memory"); }
 
 __device__ __forceinline__ void wgmma_ss(Acc<8>& d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
@@ -193,6 +202,24 @@ __device__ __forceinline__ void wgmma_ss(Acc<256>& d, uint64_t desc_a, uint64_t 
         "+f"(d.v[104]), "+f"(d.v[105]), "+f"(d.v[106]), "+f"(d.v[107]), "+f"(d.v[108]), "+f"(d.v[109]), "+f"(d.v[110]), "+f"(d.v[111]),
         "+f"(d.v[112]), "+f"(d.v[113]), "+f"(d.v[114]), "+f"(d.v[115]), "+f"(d.v[116]), "+f"(d.v[117]), "+f"(d.v[118]), "+f"(d.v[119]),
         "+f"(d.v[120]), "+f"(d.v[121]), "+f"(d.v[122]), "+f"(d.v[123]), "+f"(d.v[124]), "+f"(d.v[125]), "+f"(d.v[126]), "+f"(d.v[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// int8 x int8 -> s32, exact: D += A B with A (64 rows x 32 int8) and B (32
+// x 64 int8) both K-major in shared memory (the only major order 8-bit
+// wgmma takes); integer wgmma has no operand scale or transpose arguments.
+__device__ __forceinline__ void wgmma_s8(AccS<64>& d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d.v[0]), "+r"(d.v[1]), "+r"(d.v[2]), "+r"(d.v[3]), "+r"(d.v[4]), "+r"(d.v[5]), "+r"(d.v[6]), "+r"(d.v[7]),
+        "+r"(d.v[8]), "+r"(d.v[9]), "+r"(d.v[10]), "+r"(d.v[11]), "+r"(d.v[12]), "+r"(d.v[13]), "+r"(d.v[14]), "+r"(d.v[15]),
+        "+r"(d.v[16]), "+r"(d.v[17]), "+r"(d.v[18]), "+r"(d.v[19]), "+r"(d.v[20]), "+r"(d.v[21]), "+r"(d.v[22]), "+r"(d.v[23]),
+        "+r"(d.v[24]), "+r"(d.v[25]), "+r"(d.v[26]), "+r"(d.v[27]), "+r"(d.v[28]), "+r"(d.v[29]), "+r"(d.v[30]), "+r"(d.v[31])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 

@@ -1,27 +1,37 @@
 // Lane-group list kernels for Hopper (sm_90a):
 //
-//   scan_merge_topw  (K7) replaces vectorlite_tpu/kernels/pallas_merge.py:66
-//                    _merge_kernel: each lane group's (row mod 128) top W
-//                    over the whole corpus.
-//   scan_fold_probe  (K8) replaces bench/decompose.py:68 (mk_kernel's kern):
-//                    the contraction alone, or with a lane-group fold.
+//   scan_block_topw_s8,   (K3) replace vectorlite_tpu/kernels/pallas_scan.py:159
+//   scan_block_topw_bf16  _block_topw_kernel over int8 rows (with their
+//                         scales) and over bf16 rows: each lane group's (row
+//                         mod 128) top W of every tile, on the tensor-core
+//                         body. K3 over f32 rows, or W above 3, stays on the
+//                         CUDA-core body (scan.cu scan_block_topw).
+//   scan_merge_topw       (K7) replaces vectorlite_tpu/kernels/pallas_merge.py:66
+//                         _merge_kernel: each lane group's top W over the
+//                         whole corpus.
+//   scan_fold_probe       (K8) replaces bench/decompose.py:68 (mk_kernel's
+//                         kern): the contraction alone, or with a lane-group
+//                         fold.
 //
-// Bound at their shape (2^20 x 384 bf16 rows, B = 256): one bf16 pass is
-// 0.21 ms of tensor work, the rows' 805 MB 0.24 ms at 3.35 TB/s; f32
-// queries against bf16 rows take three bf16 passes, 0.63 ms.
+// Bounds at their shape (2^20 x 384 rows, B = 256): one bf16 pass is 0.21
+// ms of tensor work, the bf16 rows' 805 MB 0.24 ms at 3.35 TB/s; f32
+// queries against bf16 rows take three bf16 passes, 0.63 ms; against int8
+// rows three int8 passes, 0.31 ms, and the rows are 403 MB (0.12 ms).
 //
-// Over bf16 rows both run on the tensor-core body (scan_mma.cuh): the f32
-// queries split into three bf16 terms, wgmma over TMA-staged row tiles, and
-// each thread's (query, lane group) lists in registers, updated on the
-// accumulators chunk after chunk. K7 over f32 rows is routed by its dtype to
-// the CUDA-core body of scan_kernel.cuh (staged f32 FMA, the lists in shared
-// memory, [W][64][128] a block, one block an SM at W >= 2), whose
-// exactness f32 rows need. The TPU kernel of K7 carries its per-lane-group
-// state across a sequential grid; here a block owns (64 queries, one tile),
-// writes its lists as a partial, and a second pass (merge_partials) merges
-// the partials in tile order. K8 is the same block with the lists reset per
-// tile (`full`), distinct values kept (`maxonly`) or no selection at all
-// (`none`, the contraction of every chunk, its first chunk written).
+// The tensor-core body (scan_mma.cuh): the f32 queries split into three
+// bf16 or int8 terms, wgmma over TMA-staged row tiles, and each thread's
+// (query, lane group) lists in registers, updated on the accumulators
+// chunk after chunk. K3 blocks walk runs of consecutive tiles and write
+// each tile's lists in K3's own [B, T, W*128] layout. K7 over f32 rows is
+// routed by its dtype to the CUDA-core body of scan_kernel.cuh (staged f32
+// FMA, the lists in shared memory, [W][64][128] a block, one block an SM
+// at W >= 2), whose exactness f32 rows need. The TPU kernel of K7 carries
+// its per-lane-group state across a sequential grid; here a block owns (64
+// queries, one tile), writes its lists as a partial, and a second pass
+// (merge_partials) merges the partials in tile order. K8 is the same block
+// with the lists reset per tile (`full`), distinct values kept (`maxonly`)
+// or no selection at all (`none`, the contraction of every chunk, its
+// first chunk written).
 //
 // Each C entry launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -69,6 +79,38 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" {
 
+// K3 over int8 rows [n, d] with their scales, on the tensor-core body: the
+// queries split into three int8 terms q_img with their scales q_scale
+// (kernels/scan_mma.py query_operand_int8), each tile's lane-group lists
+// into out_s/out_i [B, n / tile_n, W*128]. winners 1-3.
+int scan_block_topw_s8(const void* q_img, const void* q_scale, const void* qsq,
+                       const void* values, const void* scales, const void* sqnorms,
+                       const void* valid, void* out_s, void* out_i, int n, int d,
+                       int b, int tile_n, int winners, int metric, void* stream) {
+  return scan_mma::launch_w<int8_t, scan_mma::TOPW>(
+      winners, values, q_img, static_cast<const float*>(q_scale),
+      static_cast<const float*>(qsq), static_cast<const float*>(scales),
+      static_cast<const float*>(sqnorms), static_cast<const uint8_t*>(valid),
+      static_cast<float*>(out_s), static_cast<int*>(out_i), n, d, b, tile_n, metric,
+      scan_mma::F_LOW_ROWS | scan_mma::F_QUERY_MAJOR | scan_mma::F_WALK,
+      static_cast<cudaStream_t>(stream));
+}
+
+// K3 over bf16 rows on the tensor-core body, with the three bf16 terms
+// q_img (kernels/scan_mma.py query_operand); the layout of
+// scan_block_topw_s8.
+int scan_block_topw_bf16(const void* q_img, const void* qsq, const void* values,
+                         const void* sqnorms, const void* valid, void* out_s,
+                         void* out_i, int n, int d, int b, int tile_n, int winners,
+                         int metric, void* stream) {
+  return scan_mma::launch_w<uint16_t, scan_mma::TOPW>(
+      winners, values, q_img, nullptr, static_cast<const float*>(qsq), nullptr,
+      static_cast<const float*>(sqnorms), static_cast<const uint8_t*>(valid),
+      static_cast<float*>(out_s), static_cast<int*>(out_i), n, d, b, tile_n, metric,
+      scan_mma::F_LOW_ROWS | scan_mma::F_QUERY_MAJOR | scan_mma::F_WALK,
+      static_cast<cudaStream_t>(stream));
+}
+
 // K7: the tiles' lists into part_s/part_i [n / tile_n, B, W*128], then
 // their merge into out_s/out_i [W, B, 128]. dtype 1 (bfloat16 rows): the
 // tensor-core body with the split queries q_img (kernels/scan_mma.py
@@ -84,8 +126,8 @@ int scan_merge_topw(const void* q_t, const void* qsq, const void* q_img,
   const auto st = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == 1)
-    err = scan_mma::launch_w<scan_mma::TOPW>(
-        winners, values, q_img, static_cast<const float*>(qsq),
+    err = scan_mma::launch_w<uint16_t, scan_mma::TOPW>(
+        winners, values, q_img, nullptr, static_cast<const float*>(qsq), nullptr,
         static_cast<const float*>(sqnorms), static_cast<const uint8_t*>(valid),
         static_cast<float*>(part_s), static_cast<int*>(part_i), n, d, b, tile_n,
         metric, 0, st);
@@ -115,16 +157,16 @@ int scan_fold_probe(const void* q_img, const void* values, void* out_s,
   auto* oi = static_cast<int*>(out_i);
   switch (mode) {
     case 0:
-      return scan_mma::launch_w<scan_mma::FIRST>(
-          1, values, q_img, nullptr, nullptr, nullptr, os, oi, n, d, b, tile_n,
+      return scan_mma::launch_w<uint16_t, scan_mma::FIRST>(
+          1, values, q_img, nullptr, nullptr, nullptr, nullptr, nullptr, os, oi, n, d, b, tile_n,
           scan_mma::DOT, 0, st);
     case 1:
-      return scan_mma::launch_w<scan_mma::DISTINCT>(
-          winners, values, q_img, nullptr, nullptr, nullptr, os, oi, n, d, b,
+      return scan_mma::launch_w<uint16_t, scan_mma::DISTINCT>(
+          winners, values, q_img, nullptr, nullptr, nullptr, nullptr, nullptr, os, oi, n, d, b,
           tile_n, scan_mma::DOT, 0, st);
     case 2:
-      return scan_mma::launch_w<scan_mma::TOPW>(
-          winners, values, q_img, nullptr, nullptr, nullptr, os, oi, n, d, b,
+      return scan_mma::launch_w<uint16_t, scan_mma::TOPW>(
+          winners, values, q_img, nullptr, nullptr, nullptr, nullptr, nullptr, os, oi, n, d, b,
           tile_n, scan_mma::DOT, scan_mma::F_GROUP_ROW, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

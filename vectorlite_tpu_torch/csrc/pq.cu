@@ -69,18 +69,47 @@
 //   rows of more than ~1,040 code bytes (M > 2,080 packed) go to the
 //   look-up entry instead; the wrapper decides (kernels/pq.py mma_fits).
 
-// pq_rank (any kc <= 256; the 8-bit profile's kc = 256): look-ups. The
-// one-hot form would do 16x the needed tensor work at kc = 256 (3.3 TFLOP a
-// chunk, 3.3 ms), against ~0.9 ms of look-ups; the reference splits by kc
-// the same way (pq.py:494-500). Each of the B*N*M look-ups is one
-// shared-memory load and one f32 add, so the kernel is bound by
-// shared-memory load throughput (one warp-wide load per SM clock). A block
-// stages the LUT of a group of QG queries in shared memory as f32 (the group
-// shrinks as kc grows) and walks 1024 rows, one row per thread: it reads
-// the row's codes with 16-byte loads, decodes each byte once in registers
-// and feeds QG running sums from it. The epilogue writes each query's rank
-// row coalesced.
+// pq_rank (any kc <= 256; the 8-bit profile's kc = 256, and 4-bit rows too
+// wide for pq_rank_mma): look-ups. The one-hot form would do 16x the
+// needed tensor work at kc = 256 (3.3 TFLOP a chunk, 3.3 ms); the
+// reference splits by kc the same way (pq.py:494-500).
 //
+//   Bound at the 8-bit path's shape (one 2^16-row chunk, M = 96, kc = 256,
+//   B = 256): its bytes (6.3 MB of codes, the 12.6 MB LUT, the 67 MB rank)
+//   take 0.026 ms at 3.35 TB/s, but each of its 1.61 G look-ups is a
+//   shared-memory read of a bf16 entry: 3.2 GB at the SMs' ~29.6 TB/s (128
+//   bytes a clock an SM x 132 SMs at 1.755 GHz) is ~0.11 ms, the bound the
+//   design works against.
+//
+//   Design. The LUT stays bf16 in shared memory (its values are bf16; f32
+//   would double its bytes), laid out by the wrapper per query tile of Q =
+//   8 LPR queries as [m][table row][Q] (kernels/pq.py lookup_lut_operand):
+//   one (subspace, code) entry of the tile's Q queries is 16 LPR contiguous
+//   bytes, and LPR lanes share a row, each loading the 16 bytes of its 8
+//   queries. A thread keeps RT rows x 8 queries of independent f32 sums (no
+//   dependent chain through the M subspaces). A block is ROWS = 256 RT / LPR
+//   rows of one query tile (LPR 4, RT 16: 1,024 rows of 32 queries, 128
+//   sums a thread; 512 blocks at the 8-bit chunk, B 256): the producer
+//   thread streams G subspaces of the tile's LUT a stage (4 unpacked, one
+//   code word; 8 packed) by TMA bulk copies through a ring of mbarrier
+//   stages, so each staged slice serves ROWS rows; the block's codes go to
+//   shared memory a window of 12 code words (48 bytes) a row at a time,
+//   4-byte loads, padded to an odd number of words a row so that the rows'
+//   reads hit distinct banks.
+//
+//   Bank conflicts. The lanes of a row read one contiguous run, but the
+//   rows of a quarter-warp (8 / LPR of them) read entries at random codes:
+//   two collide when their codes agree mod 8 / LPR. LPR 1 (Q 8) has 8 rows
+//   a quarter-warp and the most collisions; LPR 4 (Q 32) none beyond code
+//   parity, but its 64 KB stages leave room for the codes of half the rows
+//   (1,024 a block against 2,048 at LPR 1 and 2), so it streams the LUT
+//   from L2 twice as often. LPR 4 measured fastest of 1, 2 and 4 on an H100
+//   at the 8-bit path's chunk (scripts/probe_pq_lookup.py builds the
+//   others by editing LPR and RT).
+//
+//   Codes at or above kc add 0: the wrapper zero-fills the table to 256
+//   rows (16 for packed 4-bit codes), and subspaces past M to a whole stage.
+
 // Each C entry launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
@@ -92,147 +121,187 @@
 
 namespace {
 
-constexpr int THREADS = 256;             // rows per pass, one per thread
-constexpr int PASSES = 4;                // rows per block = 1024 (the reference's tile)
-constexpr int ROWS_PER_BLOCK = THREADS * PASSES;
-constexpr int MAX_QG = 8;                // queries per block
-constexpr int LUT_BUDGET = 96 * 1024;    // f32 LUT bytes a block aims to stage
 constexpr int SMEM_MAX = 232448;         // Hopper's per-block shared-memory limit
 
 enum Metric { METRIC_COSINE = 0, METRIC_EUCLIDEAN = 1, METRIC_DOT = 2, METRIC_MANHATTAN = 3 };
 
-__device__ __forceinline__ float bf16_bits_to_float(uint16_t h) {
-  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+// ---------------------------------------------------------------- pq_rank
+
+namespace lookup {
+
+constexpr int THREADS = 256;
+constexpr int CW = 12;            // code words of a row a window holds
+constexpr int CSTRIDE = CW + 1;   // words a row in shared memory: odd
+constexpr int MAX_STAGES = 4;
+constexpr int LPR = 4;            // lanes a row (the wrapper reads Q: pq_rank_queries)
+constexpr int RT = 16;            // rows a thread: 8 RT f32 sums
+
+// Table rows and subspaces a stage (one code word): unpacked codes index
+// 256 rows, 4 a word; packed 4-bit codes 16 rows, 8 a word.
+template <bool PACKED>
+struct Codes {
+  static constexpr int T = PACKED ? 16 : 256;
+  static constexpr int G = PACKED ? 8 : 4;
+};
+
+template <bool PACKED>
+struct Cfg {
+  static constexpr int Q = 8 * LPR;               // queries a tile
+  static constexpr int SLOTS = THREADS / LPR;     // rows in flight
+  static constexpr int ROWS = SLOTS * RT;         // rows a block
+  static constexpr int STAGE = Codes<PACKED>::G * Codes<PACKED>::T * Q * 2;  // bytes
+};
+
+// Shared memory: the ring, the codes window, the barriers.
+template <bool PACKED>
+__host__ __device__ inline size_t smem_bytes(int stages) {
+  using C = Cfg<PACKED>;
+  return static_cast<size_t>(stages) * C::STAGE + static_cast<size_t>(C::ROWS) * CSTRIDE * 4 +
+         8 * stages;
 }
 
-// One stored byte of column j: two 4-bit codes (subspaces 2j, 2j+1) or one
-// code (subspace j). lut_s is [QG][m][kc] f32; table = m * kc.
-template <int QG, bool PACKED>
-__device__ __forceinline__ void add_byte(float (&acc)[QG], const float* lut_s,
-                                         uint32_t byte, int j, int kc, int table) {
-  if (PACKED) {
-    const float* hi = lut_s + (2 * j) * 16 + (byte >> 4);
-    const float* lo = lut_s + (2 * j + 1) * 16 + (byte & 0xFu);
+__device__ __forceinline__ void add8(float (&acc)[8], uint4 e) {
+  const uint32_t u[4] = {e.x, e.y, e.z, e.w};
 #pragma unroll
-    for (int q = 0; q < QG; ++q) {
-      acc[q] += hi[q * table];
-      acc[q] += lo[q * table];
-    }
-  } else {
-    if (byte >= static_cast<uint32_t>(kc)) return;  // no centroid: adds 0
-    const float* t = lut_s + j * kc + byte;
-#pragma unroll
-    for (int q = 0; q < QG; ++q) acc[q] += t[q * table];
+  for (int i = 0; i < 4; ++i) {  // a bf16 is the high half of its f32
+    acc[2 * i] += __uint_as_float(u[i] << 16);
+    acc[2 * i + 1] += __uint_as_float(u[i] & 0xFFFF0000u);
   }
 }
 
-template <int QG, bool PACKED>
-__global__ void __launch_bounds__(THREADS)
-pq_rank_kernel(const uint16_t* __restrict__ lut,   // [B, M, kc] bf16 bits
-               const uint8_t* __restrict__ codes,  // [N, ms]
-               const float* __restrict__ sq,       // [N]
-               const uint8_t* __restrict__ valid,  // [N]
-               float* __restrict__ out,            // [B, N]
-               int n, int b, int m, int kc, int ms, int metric, int vec16) {
-  extern __shared__ float lut_s[];  // [QG][m][kc]
-  const int table = m * kc;
-  const int q0 = blockIdx.y * QG;
-  const int nq = min(QG, b - q0);
-  for (int i = threadIdx.x; i < QG * table; i += THREADS) {
-    const int q = i / table;
-    lut_s[i] = q < nq
-        ? bf16_bits_to_float(lut[static_cast<size_t>(q0 + q) * table + (i - q * table)])
-        : 0.0f;
+template <bool PACKED>
+__global__ void __launch_bounds__(THREADS, 1)
+pq_lookup_kernel(const uint8_t* __restrict__ lut_t,   // [QT, m_pad, T, Q] bf16
+                 const uint8_t* __restrict__ codes,   // [n, ms]
+                 const float* __restrict__ sq,        // [n]
+                 const uint8_t* __restrict__ valid,   // [n]
+                 float* __restrict__ out,             // [b, n]
+                 int n, int b, int m_pad, int ms, int metric, int stages, int words) {
+  using C = Cfg<PACKED>;
+  constexpr int T = Codes<PACKED>::T;
+  constexpr int G = Codes<PACKED>::G;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint32_t* codes_s = reinterpret_cast<uint32_t*>(smem + static_cast<size_t>(stages) * C::STAGE);
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t full0 = smem_addr(codes_s + C::ROWS * CSTRIDE);
+
+  const int tid = threadIdx.x;
+  const int slot = tid / LPR;
+  const int part = tid % LPR;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * C::ROWS;
+  const int qt = blockIdx.y;
+  const int steps = m_pad / G;  // one code word each
+  const uint8_t* src0 = lut_t + static_cast<size_t>(qt) * m_pad * T * C::Q * 2;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(full0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  auto issue = [&](int j) {
+    const uint32_t bar = full0 + 8 * (j % stages);
+    mbar_expect_tx(bar, C::STAGE);
+    bulk_load(ring + (j % stages) * C::STAGE, src0 + static_cast<size_t>(j) * C::STAGE,
+              C::STAGE, bar);
+  };
+  if (tid == 0)
+    for (int j = 0; j < stages && j < steps; ++j) issue(j);
 
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * ROWS_PER_BLOCK;
-  for (int p = 0; p < PASSES; ++p) {
-    const int64_t r = row0 + p * THREADS + threadIdx.x;
-    if (r >= n) break;
-    float acc[QG];
+  float acc[RT][8];
 #pragma unroll
-    for (int q = 0; q < QG; ++q) acc[q] = 0.0f;
-    const uint8_t* row = codes + r * ms;
-    if (vec16) {
-      const uint4* rv = reinterpret_cast<const uint4*>(row);
-      for (int w = 0; w < ms / 16; ++w) {
-        const uint4 v = __ldg(rv + w);
-        const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+  for (int k = 0; k < RT; ++k)
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
+    for (int e = 0; e < 8; ++e) acc[k][e] = 0.0f;
+
+  for (int j = 0; j < steps; ++j) {
+    if (j % CW == 0) {
+      // the next window of code words: words j .. j + CW - 1 of each row,
+      // zero past the row and past n
+      __syncthreads();
+      for (int x = tid; x < C::ROWS * CW; x += THREADS) {
+        const int r = x / CW;
+        const int w = j + x % CW;
+        const int64_t row = row0 + r;
+        uint32_t v = 0;
+        if (row < n) {
+          const uint8_t* p = codes + row * ms + 4 * w;
+          if (words) {
+            if (4 * w < ms) v = __ldg(reinterpret_cast<const uint32_t*>(p));
+          } else {
 #pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            add_byte<QG, PACKED>(acc, lut_s, (words[t] >> (8 * s)) & 0xFFu,
-                                 w * 16 + t * 4 + s, kc, table);
+            for (int e = 0; e < 4; ++e)
+              if (4 * w + e < ms) v |= static_cast<uint32_t>(__ldg(p + e)) << (8 * e);
           }
         }
+        codes_s[r * CSTRIDE + x % CW] = v;
       }
-    } else {
-      for (int j = 0; j < ms; ++j) {
-        add_byte<QG, PACKED>(acc, lut_s, __ldg(row + j), j, kc, table);
+      __syncthreads();
+    }
+    mbar_wait(full0 + 8 * (j % stages), (j / stages) & 1);
+    uint32_t cw[RT];
+#pragma unroll
+    for (int k = 0; k < RT; ++k) cw[k] = codes_s[(slot + C::SLOTS * k) * CSTRIDE + j % CW];
+    const uint8_t* stage = smem + (j % stages) * C::STAGE + part * 16;
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const uint8_t* tab = stage + i * T * C::Q * 2;
+#pragma unroll
+      for (int k = 0; k < RT; ++k) {
+        // packed: byte p holds subspace 2p in its high nibble, 2p + 1 in its low one
+        const uint32_t code = PACKED ? (cw[k] >> (8 * (i >> 1) + ((i & 1) ? 0 : 4))) & 0xFu
+                                     : (cw[k] >> (8 * i)) & 0xFFu;
+        add8(acc[k], *reinterpret_cast<const uint4*>(tab + code * (C::Q * 2)));
       }
     }
+    __syncthreads();  // every thread is done with stage j: refill it
+    if (tid == 0 && j + stages < steps) issue(j + stages);
+  }
+
+#pragma unroll
+  for (int k = 0; k < RT; ++k) {
+    const int64_t r = row0 + slot + C::SLOTS * k;
+    if (r >= n) continue;
     const float s = sq[r];
     const bool ok = valid[r] != 0;
     const float inv = rsqrtf(fmaxf(s, 1e-30f));
 #pragma unroll
-    for (int q = 0; q < QG; ++q) {
-      if (q >= nq) break;
-      float v = acc[q];
+    for (int e = 0; e < 8; ++e) {
+      const int q = qt * C::Q + part * 8 + e;
+      if (q >= b) break;
+      float v = acc[k][e];
       if (metric == METRIC_COSINE) {
         v = v * inv;
       } else if (metric == METRIC_EUCLIDEAN) {
         v = v - 0.5f * s;
       }
-      out[static_cast<size_t>(q0 + q) * n + r] = ok ? v : -CUDART_INF_F;
+      out[static_cast<size_t>(q) * n + r] = ok ? v : -CUDART_INF_F;
     }
   }
 }
 
-template <int QG, bool PACKED>
-int launch(const void* lut, const void* codes, const void* sq, const void* valid,
-           void* out, int n, int b, int m, int kc, int ms, int metric,
-           cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(QG) * m * kc * sizeof(float);
-  auto kernel = pq_rank_kernel<QG, PACKED>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int vec16 = (ms % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
-  const dim3 grid((n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, (b + QG - 1) / QG);
+template <bool PACKED>
+int launch(const void* lut_t, const void* codes, const void* sq, const void* valid, void* out,
+           int n, int b, int m_pad, int ms, int metric, cudaStream_t stream) {
+  using C = Cfg<PACKED>;
+  if (m_pad % Codes<PACKED>::G) return static_cast<int>(cudaErrorInvalidValue);
+  int stages = MAX_STAGES;
+  while (stages >= 2 && smem_bytes<PACKED>(stages) > SMEM_MAX) --stages;
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes<PACKED>(stages);
+  auto kernel = pq_lookup_kernel<PACKED>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int words = (ms % 4 == 0) && (reinterpret_cast<uintptr_t>(codes) % 4 == 0);
+  const dim3 grid((n + C::ROWS - 1) / C::ROWS, (b + C::Q - 1) / C::Q);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const uint16_t*>(lut), static_cast<const uint8_t*>(codes),
+      static_cast<const uint8_t*>(lut_t), static_cast<const uint8_t*>(codes),
       static_cast<const float*>(sq), static_cast<const uint8_t*>(valid),
-      static_cast<float*>(out), n, b, m, kc, ms, metric, vec16);
+      static_cast<float*>(out), n, b, m_pad, ms, metric, stages, words);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool PACKED>
-int launch_group(int qg, const void* lut, const void* codes, const void* sq,
-                 const void* valid, void* out, int n, int b, int m, int kc, int ms,
-                 int metric, cudaStream_t stream) {
-  switch (qg) {
-    case 8: return launch<8, PACKED>(lut, codes, sq, valid, out, n, b, m, kc, ms, metric, stream);
-    case 4: return launch<4, PACKED>(lut, codes, sq, valid, out, n, b, m, kc, ms, metric, stream);
-    case 2: return launch<2, PACKED>(lut, codes, sq, valid, out, n, b, m, kc, ms, metric, stream);
-    default: return launch<1, PACKED>(lut, codes, sq, valid, out, n, b, m, kc, ms, metric, stream);
-  }
-}
-
-// Queries a block stages: the most (up to 8, a power of two) whose f32
-// LUTs fit LUT_BUDGET, at least one; 0 when one query's LUT exceeds the
-// shared memory of a block.
-int query_group(int m, int kc) {
-  const long long table = static_cast<long long>(m) * kc * sizeof(float);
-  if (table > SMEM_MAX) return 0;
-  int qg = MAX_QG;
-  while (qg > 1 && qg * table > LUT_BUDGET) qg /= 2;
-  return qg;
-}
-
+}  // namespace lookup
 
 // ------------------------------------------------------------ pq_rank_mma
 
@@ -557,20 +626,24 @@ int launch(const void* lut_t, const void* codes, const void* sq, const void* val
 
 extern "C" {
 
-// lut: [b, m, kc] bf16; codes: [n, ms] uint8 with ms = m / 2 when packed
-// (kc = 16), else ms = m; sq: [n] f32; valid: [n] uint8 (bool);
-// out: [b, n] f32. metric: 0 cosine, 1 euclidean, 2 dot, 3 manhattan.
-int pq_rank(const void* lut, const void* codes, const void* sq, const void* valid,
-            void* out, int n, int b, int m, int kc, int ms, int packed, int metric,
+// Queries a tile of pq_rank (8 LPR): the width the wrapper lays the LUT out
+// at (kernels/pq.py lookup_query_tile), read from the library as built.
+int pq_rank_queries() { return lookup::Cfg<false>::Q; }
+
+// lut_t: the [b, m, kc] bf16 LUT laid out by the wrapper as [ceil(b / Q),
+// m_pad, T, Q] (query tile of Q = 8 LPR = 32, subspace, table row, query),
+// zero past b, kc and m (kernels/pq.py lookup_lut_operand); T = 16 for
+// packed codes, else 256; m_pad a multiple of 8 (packed) or 4. codes: [n,
+// ms] uint8, ms = m / 2 when packed (kc = 16), else m; sq: [n] f32; valid:
+// [n] uint8 (bool); out: [b, n] f32. metric: 0 cosine, 1 euclidean, 2 dot,
+// 3 manhattan.
+int pq_rank(const void* lut_t, const void* codes, const void* sq, const void* valid,
+            void* out, int n, int b, int m_pad, int ms, int packed, int metric,
             cudaStream_t stream) {
-  const int qg = query_group(m, kc);
-  if (qg == 0 || n <= 0 || b <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (packed) {
-    if (kc != 16 || 2 * ms != m) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_group<true>(qg, lut, codes, sq, valid, out, n, b, m, kc, ms, metric, stream);
-  }
-  if (ms != m || kc > 256) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_group<false>(qg, lut, codes, sq, valid, out, n, b, m, kc, ms, metric, stream);
+  if (n <= 0 || b <= 0 || m_pad <= 0 || ms <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (packed)
+    return lookup::launch<true>(lut_t, codes, sq, valid, out, n, b, m_pad, ms, metric, stream);
+  return lookup::launch<false>(lut_t, codes, sq, valid, out, n, b, m_pad, ms, metric, stream);
 }
 
 // lut_t: the [b, m, 16] bf16 LUT laid out by the wrapper as [ceil(b / nt),

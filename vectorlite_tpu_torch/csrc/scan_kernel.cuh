@@ -1,7 +1,7 @@
 // The CUDA-core body of the scan kernels for Hopper (sm_90a), shared by
-// csrc/scan.cu (K1-K4) and csrc/lanes.cu (K7 over f32 rows; K7 over bf16
-// rows and K8 run on the tensor-core body, scan_mma.cuh, and no entry
-// instantiates LANE_DISTINCT or FIRST_COLS any more): a tiled f32
+// csrc/scan.cu (K1, K2, K4, and K3 over f32 rows or W above 3) and
+// csrc/lanes.cu (K7 over f32 rows). K3 over bf16 and int8 rows, K7 over
+// bf16 rows and K8 run on the tensor-core body, scan_mma.cuh. A tiled f32
 // contraction of a query block against a corpus tile (FMA dots, or |q - v|
 // sums for Manhattan), the similarity metric, the validity mask, and a
 // selection that never leaves the block, chosen at compile time
@@ -23,7 +23,7 @@
 // (query, lane group) list in shared memory, owned by one thread. All of
 // it runs on CUDA cores in f32: K1 is within ~3x of its bound, while the
 // kernels priced at one bf16 pass sit far above theirs, which only bf16 /
-// int8 tensor cores can close (scan_mma.cuh is that body for bf16 rows);
+// int8 tensor cores can close (scan_mma.cuh is that body for K3, K7, K8);
 // double-buffered staging is the other later lever.
 //
 // Ties: the order is (score descending, row ascending) everywhere, which
@@ -48,21 +48,18 @@ constexpr int VS_STRIDE = RC + 1;  // odd stride: conflict-free transposed store
 constexpr int LANE_GROUPS = 128;   // K3: lane groups per tile
 constexpr int MAX_GROUP_ROWS = 32; // K3: rows per lane group (tile <= 4096)
 constexpr int SHARED_LIST_MAX = 256;  // K1/K2/K4: 64 lists of k <= 256 in 128 KB
-constexpr int MAX_WINNERS = 3;     // K7/K8: [3][64][128] (score, row) in 192 KB
-constexpr int GSTRIDE = QB * LANE_GROUPS;  // K7/K8: one rung of the lists
+constexpr int MAX_WINNERS = 3;     // K7: [3][64][128] (score, row) in 192 KB
+constexpr int GSTRIDE = QB * LANE_GROUPS;  // K7: one rung of the lists
 
 enum Metric { METRIC_COSINE = 0, METRIC_EUCLIDEAN = 1, METRIC_DOT = 2 };
 
 // Selection of a block: K1/K2/K4 keep each query's running top-k in
 // registers (lane j holds entry j, k <= 32), in shared memory (k <=
 // SHARED_LIST_MAX) or in the block's rows of the output (any k); K3 keeps
-// the top-W of each lane group. K7 and K8 `full` keep each (query, lane
-// group)'s top W in shared memory (LANE_TOPW), K8 `maxonly` its W largest
-// distinct scores (LANE_DISTINCT), K8 `none` the tile's first 128 columns
-// (FIRST_COLS).
+// the top-W of each lane group. K7 keeps each (query, lane group)'s top W
+// in shared memory (LANE_TOPW).
 enum Select {
-  LIST_REGS = 0, LIST_SHARED = 1, LIST_GLOBAL = 2, LANE_GROUP_TOPW = 3,
-  LANE_TOPW = 4, LANE_DISTINCT = 5, FIRST_COLS = 6
+  LIST_REGS = 0, LIST_SHARED = 1, LIST_GLOBAL = 2, LANE_GROUP_TOPW = 3, LANE_TOPW = 4
 };
 
 // 16-byte loads of row elements, unpacked to f32 (exact for every type).
@@ -182,15 +179,12 @@ __device__ __forceinline__ void lane_insert(float* l_s, int* l_r, int stride,
   l_r[p * stride] = r;
 }
 
-// K7/K8's update of one (query, lane group) list in shared memory by a
-// score that beats its last entry: out of line, since it is rare (about
-// W ln(rows per lane group) times a list) and 32 inlined copies of it
-// would swell every LANE kernel. `distinct` drops a score already listed.
+// K7's update of one (query, lane group) list in shared memory by a score
+// that beats its last entry: out of line, since it is rare (about W ln(rows
+// per lane group) times a list) and 32 inlined copies of it would swell the
+// kernel.
 __device__ __noinline__ void lane_update(float* l_s, int* l_r, int winners,
-                                         float s, int r, bool distinct) {
-  if (distinct)
-    for (int w = 0; w + 1 < winners; ++w)
-      if (l_s[w * GSTRIDE] == s) return;
+                                         float s, int r) {
   lane_insert(l_s, l_r, GSTRIDE, winners, s, r);
 }
 
@@ -210,13 +204,8 @@ __device__ __forceinline__ long long chunk_row(long long tile_base, int c,
 }
 
 // L1: the contraction sums |q - v| (K4) and the score is 1 / (1 + sum);
-// otherwise it is a dot product and `metric` applies. K7/K8 write
-// [n_tiles, B, n_out] (tile-major) and read `k` as a flag: LANE_TOPW names
-// an empty slot by its lane group's first row when set (K8 `full`, as the
-// reference's argmax over an all -inf group does) and by row 0 when not
-// (K7); FIRST_COLS stores a fold of every chunk when set, which no caller
-// does: it keeps the contraction of the other chunks live. K8 passes no
-// sqnorms and no validity (every row valid).
+// otherwise it is a dot product and `metric` applies. K7 writes [n_tiles,
+// B, W*128] (tile-major) and names an empty slot by row 0.
 template <typename T, bool SCALED, int SEL, bool L1>
 __global__ void __launch_bounds__(THREADS, 2)
     scan_kernel(const float* __restrict__ q_t,      // [D, B] queries, transposed
@@ -230,8 +219,7 @@ __global__ void __launch_bounds__(THREADS, 2)
                 int d, int b, int k, int tile_n, int winners, int metric,
                 bool vec) {
   constexpr bool BLOCK = SEL == LANE_GROUP_TOPW;
-  constexpr bool LANE = SEL == LANE_TOPW || SEL == LANE_DISTINCT;
-  constexpr bool PROBE = SEL >= LANE_TOPW;  // K7/K8: optional side columns
+  constexpr bool LANE = SEL == LANE_TOPW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);  // [DK][QB]
   float* vs = qs + DK * QB;                        // [DK][VS_STRIDE]
@@ -249,9 +237,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   const long long tile_base = static_cast<long long>(tile) * tile_n;
   const int group_rows = tile_n / LANE_GROUPS;
   const int n_chunks = BLOCK ? LANE_GROUPS / 4 : tile_n / RC;
-  const int n_out = BLOCK || LANE        ? winners * LANE_GROUPS
-                    : SEL == FIRST_COLS ? LANE_GROUPS
-                                        : k;
+  const int n_out = BLOCK || LANE ? winners * LANE_GROUPS : k;
 
   float my_qsq[8];
 #pragma unroll
@@ -300,7 +286,6 @@ __global__ void __launch_bounds__(THREADS, 2)
           gr[o] = 0;
         }
   }
-  float live = -CUDART_INF_F;  // FIRST_COLS: fold of every chunk
 
   for (int c = 0; c < n_chunks; ++c) {
     float acc[8][4];
@@ -389,8 +374,8 @@ __global__ void __launch_bounds__(THREADS, 2)
       float sq = 0.0f, scl = 1.0f;
       bool ok = false;
       if (row >= 0) {
-        if (!L1 && !(PROBE && sqnorms == nullptr)) sq = sqnorms[row];
-        ok = (PROBE && valid == nullptr) || valid[row] != 0;
+        if (!L1) sq = sqnorms[row];
+        ok = valid[row] != 0;
         if (SCALED) scl = scales[row];
       }
 #pragma unroll
@@ -449,22 +434,7 @@ __global__ void __launch_bounds__(THREADS, 2)
           const float s = acc[i][jj];
           const int o = (warp * 8 + i) * LANE_GROUPS + lane + 32 * jj;
           if (s > ls[(winners - 1) * GSTRIDE + o])
-            lane_update(ls + o, gr + o, winners, s, static_cast<int>(rows[jj]),
-                        SEL == LANE_DISTINCT);
-        }
-      }
-    } else if (SEL == FIRST_COLS) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int bq = q0 + warp * 8 + i;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          live = fmaxf(live, acc[i][jj]);
-          if (c == 0 && bq < b) {
-            size_t o = (static_cast<size_t>(tile) * b + bq) * n_out + lane + 32 * jj;
-            out_s[o] = acc[i][jj];
-            out_i[o] = 0;
-          }
+            lane_update(ls + o, gr + o, winners, s, static_cast<int>(rows[jj]));
         }
       }
     } else if (SEL == LIST_REGS) {
@@ -565,19 +535,13 @@ __global__ void __launch_bounds__(THREADS, 2)
         const int lg = lane + 32 * jj;
         for (int w = 0; w < winners; ++w) {
           const int g = w * GSTRIDE + (warp * 8 + i) * LANE_GROUPS + lg;
-          const float s = ls[g];
-          int r = gr[g];
-          if (SEL == LANE_DISTINCT) r = 0;
-          else if (k && s == -CUDART_INF_F) r = static_cast<int>(tile_base) + lg;
           size_t o = (static_cast<size_t>(tile) * b + bq) * n_out + w * LANE_GROUPS + lg;
-          out_s[o] = s;
-          out_i[o] = r;
+          out_s[o] = ls[g];
+          out_i[o] = gr[g];
         }
       }
     }
   }
-  if (SEL == FIRST_COLS && k && q0 + warp * 8 < b)
-    out_s[(static_cast<size_t>(tile) * b + q0 + warp * 8) * n_out + lane] = live;
 }
 
 template <typename T, bool SCALED, int SEL, bool L1>
@@ -589,7 +553,7 @@ int launch_sel(const float* q_t, const float* qsq, const void* values,
   size_t smem = sizeof(float) * (DK * QB + DK * VS_STRIDE);
   if (SEL == LIST_SHARED)
     smem += static_cast<size_t>(QB) * k * (sizeof(float) + sizeof(int));
-  if (SEL == LANE_TOPW || SEL == LANE_DISTINCT)
+  if (SEL == LANE_TOPW)
     smem += static_cast<size_t>(winners) * QB * LANE_GROUPS * (sizeof(float) + sizeof(int));
   const bool vec = (static_cast<size_t>(d) * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(values) % 16 == 0;

@@ -174,3 +174,34 @@ KERNELS: list[Kernel] = []
 def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0
+
+
+def ptxas_report(name: str) -> list[str]:
+    """ptxas's register, shared-memory and spill lines for the kernels of
+    ``csrc/<name>``, each after the line naming its entry, from this
+    process's build (empty for a library already built)."""
+    keep = ("Compiling entry", "registers", "spill")
+    return [line.strip() for line in build_logs.get(name, "").splitlines()
+            if any(k in line for k in keep) and "C7519" not in line]
+
+
+def main() -> int:
+    """``python3 -m vectorlite_tpu_torch.kernels._build``: build every
+    native source (on a machine with nvcc) and print ptxas's report of each
+    kernel built; exits 1 if a build failed."""
+    names = sources()
+    started = [(n, *_start(n)) for n in names]
+    failed = 0
+    for name, proc, tmp, out in started:
+        try:
+            _finish(name, proc, tmp, out)
+        except RuntimeError as e:
+            failed += 1
+            print(e)
+        for line in ptxas_report(name):
+            print(f"{name}: {line}")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -23,8 +23,9 @@ match the scalar reference formulas and only the ranking is approximate.
 * **Search** (``pq_search_topk``): a per-query LUT ``[B, M, kc]`` rounded
   to bf16; per corpus chunk the ``[B, chunk]`` selection rank (K5 for CUDA
   tensors: ``csrc/pq.cu`` ``pq_rank_mma``, the one-hot product on the
-  tensor cores, for kc = 16, and ``pq_rank``, shared-memory look-ups, for
-  any other kc; ``pq_rank_plain`` for CPU tensors); the top k + 32 of each
+  tensor cores, for kc = 16, and ``pq_rank``, look-ups in a bf16 LUT
+  staged in shared memory, for any other kc; ``pq_rank_plain`` for CPU
+  tensors); the top k + 32 of each
   chunk, ties to the lowest row; the
   merged top k + 32; an exact-f32 ADC re-score of that pool with the f32
   LUT, the full metric formula and the validity mask.
@@ -59,8 +60,7 @@ _EXACT_MARGIN = 32
 #: bytes of one-hot operand the plain rank builds at a time
 _PLAIN_ONEHOT_BYTES = 1 << 30
 
-#: shared memory one block of K5's look-up entry can hold (Hopper: 227 KB);
-#: one query's f32 LUT must fit in it
+#: shared memory one block can hold (Hopper: 227 KB)
 _SMEM_MAX = 232448
 
 _METRIC_CODE = {
@@ -74,7 +74,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 PQ_RANK = _build.Kernel(
-    "pq", "pq_rank", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    "pq", "pq_rank", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 )
 PQ_RANK_MMA = _build.Kernel(
     "pq", "pq_rank_mma",
@@ -306,6 +306,35 @@ def mma_lut_operand(lut_sel: torch.Tensor, nt: int) -> torch.Tensor:
     )
 
 
+def lookup_query_tile(lib=None) -> int:
+    """Queries a tile of the look-up entry ``pq_rank`` (8 x its lanes a
+    row), as ``csrc/pq.cu`` was built: read from the library (``lib``, by
+    default the package's own), so the width is decided in the source
+    alone."""
+    fn = (_build.load("pq") if lib is None else lib).pq_rank_queries
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def lookup_lut_operand(lut_sel: torch.Tensor, packed: bool, q: int) -> torch.Tensor:
+    """The [B, M, kc] bf16 LUT as the look-up entry stages it, per query
+    tile of ``q`` queries (``lookup_query_tile``; a multiple of 8):
+    ``[ceil(B / q), m_pad, T, q]`` (query tile, subspace, table row,
+    query), T = 16 for packed 4-bit codes and 256 otherwise, m_pad = M
+    rounded up to a stage (8 subspaces packed, 4 unpacked), zero past B, M
+    and kc: a code at or above kc reads zeros. One (subspace, code) entry
+    of a tile is then 2 q contiguous bytes, and a stage's subspaces one
+    contiguous run."""
+    b, m, kc = lut_sel.shape
+    rows = 16 if packed else 256
+    group = 8 if packed else 4
+    qt = -(-b // q)
+    m_pad = -(-m // group) * group
+    out = lut_sel.new_zeros((qt * q, m_pad, rows))
+    out[:b, :m, :kc] = lut_sel
+    return out.view(qt, q, m_pad, rows).permute(0, 2, 3, 1).contiguous()
+
+
 def _check_rank_operands(lut_sel, codes, sqnorms, valid, packed):
     """Type, shape and layout of K5's operands; returns kc."""
     dev = codes.device
@@ -354,15 +383,14 @@ def launch_rank_lookup(lut_sel, codes, sqnorms, valid, *, metric, packed):
     """Launch the look-up entry ``pq_rank`` (any kc) on operands
     ``pq_rank_cuda`` has checked."""
     n, ms = codes.shape
-    b, m, kc = lut_sel.shape
+    b = lut_sel.shape[0]
     dev = codes.device
-    if m * kc * 4 > _SMEM_MAX:
-        raise ValueError(f"an f32 LUT of {m} x {kc} exceeds a block's shared memory")
+    lut_t = lookup_lut_operand(lut_sel, packed, lookup_query_tile())
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         PQ_RANK.launch(
-            lut_sel.data_ptr(), codes.data_ptr(), sqnorms.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), n, b, m, kc, ms, int(packed),
+            lut_t.data_ptr(), codes.data_ptr(), sqnorms.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), n, b, lut_t.shape[1], ms, int(packed),
             _METRIC_CODE[metric], torch.cuda.current_stream(dev).cuda_stream,
         )
     return out

@@ -9,9 +9,16 @@ reference's names and contracts so the two packages read side by side:
   (``csrc/scan.cu`` ``scan_topk_exact`` / ``scan_topk_exact_int8``) keeps
   each tile's top-k, a stable sort merges the tiles.
 * ``pallas_search_block_topk`` / ``pallas_search_block_topk_int8`` —
-  lane-group top-W candidate selection: kernel K3 (``scan_block_topw``)
-  keeps, per tile and per lane group l (the rows ``l mod 128`` of the
-  tile), the W best rows; a stable sort takes the top k of those.
+  lane-group top-W candidate selection: kernel K3 keeps, per tile and per
+  lane group l (the rows ``l mod 128`` of the tile), the W best rows; a
+  stable sort takes the top k of those. K3 has three routes, chosen by the
+  rows' dtype and W before any launch (``block_route``): int8 rows
+  (the default scan copy) on the tensor-core body's int8 form
+  (``csrc/lanes.cu`` ``scan_block_topw_s8``: the f32 queries split into
+  three int8 terms, exact s32 sums), bf16 rows on its bf16 form
+  (``scan_block_topw_bf16``), f32 rows and W beyond what the body's
+  registers hold on the CUDA-core body (``csrc/scan.cu``
+  ``scan_block_topw``).
 * ``pallas_search_block_topk_rescored`` — K3 selection over a scan copy,
   then an exact f32 re-score of the pool from the f32 rows, in torch.
 * ``pallas_search_topk_l1`` — exact Manhattan top-k: kernel K4
@@ -43,7 +50,7 @@ from ..core.metrics import (
     l1_scores,
     metric_from_dot,
 )
-from . import _build
+from . import _build, scan_mma
 from .topk import stable_topk
 
 NEG_INF = float("-inf")
@@ -75,6 +82,14 @@ SCAN_TOPK_EXACT_INT8 = _build.Kernel(
 SCAN_BLOCK_TOPW = _build.Kernel(
     "scan", "scan_block_topw",
     [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+SCAN_BLOCK_TOPW_S8 = _build.Kernel(
+    "lanes", "scan_block_topw_s8",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+SCAN_BLOCK_TOPW_BF16 = _build.Kernel(
+    "lanes", "scan_block_topw_bf16",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
 SCAN_TOPK_L1 = _build.Kernel(
     "scan", "scan_topk_l1",
@@ -133,11 +148,18 @@ def block_topw_plain(
     """Plain version of K3: per tile and lane group l, the ``winners``
     best of rows ``tile_base + l + 128 j`` as ([B, n_tiles, W*128] scores,
     int32 rows), position ``w*128 + l``."""
-    n = values.shape[0]
-    b = queries.shape[0]
+    s = tile_scores(values, scales, sqnorms, valid, queries, metric)
+    return block_topw_of_scores(s, tile_n=tile_n, winners=winners)
+
+
+def block_topw_of_scores(s, *, tile_n, winners):
+    """K3's selection of a [B, N] score matrix: per tile and lane group l,
+    the ``winners`` best of rows ``tile_base + l + 128 j`` by (score
+    descending, row ascending), as ([B, n_tiles, W*128] scores, int32
+    rows), position ``w*128 + l``."""
+    b, n = s.shape
     n_tiles = n // tile_n
     g = tile_n // BLOCK
-    s = tile_scores(values, scales, sqnorms, valid, queries, metric)
     s = s.view(b, n_tiles, g, BLOCK).transpose(2, 3)  # [B, T, l, j]
     s, j = stable_topk(s, winners)  # [B, T, 128, W]
     lane = torch.arange(BLOCK, device=s.device)[None, None, :, None]
@@ -235,11 +257,26 @@ def tile_topk_cuda(
     return out_s, out_i
 
 
+#: the most lists a thread of the tensor-core body keeps for K3, by row
+#: dtype (W scores and a word of ids each, 32 lists, beside the
+#: accumulators: three s32 sets over int8 rows, two f32 sets over bf16)
+MMA_MAX_WINNERS = {torch.int8: 3, torch.bfloat16: 3}
+
+
+def block_route(dtype, winners):
+    """The K3 kernel for rows of ``dtype`` and ``winners`` lists: the
+    tensor-core body's int8 or bf16 form up to ``MMA_MAX_WINNERS``, else
+    (f32 rows, larger W) the CUDA-core body."""
+    if winners <= MMA_MAX_WINNERS.get(dtype, 0):
+        return SCAN_BLOCK_TOPW_S8 if dtype == torch.int8 else SCAN_BLOCK_TOPW_BF16
+    return SCAN_BLOCK_TOPW
+
+
 def block_topw_cuda(
     values, scales, sqnorms, valid, queries, *, metric, tile_n, winners
 ):
     """K3 over f32, bf16 or int8 (+ scales) rows: same outputs as
-    ``block_topw_plain``."""
+    ``block_topw_plain``, on the kernel ``block_route`` names."""
     int8 = values.dtype == torch.int8
     if int8 and scales is None:
         raise ValueError("int8 rows need their per-row scales")
@@ -261,6 +298,27 @@ def block_topw_cuda(
     shape = (b, n // tile_n, winners * BLOCK)
     out_s = torch.empty(shape, dtype=torch.float32, device=dev)
     out_i = torch.empty(shape, dtype=torch.int32, device=dev)
+    kernel = block_route(values.dtype, winners)
+    metric_code = _METRIC_CODE[metric]
+    if kernel is SCAN_BLOCK_TOPW_S8:
+        q_op, q_scale = scan_mma.query_operand_int8(queries)
+        with torch.cuda.device(dev):
+            kernel.launch(
+                q_op.data_ptr(), q_scale.data_ptr(), qsq.data_ptr(), values.data_ptr(),
+                scales.data_ptr(), sqnorms.data_ptr(), valid.data_ptr(),
+                out_s.data_ptr(), out_i.data_ptr(),
+                n, d, b, tile_n, winners, metric_code, _stream(dev),
+            )
+        return out_s, out_i
+    if kernel is SCAN_BLOCK_TOPW_BF16:
+        q_op = scan_mma.query_operand(queries)
+        with torch.cuda.device(dev):
+            kernel.launch(
+                q_op.data_ptr(), qsq.data_ptr(), values.data_ptr(), sqnorms.data_ptr(),
+                valid.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                n, d, b, tile_n, winners, metric_code, _stream(dev),
+            )
+        return out_s, out_i
     dtype_code = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[values.dtype]
     with torch.cuda.device(dev):
         SCAN_BLOCK_TOPW.launch(
@@ -268,7 +326,7 @@ def block_topw_cuda(
             scales.data_ptr() if int8 else None,
             sqnorms.data_ptr(), valid.data_ptr(),
             out_s.data_ptr(), out_i.data_ptr(),
-            n, d, b, tile_n, winners, _METRIC_CODE[metric], _stream(dev),
+            n, d, b, tile_n, winners, metric_code, _stream(dev),
         )
     return out_s, out_i
 
