@@ -6,17 +6,21 @@ Phases (any failure raises and the exit code is not 0):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every native source under vectorlite_tpu_torch/csrc (scan.cu,
-   lanes.cu, pq.cu, ivf.cu with nvcc, host_rescore.cpp with g++; one
-   compiler per source, all started together).
-2. Kernels against their plain-torch versions on the card: K1 on f32 and
-   bf16 rows, with k > 32 (shared-memory lists) and k > 256 (lists in the
-   output), K2, K3 on its three routes (int8 rows: scan_block_topw_s8, the
+   lanes.cu, exact.cu, pq.cu, ivf.cu with nvcc, host_rescore.cpp with g++;
+   one compiler per source, all started together).
+2. Kernels against their plain-torch versions on the card: K1 and K2 on
+   the route scan.exact_route names (k <= 32: the tensor-core body's
+   per-query top-k, scan_topk_exact_tf32 over f32 rows, _bf16 over bf16
+   rows, scan_topk_exact_s8 over int8 rows; k 1, 16, 32; k > 32: the
+   CUDA-core scan_topk_exact / _int8 with shared-memory lists, and k > 256
+   with lists in the output), K3 on its three routes (int8 rows: scan_block_topw_s8, the
    tensor-core body's int8 form; bf16 rows: scan_block_topw_bf16; f32 rows:
    scan_block_topw, the CUDA-core body; three metrics), K4 on f32 and bf16
    rows, at N=65,536 x 384, B=64, and at an odd shape (8,192 x 100, B=5).
    Then each kernel at the main-path shape (2^20 x 384, B=256, four query
-   blocks; K3 on each route): timed beside its plain version and the
-   PyTorch library path (K3's: one torch.mm, bf16 over the int8 or bf16
+   blocks; K1 over f32 rows at k 16 and bf16 rows at k 32, K2 at k 32, and
+   both at k 100's lists on the CUDA-core body; K3 on each route): timed
+   beside its plain version and the PyTorch library path (K3's: one torch.mm, bf16 over the int8 or bf16
    values cast outside the timing, TF32-off f32 over f32 rows, then
    torch.topk of each lane group), and its output held against the plain
    version's. Everywhere: ids equal except among scores within 1e-5 of
@@ -70,8 +74,11 @@ Phases (any failure raises and the exit code is not 0):
    (whichever kernel it picks on this corpus), then with the guard off
    the speed path (K3 over the int8 scan copy: scan_block_topw_s8, +
    exact re-score), approx=False (K1), a where filter (K1), manhattan
-   (K4), and a `quantized`-profile collection (K3 on int8 rows, and K2). Launch counts are zeroed just before and
-   read just after; every kernel must have launched. Recall@10 of each
+   (K4), a `quantized`-profile collection (K3 on int8 rows, and K2),
+   approx=False at k 100 on both (K1 and K2 on the CUDA-core body) and a
+   `memory-optimized` collection's exact path (K1 over bf16 rows). Launch
+   counts are zeroed just before and read just after; every kernel must
+   have launched, each exact path on the route exact_route names. Recall@10 of each
    speed path against its exact path must be >= 0.99; the cosine and
    manhattan exact paths must agree with float64 truth on 32 queries
    taken across all four query blocks. The quantized speed path runs
@@ -151,17 +158,23 @@ import torch
 D = 384
 B = 256
 K = 10
+K_WIDE = 100  # phase 3's wide exact searches: lists past the tensor-core body's 32
 
 #: NVIDIA H100 SXM data sheet (dense, 700 W): device-memory bandwidth and
 #: the peak rate of each operand type the functions need. The reference
-#: contracts f32 rows in full f32 (Precision.HIGHEST: CUDA cores) and int8
-#: or bf16 rows at DEFAULT precision (one bf16 pass: tensor cores).
-#: Manhattan has no matmul form: elementwise f32 on CUDA cores.
+#: contracts f32 rows in full f32 (Precision.HIGHEST); on the tensor cores
+#: that is three tf32 passes (3xTF32, the rate K1 over f32 rows is priced
+#: at; CUDA-core f32 FMAs would take 3.08 ms at the headline shape), int8
+#: or bf16 rows at DEFAULT precision (one pass). Manhattan has no matmul
+#: form: elementwise f32 on CUDA cores.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"f32": 67e12, "tf32": 494.7e12, "bf16": 989e12, "int8": 1979e12}
 
 REPLACES = {
+    "scan_topk_exact_tf32": "vectorlite_tpu/kernels/pallas_scan.py:46",
+    "scan_topk_exact_bf16": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_exact": "vectorlite_tpu/kernels/pallas_scan.py:46",
+    "scan_topk_exact_s8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_topk_exact_int8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_block_topw": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_block_topw_s8": "vectorlite_tpu/kernels/pallas_scan.py:159",
@@ -180,6 +193,13 @@ REPLACES = {
 #: bf16 form; f32 rows (and W above 3) on the CUDA-core body
 K3_INT8, K3_BF16, K3_F32 = "scan_block_topw_s8", "scan_block_topw_bf16", "scan_block_topw"
 K3_SYMBOLS = (K3_INT8, K3_BF16, K3_F32)
+#: K1's and K2's routes (kernels/scan.py exact_route): k <= 32 on the
+#: tensor-core body's per-query top-k mode (f32 rows: 3xTF32; bf16 rows;
+#: int8 rows), k > 32 on the CUDA-core body
+K1_TF32, K1_BF16, K1_CORE = "scan_topk_exact_tf32", "scan_topk_exact_bf16", "scan_topk_exact"
+K1_SYMBOLS = (K1_TF32, K1_BF16, K1_CORE)
+K2_S8, K2_CORE = "scan_topk_exact_s8", "scan_topk_exact_int8"
+K2_SYMBOLS = (K2_S8, K2_CORE)
 
 #: the SMs' shared-memory rate: 128 bytes a clock an SM, 132 SMs at 1.755
 #: GHz (H100 SXM); what K5's look-up entry reads its LUT entries at
@@ -253,7 +273,9 @@ def compare(label, kern_out, plain_out) -> float:
     ks, ki = (t.cpu().numpy() for t in kern_out)
     ps, pi = (t.cpu().numpy() for t in plain_out)
     k = ks.shape[1]
-    err = float(np.max(np.abs(ks - ps[:, :k])))
+    fin = np.isfinite(ps[:, :k])  # -inf slots (invalid rows) compare by pattern and row
+    with np.errstate(invalid="ignore"):
+        err = float(np.max(np.abs(ks - ps[:, :k]), where=fin, initial=0.0))
     close = np.allclose(ks, ps[:, :k], rtol=1e-5, atol=1e-5)
     bad = ids_match(ps, pi, ks, ki)
     log(f"  {label:48s} max_abs_err {err:.3g} id mismatches beyond ties {bad}")
@@ -268,9 +290,10 @@ def merged(scan, tiles, b, k):
 
 
 def variants(scan, SM):
-    """(kernel, rows label, metrics, kernel top-k, plain top-k) for every
+    """(kernel, rows label, metrics, kernel top-k, plain top-k, k) for every
     kernel variant; the callables take (values, scales, sqnorms, valid,
-    queries, metric, k)."""
+    queries, metric, k). K1's and K2's kernel is None: the one
+    ``scan.exact_route`` names for the rows' dtype and k."""
 
     def exact(tile_n):
         def kern(v, sc, sq, valid, q, metric, k):
@@ -301,11 +324,16 @@ def variants(scan, SM):
 
     dots = (SM.COSINE, SM.EUCLIDEAN, SM.DOT_PRODUCT)
     return [
-        ("scan_topk_exact", "f32", dots, *exact(2048), 16),
-        ("scan_topk_exact", "f32 k100", dots, *exact(2048), 100),
-        ("scan_topk_exact", "f32 k300", (SM.COSINE,), *exact(2048), 300),
-        ("scan_topk_exact", "bf16", dots, *exact(4096), 16),
-        ("scan_topk_exact_int8", "int8", dots, *exact(2048), 16),
+        (None, "f32", dots, *exact(2048), 16),
+        (None, "f32 k1", dots, *exact(2048), 1),
+        (None, "f32 k32", dots, *exact(2048), 32),
+        (None, "f32 k100", dots, *exact(2048), 100),
+        (None, "f32 k300", (SM.COSINE,), *exact(2048), 300),
+        (None, "bf16", dots, *exact(4096), 16),
+        (None, "bf16 k33", (SM.COSINE,), *exact(4096), 33),
+        (None, "int8", dots, *exact(2048), 16),
+        (None, "int8 k32", dots, *exact(2048), 32),
+        (None, "int8 k100", (SM.COSINE,), *exact(2048), 100),
         (K3_F32, "f32", dots, block, block_plain, 16),
         (K3_BF16, "bf16", dots, block, block_plain, 16),
         (K3_INT8, "int8", dots, block, block_plain, 16),
@@ -332,15 +360,16 @@ def check_kernels(scan, metrics_mod, dev, rng) -> dict:
     errs = {}
     for name, label, metrics, kern, plain, k in variants(scan, SM):
         for shape, rows, sq, valid, q in shapes:
-            if k > 16 and shape != shapes[0][0]:
+            if k > 32 and shape != shapes[0][0]:
                 continue  # large k: the main shape only
             v, sc = rows[label.split()[0]]
             for metric in metrics:
+                sym = name or scan.exact_route(v.dtype, k, metric).symbol
                 out = kern(v, sc, sq, valid, q, metric, k)
                 torch.cuda.synchronize()
                 ref = plain(v, sc, sq, valid, q, metric, k + 1)
-                err = compare(f"{name} {label} {shape} {metric.name}", out, ref)
-                errs[name] = max(errs.get(name, 0.0), err)
+                err = compare(f"{sym} {label} {shape} {metric.name}", out, ref)
+                errs[sym] = max(errs.get(sym, 0.0), err)
     return errs
 
 
@@ -358,6 +387,7 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     vq_f32 = vq.to(torch.float32)  # library paths' operands, cast outside timing
     vq_bf16, qb = vq.to(torch.bfloat16), q.to(torch.bfloat16)
     vb = v.to(torch.bfloat16)
+    vb_f32 = vb.to(torch.float32)
     metrics_mod.disable_tf32()
     dot_ops = 2.0 * B * n * D
     side = n * 4 + n * 1 + B * D * 4  # sqnorms, validity, queries
@@ -375,15 +405,30 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
         return fn
 
     # the shapes the main path hands each kernel: K1 over f32 rows with
-    # k_pad 16; K2 over int8 rows with the 2x pool (32); K3 over the int8
-    # scan copy, 4096-row tiles, W = 2, pool 128 (and its two other routes:
-    # a bf16 scan copy, f32 rows without a copy); K4 over f32 rows, k_pad 16
+    # k_pad 16 (tile 2048), over bf16 rows (the memory-optimized profile)
+    # with the 2x pool (32) and tile 4096, and at k 100 (k_pad 128) on the
+    # CUDA-core body; K2 over int8 rows with the 2x pool (32,
+    # and 256 at k 100); K3 over the int8 scan copy, 4096-row tiles, W = 2,
+    # pool 128 (and its two other routes: a bf16 scan copy, f32 rows without
+    # a copy); K4 over f32 rows, k_pad 16. K1 over f32 rows is priced at
+    # three tf32 passes (the reference's HIGHEST on the tensor cores), K2 at
+    # one int8 pass, K1 over bf16 rows at one bf16 pass.
     k3_out = B * (n // 4096) * 256 * 8
+
+    def tiles_out(tile_n, k):
+        return B * (n // tile_n) * k * 8
+
     specs = [
-        ("scan_topk_exact", SM.COSINE, v, None, 16, 2048, None, "f32",
-         dot_ops, n * D * 4 + side + B * (n // 2048) * 16 * 8),
-        ("scan_topk_exact_int8", SM.COSINE, vq, sc, 32, 2048, None, "bf16",
-         dot_ops, n * D + n * 4 + side + B * (n // 2048) * 32 * 8),
+        (K1_TF32, SM.COSINE, v, None, 16, 2048, None, "tf32",
+         3 * dot_ops, n * D * 4 + side + tiles_out(2048, 16)),
+        (K1_BF16, SM.COSINE, vb, None, 32, 4096, None, "bf16",
+         dot_ops, n * D * 2 + side + tiles_out(4096, 32)),
+        (K1_CORE, SM.COSINE, v, None, 128, 2048, None, "tf32",
+         3 * dot_ops, n * D * 4 + side + tiles_out(2048, 128)),
+        (K2_S8, SM.COSINE, vq, sc, 32, 2048, None, "int8",
+         dot_ops, n * D + n * 4 + side + tiles_out(2048, 32)),
+        (K2_CORE, SM.COSINE, vq, sc, 256, 2048, None, "int8",
+         dot_ops, n * D + n * 4 + side + tiles_out(2048, 256)),
         (K3_INT8, SM.COSINE, vq, sc, 128, 4096, 2, "int8",
          dot_ops, n * D + n * 4 + side + k3_out),
         (K3_BF16, SM.COSINE, vb, None, 128, 4096, 2, "bf16",
@@ -403,7 +448,8 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
             def plain(rows=rows, scales=scales, metric=metric, k=k, tile_n=tile_n):
                 return scan.tile_topk_plain(rows, scales, sq, valid, q, metric=metric,
                                             k_tile=k + 1, tile_n=tile_n)
-            lib = library(vq_f32 if scales is not None else rows, scales, k, metric)
+            lib = library({torch.int8: vq_f32, torch.bfloat16: vb_f32}.get(rows.dtype, rows),
+                          scales, k, metric)
         else:
             def kern(rows=rows, scales=scales, metric=metric, tile_n=tile_n, winners=winners):
                 return scan.block_topw_cuda(rows, scales, sq, valid, q, metric=metric,
@@ -429,7 +475,10 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
                          **bound(nbytes, ops, op_type)}
         work = {K3_INT8: f"; tensor work {3 * dot_ops / PEAK_OPS_PER_S['int8'] * 1e3:.4f} "
                          f"ms (3 int8 passes)",
-                K3_BF16: f"; {design_work(n)}"}.get(name, "")
+                K2_S8: f"; tensor work {3 * dot_ops / PEAK_OPS_PER_S['int8'] * 1e3:.4f} "
+                       f"ms (3 int8 passes)",
+                K3_BF16: f"; {design_work(n)}",
+                K1_BF16: f"; {design_work(n)}"}.get(name, "")
         log(f"  {name:22s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{op_type} rate){work}")
@@ -1047,12 +1096,20 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     )
     qclient.create_collection("main", vl.IndexType.FLAT)
     qclient.add_vectors_to_collection("main", rows)
+    # bf16 rows on the card (the host re-scores the 2x pool in f64): K1's
+    # bf16 route
+    mclient = vl.VectorLiteClient(
+        vl.MockEmbeddingFunction(D),
+        config=vl.VectorLiteConfig.profile("memory-optimized"), device=dev,
+    )
+    mclient.create_collection("main", vl.IndexType.FLAT)
+    mclient.add_vectors_to_collection("main", rows)
     del metas
 
-    def exact(coll):
+    def exact(coll, k=K):
         def fn(qs):
             with coll.index_read() as index:
-                return index.search_batch(qs, K, SM.COSINE, approx=False)
+                return index.search_batch(qs, k, SM.COSINE, approx=False)
         return fn
 
     def quantized_speed(qs):
@@ -1072,17 +1129,36 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
         ("quantized speed, numpy re-score (VECTORLITE_NO_NATIVE=1)",
          with_env(quantized_speed, "VECTORLITE_NO_NATIVE", "1")),
         ("quantized exact (K2 + f64 re-score)", exact(qclient.get_collection("main"))),
+        # k = 100: lists past the tensor-core body's 32 (k_pad 128, K2's pool
+        # 256) run on the CUDA-core body
+        (f"exact approx=False, k {K_WIDE} (K1, CUDA-core lists)",
+         exact(client.get_collection("main"), K_WIDE)),
+        (f"quantized exact, k {K_WIDE} (K2, CUDA-core lists)",
+         exact(qclient.get_collection("main"), K_WIDE)),
+        ("memory-optimized exact (K1 over bf16 rows + f64 re-score)",
+         exact(mclient.get_collection("main"))),
     ]
     build.reset_launch_counts()
     calls = native.calls
-    results, _, _ = drive(paths, queries, n_batches, build, card, native)
+    results, moved, _ = drive(paths, queries, n_batches, build, card, native)
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
-    for sym in ("scan_topk_exact", "scan_topk_exact_int8", K3_INT8, "scan_topk_l1"):
+    for sym in (*K1_SYMBOLS, *K2_SYMBOLS, K3_INT8, "scan_topk_l1"):
         if not launches[sym]:
             raise AssertionError(f"{sym} was never launched on the main path")
+    # each exact path on the route exact_route names: k_pad 16 (K1) and the
+    # 2x pool of 32 (K2) on the tensor-core body, k 100 on the CUDA-core one
+    for path, want in (("exact approx=False (K1)", K1_TF32),
+                       ("where-filtered (K1)", K1_TF32),
+                       ("quantized exact (K2 + f64 re-score)", K2_S8),
+                       (f"exact approx=False, k {K_WIDE} (K1, CUDA-core lists)", K1_CORE),
+                       (f"quantized exact, k {K_WIDE} (K2, CUDA-core lists)", K2_CORE),
+                       ("memory-optimized exact (K1 over bf16 rows + f64 re-score)", K1_BF16)):
+        if set(moved[path]) & {*K1_SYMBOLS, *K2_SYMBOLS} != {want}:
+            raise AssertionError(f"{path}: launched {moved[path]}, not {want}")
     if native.calls == calls:
         raise AssertionError("the native f64 re-score never served the quantized paths")
     dclient.delete_collection("default")
+    mclient.delete_collection("main")
 
     # correctness by the repo's own means
     speed = ids_of(results["speed, guard off (K3 + f32 re-score)"])
@@ -1093,6 +1169,17 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
         ("quantized speed vs quantized exact",
          ids_of(results["quantized speed (K3 int8 + f64 re-score)"]),
          ids_of(results["quantized exact (K2 + f64 re-score)"])),
+    ]
+    checks += [
+        (f"exact k {K_WIDE} (its first {K}) vs exact",
+         ids_of(results[f"exact approx=False, k {K_WIDE} (K1, CUDA-core lists)"])[:, :K],
+         exact_ids),
+        (f"quantized exact k {K_WIDE} (its first {K}) vs quantized exact",
+         ids_of(results[f"quantized exact, k {K_WIDE} (K2, CUDA-core lists)"])[:, :K],
+         ids_of(results["quantized exact (K2 + f64 re-score)"])),
+        ("memory-optimized exact vs exact",
+         ids_of(results["memory-optimized exact (K1 over bf16 rows + f64 re-score)"]),
+         exact_ids),
     ]
     for label, got, ref in checks:
         r = recall(got, ref)
@@ -1419,10 +1506,10 @@ def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
     results, k6 = {}, 0
     for name, metric in ivf_paths:
         results[name], counts = run_path(
-            name, search(metric), qb, ["gather_score"], ["scan_topk_exact", *K3_SYMBOLS])
+            name, search(metric), qb, ["gather_score"], [*K1_SYMBOLS, *K3_SYMBOLS])
         k6 += counts["gather_score"]
-    run_path("exact approx=False (K1, brute)", exact, qb, ["scan_topk_exact"],
-             ["gather_score"])
+    run_path("exact approx=False (K1, brute)", exact, qb, [K1_TF32],
+             ["gather_score", K1_CORE])
     # what the default call runs on this collection without the layout:
     # the speed path (K3), or K1 where the precision guard refuses it.
     # The layout stays built (VECTORLITE_IVF=0 would drop it)
@@ -1430,7 +1517,7 @@ def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
     index._ivf_active = False
     try:
         run_path(aside, search(SM.COSINE), qb,
-                 ["scan_topk_exact" if index._precision_risky else K3_INT8],
+                 [K1_TF32 if index._precision_risky else K3_INT8],
                  ["gather_score"])
         device_breakdown(aside, search(SM.COSINE), qb)
     finally:
@@ -1466,7 +1553,7 @@ def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
     if counts["gather_score"]:
         raise AssertionError("a batch of 256 launched K6")
     if index._precision_risky:
-        ok = counts["scan_topk_exact"] and np.array_equal(big, exact_ids)
+        ok = counts[K1_TF32] and np.array_equal(big, exact_ids)
     else:
         ok = counts[K3_INT8] and recall(big, exact_ids) >= 0.99
     log(f"  batch of {B}: fell through, launches "
@@ -1535,13 +1622,13 @@ def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
             return idx.search_batch(qs, K, SM.COSINE, approx=False)
 
     run_path("ivf quantized cosine (int8 layout + f64 re-score)", qsearch, qb,
-             ["gather_score"], ["scan_topk_exact_int8", *K3_SYMBOLS])
+             ["gather_score"], [*K2_SYMBOLS, *K3_SYMBOLS])
     log(f"    host re-score p50 {np.percentile(spent['rescore'], 50):.3f} ms "
         f"({len(spent['rescore'])} calls); native re-scores {native.calls - calls}")
     if native.calls == calls:
         raise AssertionError("the native f64 re-score never served the quantized IVF path")
     run_path("quantized exact approx=False (K2)", qexact, qb,
-             ["scan_topk_exact_int8"], ["gather_score"])
+             [K2_S8], ["gather_score", K2_CORE])
     r = recall(ids_of(in_batches(qsearch, queries, batch)),
                ids_of(in_batches(qexact, queries, batch)))
     log(f"  recall@10 quantized ivf vs its exact K2 ({B} queries): {r:.5f}")

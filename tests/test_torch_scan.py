@@ -496,6 +496,224 @@ def test_block_wrapper_routes_rows_by_dtype_and_winners(dtype, winners, monkeypa
         assert args[9:15] == (n, d, b, tile_n, winners, 1)
 
 
+# ------------------------- K1/K2 on the tensor-core body's TOPK mode, host side
+
+
+def tf32_query_cases():
+    """f32 queries for the tf32 split: N(0, 1), zeros, exact tf32 values,
+    magnitudes 1e30 and 1e-30, halfway cases for the rounding."""
+    rng = np.random.default_rng(6)
+    halfway = np.array([[1.0 + 2.0 ** -11, -(1.0 + 3 * 2.0 ** -11), 1.5 + 2.0 ** -11]],
+                       dtype=np.float32)
+    return {
+        "normal": rng.normal(size=(7, 100)).astype(np.float32),
+        "zeros": np.zeros((3, 32), np.float32),
+        "tf32": np.array([[1.0, -0.5, 3.0, 2.0 ** -10]], dtype=np.float32),
+        "1e30": (rng.normal(size=(2, 64)) * 1e30).astype(np.float32),
+        "1e-30": (rng.normal(size=(2, 64)) * 1e-30).astype(np.float32),
+        "halfway": halfway,
+    }
+
+
+@pytest.mark.parametrize("case", list(tf32_query_cases()))
+def test_tf32_query_split_is_within_its_bound(case):
+    """hi = rna(q) and lo = rna(q - hi) (csrc/scan_mma.cuh round_tf32): hi's
+    and lo's low 13 bits are zero, q - hi is exact in f32, |q - hi| <=
+    2^-11 |q| and |q - hi - lo| <= 2^-22 |q|; halfway cases round away
+    from zero."""
+    q = torch.from_numpy(tf32_query_cases()[case])
+    terms = scan_mma.split_query_tf32(q)
+    assert terms.dtype == torch.float32 and terms.shape == (2, *q.shape)
+    hi, lo = terms
+    for t in (hi, lo):
+        assert not torch.any(t.view(torch.int32) & 0x1FFF)
+    q64, hi64, lo64 = q.double(), hi.double(), lo.double()
+    assert torch.equal((q - hi).double(), q64 - hi64)  # the f32 difference is exact
+    assert torch.all((q64 - hi64).abs() <= 2.0 ** -11 * q64.abs())
+    assert torch.all((q64 - hi64 - lo64).abs() <= 2.0 ** -22 * q64.abs())
+    if case == "tf32":
+        assert torch.equal(hi, q) and not lo.any()
+    if case == "halfway":
+        want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 4 * 2.0 ** -11), 1.5 + 2.0 ** -10])
+        assert torch.equal(hi[0], want)
+
+
+@pytest.mark.parametrize("d", [64, 100, 384])
+@pytest.mark.parametrize("b", [5, 64, 70])
+def test_tf32_query_operand_is_the_swizzled_terms(b, d, rng):
+    """The tf32 operand read as the kernel addresses it (block j's slice s
+    term t at ((j S + s) 2 + t) x 8192 bytes, S = ceil(D / 32); in it query
+    r's 16-byte chunk c at chunk c ^ (r mod 8) of its 128-byte row) gives
+    back each term; every slot past B and D is zero."""
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    op = scan_mma.query_operand_tf32(q)
+    nb, ns = -(-b // 64), -(-d // 32)
+    assert op.dtype == torch.float32 and op.is_contiguous()
+    assert op.shape == (nb, ns, 2, 64, 32)
+    terms = scan_mma.split_query_tf32(q)
+    flat = op.reshape(-1)
+    r = torch.arange(b)[:, None]
+    col = torch.arange(d)[None, :]
+    rr, kc = r % 64, col % 32
+    for t in range(2):
+        off = ((((r // 64) * ns + col // 32) * 2 + t) * 64 + rr) * 32 + \
+            ((kc // 4) ^ (rr % 8)) * 4 + kc % 4
+        assert torch.equal(flat[off], terms[t])
+    assert int(torch.count_nonzero(op)) == int(torch.count_nonzero(terms))
+
+
+def tf32_tensor_core_dots(queries, rows):
+    """The tf32 form's contraction on the CPU: queries and rows split as
+    the kernel splits them, hi.hi + hi.lo + lo.hi summed in float64 (the
+    products of tf32 values are exact; the card's f32 sums add their own
+    rounding, as the plain f32 product's do)."""
+    qh, ql = (t.double() for t in scan_mma.split_query_tf32(queries))
+    xh, xl = (t.double() for t in scan_mma.split_query_tf32(rows))
+    return qh @ xh.T + qh @ xl.T + ql @ xh.T
+
+
+@pytest.mark.parametrize("d", [384, 768])
+def test_tf32_contraction_beats_the_plain_f32_product(d):
+    """3xTF32 against float64 truth: its rms error stays below the plain
+    f32 product's (1.47e-6 / 2.10e-6 against 4.9e-6 / 8.2e-6 at D 384 /
+    768, N(0, 1) queries and rows), every dot within 3.01 u^2 sum |q||x| (u
+    = 2^-11: the header's bound), and the dots agree with tile_scores within
+    the raw-dot tolerance of chip_smoke.py (1e-5 x max(1, max |dot|))."""
+    g = np.random.default_rng([7, d])
+    q = torch.from_numpy(g.normal(size=(64, d)).astype(np.float32))
+    x = torch.from_numpy(g.normal(size=(2048, d)).astype(np.float32))
+    truth = q.double() @ x.double().T
+    got = tf32_tensor_core_dots(q, x)
+    n = x.shape[0]
+    plain = scan.tile_scores(x, None, torch.zeros(n), torch.ones(n, dtype=torch.bool), q,
+                             SimilarityMetric.DOT_PRODUCT).double()
+    rms = lambda e: float(e.pow(2).mean().sqrt())  # noqa: E731
+    assert rms(got - truth) < 0.5 * rms(plain - truth)
+    bound = 3.01 * 2.0 ** -22 * (q.double().abs() @ x.double().abs().T)
+    assert torch.all((got - truth).abs() <= bound)
+    tol = 1e-5 * max(1.0, float(plain.abs().max()))
+    assert float((got - plain).abs().max()) <= tol
+
+
+def topk_mode_model(s, tile_n, k):
+    """A Python model of the TOPK mode's selection over a [B, N] score
+    matrix: per tile and query two lists, one a warpgroup (rows 0-63 and
+    64-127 of each 128-row chunk); a list starts as the top k of its first
+    chunk's 64 rows, then each half chunk's rows that precede its k-th
+    entry enter in row order; at the tile's end each entry's place is its
+    index plus the other list's entries that precede it. Order: (score
+    descending, row ascending). Returns ([B, T, k] scores, int32 rows)."""
+    b, n = s.shape
+    n_tiles = n // tile_n
+    out_s = np.empty((b, n_tiles, k), np.float32)
+    out_i = np.empty((b, n_tiles, k), np.int32)
+    key = lambda e: (-e[0], e[1])  # noqa: E731
+    for q in range(b):
+        for t in range(n_tiles):
+            lists = []
+            for wg in range(2):
+                lst = None
+                for c in range(tile_n // 128):
+                    base = t * tile_n + c * 128 + wg * 64
+                    rows = [(float(s[q, r]), r) for r in range(base, base + 64)]
+                    if lst is None:
+                        lst = sorted(rows, key=key)[:k]
+                        continue
+                    for half in (rows[:32], rows[32:]):
+                        kth = key(lst[-1])
+                        for e in [e for e in half if key(e) < kth]:
+                            lst = sorted(lst + [e], key=key)[:k]
+                lists.append(lst)
+            merged = [None] * k
+            for mine, other in (lists, lists[::-1]):
+                for j, e in enumerate(mine):
+                    place = j + sum(key(o) < key(e) for o in other)
+                    if place < k:
+                        merged[place] = e
+            out_s[q, t] = [e[0] for e in merged]
+            out_i[q, t] = [e[1] for e in merged]
+    return out_s, out_i
+
+
+@pytest.mark.parametrize("k", [1, 5, 16, 32])
+def test_topk_mode_model_matches_tile_topk_plain(k):
+    """The TOPK mode's selection (two half-chunk lists a query, merged at
+    each tile's end) gives tile_topk_plain's ids exactly on integer-valued
+    scores with many ties, an all-invalid tile and a tile invalid but for
+    one row."""
+    g = np.random.default_rng(k)
+    b, n, tile_n = 3, 4 * 512, 512
+    s = g.integers(-4, 5, size=(b, n)).astype(np.float32)
+    s[:, 512:1024] = -np.inf  # tile 1: no valid row
+    s[:, 1024:1536] = -np.inf
+    s[:, 1100] = 2.0  # tile 2: one valid row
+    got_s, got_i = topk_mode_model(s, tile_n, k)
+    want_s, want_i = scan.stable_topk(torch.from_numpy(s).view(b, n // tile_n, tile_n), k)
+    want_i = want_i + torch.arange(n // tile_n)[None, :, None] * tile_n
+    assert np.array_equal(got_i, want_i.numpy())
+    assert np.array_equal(got_s, want_s.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("k", [1, 16, 32, 33])
+def test_exact_route(dtype, k):
+    """exact_route: up to k 32 the tensor-core body's TOPK mode by the rows'
+    dtype (f32: 3xTF32, bf16, int8: K2), beyond it the CUDA-core K1 / K2;
+    manhattan always K4."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    want = {
+        "f32": scan.SCAN_TOPK_EXACT_TF32, "bf16": scan.SCAN_TOPK_EXACT_BF16,
+        "int8": scan.SCAN_TOPK_EXACT_S8,
+    }[dtype] if k <= 32 else (scan.SCAN_TOPK_EXACT_INT8 if dtype == "int8"
+                              else scan.SCAN_TOPK_EXACT)
+    for metric in METRICS:
+        assert scan.exact_route(dt, k, SimilarityMetric[metric]) is want
+    assert scan.exact_route(dt, k, SimilarityMetric.MANHATTAN) is scan.SCAN_TOPK_L1
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("k", [16, 33])
+def test_exact_wrapper_routes_rows_by_dtype_and_k(dtype, k, monkeypatch):
+    """tile_topk_cuda launches the kernel exact_route names, once, with its
+    own operands: the tf32 / bf16 / int8 query operand (and the int8 term
+    scales) on the tensor-core body, the transposed f32 queries and a dtype
+    code on the CUDA-core body. A fake card lets the host side run here."""
+    n, d, b, tile_n = 1024, 100, 5, 512
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    rows = torch.zeros((n, d), dtype=dt)
+    scales = torch.ones(n) if dtype == "int8" else None
+    launched = []
+    kernels = (scan.SCAN_TOPK_EXACT, scan.SCAN_TOPK_EXACT_INT8, scan.SCAN_TOPK_EXACT_TF32,
+               scan.SCAN_TOPK_EXACT_BF16, scan.SCAN_TOPK_EXACT_S8)
+    for kern in kernels:
+        monkeypatch.setattr(kern, "launch",
+                            lambda *a, kern=kern: launched.append((kern.symbol, a)))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=0))
+    ops = []
+    for name in ("query_operand", "query_operand_tf32", "query_operand_int8"):
+        real = getattr(scan_mma, name)
+        monkeypatch.setattr(scan_mma, name,
+                            lambda q, real=real, name=name: ops.append(name) or real(q))
+    s, i = scan.tile_topk_cuda(rows, scales, torch.zeros(n), torch.ones(n, dtype=torch.bool),
+                               torch.zeros((b, d)), metric=SimilarityMetric.EUCLIDEAN,
+                               k_tile=k, tile_n=tile_n)
+    assert s.shape == i.shape == (b, n // tile_n, k)
+    want = scan.exact_route(dt, k, SimilarityMetric.EUCLIDEAN)
+    assert [sym for sym, _ in launched] == [want.symbol]
+    args = launched[0][1]
+    if k <= 32:
+        assert ops == [{"f32": "query_operand_tf32", "bf16": "query_operand",
+                        "int8": "query_operand_int8"}[dtype]]
+        tail = args[9:15] if dtype == "int8" else args[7:13]
+        assert tail == (n, d, b, k, tile_n, 1)
+    else:
+        assert ops == []
+        assert args[-7:-1] == (n, d, b, k, tile_n, 1)
+
+
 # ---------------------------------------------------------- on the card
 #
 # K1-K4 against their plain versions at chip_smoke.py phase 2's small
@@ -546,8 +764,10 @@ def assert_topk_matches(got, want):
     ("f32", 16, 2048), ("f32", 100, 2048), ("f32", 300, 2048), ("bf16", 16, 4096),
 ], ids=["f32-k16", "f32-k100", "f32-k300", "bf16-k16"])
 def test_exact_kernel_matches_plain_on_the_card(dtype, k, tile_n, shape):
-    """K1 (scan_topk_exact): register lists (k <= 32), shared-memory lists
-    (k > 32) and lists in the output (k > 256)."""
+    """K1 on the route exact_route names: the tensor-core body's TOPK mode
+    (k <= 32; scan_topk_exact_tf32 over f32 rows, _bf16 over bf16 rows),
+    the CUDA-core scan_topk_exact's shared-memory lists (k > 32) and lists
+    in the output (k > 256)."""
     rows, sq, valid, q = card_inputs(*shape)
     v, _ = rows[dtype]
     for metric in METRICS:
@@ -571,6 +791,60 @@ def test_exact_int8_kernel_matches_plain_on_the_card(shape):
         want = plain_topk(scan.tile_topk_plain(
             v8, sc, sq, valid, q, metric=m, k_tile=17, tile_n=2048), q.shape[0], 17)
         assert_topk_matches(got, want)
+
+
+#: the TOPK mode's card shapes: (rows, D, B, tile): 200-byte bf16 and
+#: 100-byte int8 rows (the plain-load staging), the main path's widths at
+#: B 256, D 768 over two query blocks, and 2^19 rows in 2,048-row tiles
+#: (1,024 (tile, query block) pairs: a block walks several tiles)
+TOPK_SHAPES = [(8192, 100, 5, 2048), (65536, 384, 256, 4096), (16384, 768, 70, 2048),
+               (1 << 19, 384, 256, 2048)]
+TOPK_IDS = ["8192x100-B5-t2048", "65536x384-B256-t4096", "16384x768-B70-t2048",
+            "524288x384-B256-t2048"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TOPK_SHAPES, ids=TOPK_IDS)
+@pytest.mark.parametrize("k", [1, 10, 16, 32, 33])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_exact_topk_mode_matches_plain_on_the_card(dtype, k, shape):
+    """K1 and K2 on the route exact_route names (k <= 32: the tensor-core
+    body's TOPK mode, scan_topk_exact_tf32 / _bf16 / _s8; k 33: the
+    CUDA-core scan_topk_exact / _int8), one launch a metric: every tile's
+    list held against tile_topk_plain's under the 1e-5 rule, with 5%
+    invalid rows, rows 7, 300 and 900 one row (ties to the lowest), query 0
+    near them, and tile 1 without a valid row."""
+    n, d, b, tile_n = shape
+    rows, sq, valid, q = card_inputs(n, d, b)
+    for name, (v, _) in rows.items():
+        if name != "int8":
+            v[[300, 900]] = v[7].clone()
+    v8, sc = rows["int8"]
+    v8[[300, 900]] = v8[7].clone()
+    sc[[300, 900]] = sc[7].clone()
+    sq[[300, 900]] = sq[7].clone()
+    valid[[7, 300, 900]] = True
+    valid[tile_n:2 * tile_n] = False
+    q[0] = rows["f32"][0][7] + 0.5 * q[0]
+    v, scales = rows[dtype]
+    kernel = scan.exact_route(v.dtype, k, SimilarityMetric.COSINE)
+    if k <= 32:
+        want = {"f32": "scan_topk_exact_tf32", "bf16": "scan_topk_exact_bf16",
+                "int8": "scan_topk_exact_s8"}[dtype]
+    else:
+        want = "scan_topk_exact_int8" if dtype == "int8" else "scan_topk_exact"
+    assert kernel.symbol == want
+    for metric in METRICS:
+        m = SimilarityMetric[metric]
+        before = kernel.launches
+        s_, i_ = scan.tile_topk_cuda(v, scales, sq, valid, q, metric=m, k_tile=k,
+                                     tile_n=tile_n)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        ws, wi = scan.tile_topk_plain(v, scales, sq, valid, q, metric=m, k_tile=k + 1,
+                                      tile_n=tile_n)
+        assert_topk_matches((s_.reshape(-1, k), i_.reshape(-1, k)),
+                            (ws.reshape(-1, k + 1), wi.reshape(-1, k + 1)))
 
 
 def assert_lane_lists_match(got, want, winners, raw_dots=False):

@@ -2,8 +2,9 @@
 // csrc/scan_mma.cuh (the tensor-core scan body of K3, K7 and K8):
 // shared-memory addresses, mbarriers, TMA bulk and tensor copies, and the
 // asynchronous warpgroup matrix multiply (wgmma m64nNk16 over bf16 operands
-// into f32 accumulators, and m64n64k32 over int8 operands into s32 ones,
-// both operands from shared memory, the sums in registers). No CUTLASS:
+// and m64n64k8 over tf32 ones into f32 accumulators, and m64n64k32 over
+// int8 operands into s32 ones; B from shared memory, A too but for tf32,
+// whose A comes from registers; the sums in registers). No CUTLASS:
 // what the kernels use of it is these few instructions. kernels/_build.py hashes this header into
 // every CUDA library's key.
 
@@ -60,6 +61,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Whether the phase of the given parity has completed, without waiting.
+__device__ __forceinline__ bool mbar_test_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
 }
@@ -101,6 +114,7 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void hold(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
 __device__ __forceinline__ void hold(uint64_t& r) { asm volatile("" : "+l"(r) :: "memory"); }
 __device__ __forceinline__ void hold(int32_t& r) { asm volatile("" : "+r"(r) :: "memory"); }
+__device__ __forceinline__ void hold(uint32_t& r) { asm volatile("" : "+r"(r) :: "memory"); }
 
 __device__ __forceinline__ void wgmma_ss(Acc<8>& d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
@@ -221,6 +235,30 @@ __device__ __forceinline__ void wgmma_s8(AccS<64>& d, uint64_t desc_a, uint64_t 
         "+r"(d.v[16]), "+r"(d.v[17]), "+r"(d.v[18]), "+r"(d.v[19]), "+r"(d.v[20]), "+r"(d.v[21]), "+r"(d.v[22]), "+r"(d.v[23]),
         "+r"(d.v[24]), "+r"(d.v[25]), "+r"(d.v[26]), "+r"(d.v[27]), "+r"(d.v[28]), "+r"(d.v[29]), "+r"(d.v[30]), "+r"(d.v[31])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// tf32 x tf32 -> f32: D += A B with A (64 rows x 8 tf32) in registers, a
+// warp's 16 rows four words a thread (a0 row g col t, a1 row g + 8 col t,
+// a2 row g col t + 4, a3 row g + 8 col t + 4; g = lane / 4, t = lane % 4:
+// mma.m16n8k8's tf32 A fragment), and B (8 x 64 tf32) K-major in shared
+// memory (tf32 wgmma takes no other major order, and no transpose
+// arguments). The operands are f32 words whose low 13 bits the tensor
+// cores ignore; csrc/scan_mma.cuh rounds them to tf32 itself, so those
+// bits are zero.
+__device__ __forceinline__ void wgmma_tf32_rs(Acc<64>& d, const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3]), "+f"(d.v[4]), "+f"(d.v[5]), "+f"(d.v[6]), "+f"(d.v[7]),
+        "+f"(d.v[8]), "+f"(d.v[9]), "+f"(d.v[10]), "+f"(d.v[11]), "+f"(d.v[12]), "+f"(d.v[13]), "+f"(d.v[14]), "+f"(d.v[15]),
+        "+f"(d.v[16]), "+f"(d.v[17]), "+f"(d.v[18]), "+f"(d.v[19]), "+f"(d.v[20]), "+f"(d.v[21]), "+f"(d.v[22]), "+f"(d.v[23]),
+        "+f"(d.v[24]), "+f"(d.v[25]), "+f"(d.v[26]), "+f"(d.v[27]), "+f"(d.v[28]), "+f"(d.v[29]), "+f"(d.v[30]), "+f"(d.v[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 }  // namespace

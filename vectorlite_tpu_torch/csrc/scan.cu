@@ -2,9 +2,12 @@
 // kernels on the body in scan_kernel.cuh.
 //
 //   scan_topk_exact       (K1) replaces vectorlite_tpu/kernels/pallas_scan.py
-//                         _tile_kernel: exact top-k of each corpus tile.
+//                         _tile_kernel: exact top-k of each corpus tile,
+//                         for k > 32 (csrc/exact.cu serves k <= 32 on the
+//                         tensor-core body; kernels/scan.py exact_route).
 //   scan_topk_exact_int8  (K2) replaces pallas_scan.py _tile_kernel_int8:
-//                         K1 over int8 rows, dot scaled by the row's scale.
+//                         K1 over int8 rows, dot scaled by the row's scale
+//                         (k > 32, as K1).
 //   scan_block_topw       (K3) replaces pallas_scan.py _block_topw_kernel:
 //                         top-W of every lane group (tile rows = l mod 128).
 //   scan_topk_l1          (K4) replaces vectorlite_tpu/kernels/pallas_l1.py

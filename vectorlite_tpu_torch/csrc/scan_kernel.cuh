@@ -1,7 +1,8 @@
 // The CUDA-core body of the scan kernels for Hopper (sm_90a), shared by
-// csrc/scan.cu (K1, K2, K4, and K3 over f32 rows or W above 3) and
-// csrc/lanes.cu (K7 over f32 rows). K3 over bf16 and int8 rows, K7 over
-// bf16 rows and K8 run on the tensor-core body, scan_mma.cuh. A tiled f32
+// csrc/scan.cu (K1 and K2 at k > 32, K4, and K3 over f32 rows or W above
+// 3) and csrc/lanes.cu (K7 over f32 rows). K1 and K2 at k <= 32, K3 over
+// bf16 and int8 rows, K7 over bf16 rows and K8 run on the tensor-core
+// body, scan_mma.cuh. A tiled f32
 // contraction of a query block against a corpus tile (FMA dots, or |q - v|
 // sums for Manhattan), the similarity metric, the validity mask, and a
 // selection that never leaves the block, chosen at compile time

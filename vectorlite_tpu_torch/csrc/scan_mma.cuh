@@ -1,16 +1,20 @@
-// The tensor-core scan body for Hopper (sm_90a): f32 queries against bf16
-// or int8 rows on wgmma, with a per-(query, lane group) selection that
-// lives on the accumulators. csrc/lanes.cu runs on it K3 over bf16 and
-// int8 rows (scan_block_topw_bf16, scan_block_topw_s8), K7 over bf16 rows
-// (scan_merge_topw) and K8 (scan_fold_probe); the CUDA-core body of
-// scan_kernel.cuh keeps K1, K2, K4, and K3 and K7 over f32 rows.
+// The tensor-core scan body for Hopper (sm_90a): f32 queries against bf16,
+// int8 or f32 rows on wgmma, with a per-(query, lane group) selection that
+// lives on the accumulators, or a per-query top-k (TOPK, below).
+// csrc/lanes.cu runs on it K3 over bf16 and int8 rows
+// (scan_block_topw_bf16, scan_block_topw_s8), K7 over bf16 rows
+// (scan_merge_topw) and K8 (scan_fold_probe); csrc/exact.cu K1 over f32 and
+// bf16 rows (scan_topk_exact_tf32, scan_topk_exact_bf16) and K2
+// (scan_topk_exact_s8) at k <= 32. The CUDA-core body of scan_kernel.cuh
+// keeps K1 and K2 at k > 32, K4, and K3 and K7 over f32 rows.
 //
 // Bounds at the headline shape (2^20 x 384 rows, B = 256). bf16 rows: one
 // bf16 pass is 2 B N D = 206 GFLOP, 0.21 ms at 989 TFLOP/s, and the rows'
 // 805 MB take 0.24 ms at 3.35 TB/s; the f32 queries need three passes
 // (below), 0.63 ms of tensor work. int8 rows: three int8 passes of 206 G
-// operations at 1,979 TOP/s are 0.31 ms, the rows' 403 MB 0.12 ms. Both
-// forms are bound by operations.
+// operations at 1,979 TOP/s are 0.31 ms, the rows' 403 MB 0.12 ms. f32
+// rows: three tf32 passes at 494.7 TFLOP/s are 1.25 ms, the rows' 1.61 GB
+// 0.48 ms. All three forms are bound by operations.
 //
 // Precision, bf16 rows. The rows are exact bf16 operands. The wrapper
 // splits each f32 query into three bf16 terms, q = h + m + l exactly
@@ -41,6 +45,28 @@
 // holds the other routes. Scales stepping by 128 (powers of two, the later
 // terms within +-64) leave s1 2^-15, ~1.4e-5 (rms): above that rule for
 // scores near 0.
+//
+// Precision, f32 rows (3xTF32, K1). The wrapper splits each f32 query into
+// two tf32 terms, hi = rna(q) and lo = rna(q - hi) (kernels/scan_mma.py
+// split_query_tf32; rna: round to nearest, ties away, to 10 mantissa bits,
+// the low 13 bits zeroed: what cvt.rna.tf32.f32 gives), and the kernel
+// splits each row word the same way as it loads it from the staged tile
+// into registers (the wgmma's A), so nothing depends on what the tensor
+// cores do with the low 13 bits. With u = 2^-11, |q - hi| <= u |q| and |q - hi - lo| <= u^2
+// |q|; the three passes hi.hi + hi.lo + lo.hi drop lo.lo and the split's
+// residuals: at most 3.01 u^2 |q| |x| = 7.2e-7 |q| |x| a product, and each
+// product of two tf32 values is exact in f32. The hi.hi passes sum into one
+// accumulator and the two cross passes (smallest first) into a second,
+// added once a chunk, as over bf16 rows; the f32 accumulations bound the
+// rest, as they bound the plain f32 product (D additions of up to an ulp
+// each). The dots are held to the 1e-5 rule (scores within rtol/atol 1e-5,
+// ids equal beyond 1e-5 near-ties; chip_smoke.py, tests/test_torch_scan.py),
+// as the CUDA-core K1's plain f32 FMAs are; an emulation summed in float64
+// (tests/test_torch_scan.py) gives 1.47e-6 (rms) at D 384 and 2.10e-6 at
+// D 768 against float64, where the plain f32 product gives 4.9e-6 and
+// 8.2e-6 (N(0, 1) queries and rows), and stays within 3.01 u^2 sum |q||x|.
+// Truncating hi instead (the hardware's reading of a raw f32 word) gives
+// 6.8e-6 at D 384, above the plain product: the rows are rounded here.
 //
 // Design. The rows are the wgmma's M operand and the queries its N: a
 // block owns 64 queries and a run of rows, and walks it in 128-row chunks,
@@ -94,6 +120,44 @@
 // before the wgmma. Columns past D of the last slice are zero either way
 // (TMA fills them), as are the queries past B.
 //
+// TOPK (K1, K2: tile_topk_plain's [B, T, k], k <= 32). A lane-group list
+// cannot hold a query's top k, so after a chunk's last slice each
+// warpgroup writes its 64 rows x 64 queries of scores (metric and validity
+// applied) to its own 16 KB score tile in shared memory (row index XOR 8
+// ((query / 2) mod 4): the accumulator layout's writes and the per-query
+// reads both free of bank conflicts) and syncs its 128 threads; each warp
+// then merges its 16 queries' 2 scores a lane into each query's running
+// top k in registers (lane j holds entry j), by (score descending, row
+// ascending): a tile's first chunk by a bitonic sort of its 64 rows, later
+// chunks half by half, the rows that beat the k-th entry (a ballot) packed
+// in shared memory and inserted in turn by a shuffle of the list, four
+// queries interleaved. A query has two lists, one a warpgroup (rows 0-63
+// and 64-127 of each chunk); at the tile's end both go to shared memory
+// and each entry's place in the merged list is its index plus its rank in
+// the other list (a binary search: the lists hold distinct rows). Every
+// row of the tile enters (invalid ones at -inf, ordered by row), so a list
+// of k <= 64 rows a warpgroup is full and empty slots come out as the
+// plain version's stable sort gives them. The merge, not the contraction,
+// holds most of the time at k 32 (csrc/exact.cu, PERF.md): ~105 of a
+// list's 1,024 rows a tile enter it, and each insertion is a chain of
+// shuffles.
+//
+// f32 rows (TOPK only). A stage cannot carry the query terms a warpgroup
+// as over bf16 rows: two tf32 terms of 64 queries are 192 KB at D 384, and
+// streamed per warpgroup they would double the L2 reads of the terms. So
+// one ring serves both warpgroups: a stage holds the slice's two query
+// terms (16 KB) once and each warpgroup's 64 raw f32 rows (8 KB each), 32
+// KB in all: six stages beside the score tiles. The block's first thread
+// issues every copy of a stage, refilling a stage once both warpgroups
+// have arrived on its empty barrier (without waiting while the step it
+// needs next is issued). Each thread loads its A words of a k-step (rows g
+// and g + 8 of its warp's 16, columns t and t + 4) from the swizzled tile,
+// splits them into hi and lo in registers and issues wgmma m64n64k8 with
+// A from registers: the rows' split costs no shared-memory traffic, and
+// the tensor cores read only the query terms from shared memory. Over
+// rows TMA refuses (D not a multiple of 4) the words come from device
+// memory instead.
+//
 // Numbers: f32 only in the epilogue, IEEE division and sqrt, no fast math;
 // cosine multiplies by the norms' reciprocals (score_of).
 
@@ -115,19 +179,21 @@ constexpr int WG_ROWS = 64;              // a warpgroup's rows of a chunk: the w
 constexpr int CHUNK = 128;               // rows a chunk: lane groups 0-127
 constexpr int QN = 64;                   // queries a block: the wgmma's N
 constexpr int SLICE_BYTES = 128;         // bytes of a row a slice: one swizzled row
-constexpr int TERMS = 3;                 // terms a query
 constexpr int BOX = WG_ROWS * SLICE_BYTES;   // bytes of a warpgroup's rows of a slice
 constexpr int QSLICE = QN * SLICE_BYTES;     // bytes of one term's queries of a slice
 constexpr int LISTS = QN / 2;            // (query, lane group) lists a thread owns
 constexpr int MAX_STAGES = 8;
 constexpr int SMEM_MAX = 232448;         // Hopper's per-block shared-memory limit
+constexpr int TOPK_MAX = 32;             // TOPK: a list's entries, one a lane
+constexpr int WARP_QUERIES = QN / 4;     // TOPK: queries a warp merges
+constexpr int SCORE_BYTES = WG_ROWS * QN * 4;  // TOPK: a warpgroup's score tile
 
 // What a block keeps of each (query, lane group): its top W by (score
 // descending, row ascending) (K3, K7, K8 full), its W largest distinct
 // scores (K8 maxonly), or nothing: the tile's first chunk is written as it
 // is (K8 none; the wgmmas are volatile asm, so every chunk is contracted
-// all the same).
-enum Mode { TOPW = 0, DISTINCT = 1, FIRST = 2 };
+// all the same); or each query's top k of the tile (TOPK: K1, K2).
+enum Mode { TOPW = 0, DISTINCT = 1, FIRST = 2, TOPK = 3 };
 // TMA: rows staged by tensor copies (else by plain loads); RESIDENT: the
 // query terms stay in shared memory (else each stage carries its slice's);
 // GROUP_ROW: an empty TOPW slot names its lane group's first row of the
@@ -140,18 +206,32 @@ enum Flags {
 };
 enum Metric { COSINE = 0, EUCLIDEAN = 1, DOT = 2 };
 
-// The row element types: bf16 (as its bits) and int8.
+// The row element types: bf16 (as its bits), int8 and f32. QTERMS: terms
+// a query is split into; SPLIT: the staged rows are split into hi and lo
+// tf32 words as they load into registers (the wgmma's A), and one ring
+// serves both warpgroups.
 template <typename T>
 struct Rows;
 template <>
 struct Rows<uint16_t> {
   static constexpr int BYTES = 2;
+  static constexpr int QTERMS = 3;
+  static constexpr bool SPLIT = false;
   static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 };
 template <>
 struct Rows<int8_t> {
   static constexpr int BYTES = 1;
+  static constexpr int QTERMS = 3;
+  static constexpr bool SPLIT = false;
   static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // TMA copies the bytes
+};
+template <>
+struct Rows<float> {
+  static constexpr int BYTES = 4;
+  static constexpr int QTERMS = 2;
+  static constexpr bool SPLIT = true;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
 
 // A chunk's three passes and their sums, by row type. bf16: the h term's
@@ -212,23 +292,131 @@ struct Dots<int8_t> {
     return (t * qscale) * rscale;
   }
 };
-
-struct Layout {
-  size_t ring;   // offset of warpgroup 0's ring (the resident query terms come first)
-  size_t stage;  // bytes of a stage
-  size_t qnorm;  // [3][QN] f32: the block's query squared norms, 1 / the norms, term scales
-  size_t bars;   // 2 x stages full barriers, then the query terms' barrier
-  size_t bytes;  // dynamic shared memory, with the slack to align the base to 1 KB
+// f32 rows: the rows' hi and lo words of a k-step in registers (ah, al),
+// the queries' hi term at db, their lo term QSLICE bytes on. hi.hi into
+// hi, the cross products into lo.
+template <>
+struct Dots<float> {
+  Acc<QN> hi, lo;
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < QN / 2; ++i) hi.v[i] = lo.v[i] = 0.0f;
+  }
+  __device__ __forceinline__ void hold_all() {
+#pragma unroll
+    for (int i = 0; i < QN / 2; ++i) {
+      hold(hi.v[i]);
+      hold(lo.v[i]);
+    }
+  }
+  __device__ __forceinline__ void mma(const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                      uint64_t db, int kk) {
+    wgmma_tf32_rs(lo, al, db + 2 * kk);
+    wgmma_tf32_rs(lo, ah, db + (QSLICE >> 4) + 2 * kk);
+    wgmma_tf32_rs(hi, ah, db + 2 * kk);
+  }
+  __device__ __forceinline__ float dot(int i, float, float) const { return hi.v[i] + lo.v[i]; }
 };
 
-__host__ __device__ inline Layout layout_for(int slices, bool resident, int stages) {
+// rna(x) to tf32 (round to nearest, ties away from zero, the low 13 bits
+// zero), as an f32 word: cvt.rna.tf32.f32's rounding, written in integer
+// arithmetic so that kernels/scan_mma.py round_tf32 gives the same bits.
+__device__ __forceinline__ uint32_t round_tf32(uint32_t x) {
+  return (x + 0x1000u) & 0xffffe000u;
+}
+
+// A staged f32 word split into its hi and lo tf32 words: x - hi is exact.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(__float_as_uint(__uint_as_float(x) - __uint_as_float(hi)));
+}
+
+struct Layout {
+  size_t ring;    // offset of warpgroup 0's ring (the resident query terms come first)
+  size_t stage;   // bytes of a stage
+  size_t scores;  // TOPK: [2][QN][WG_ROWS] f32, each warpgroup's score tile
+  size_t qnorm;   // [3][QN] f32: the block's query squared norms, 1 / the norms, term scales
+  size_t bars;    // 2 x stages full barriers (SPLIT: stages full, stages empty), then the
+                  // query terms' barrier
+  size_t bytes;   // dynamic shared memory, with the slack to align the base to 1 KB
+};
+
+// A warpgroup's ring (bf16, int8 rows): a stage is its 64 rows of a slice,
+// then (unless resident) the slice's query terms. The shared ring (SPLIT):
+// a stage is the slice's query terms, then each warpgroup's 64 rows.
+template <typename T>
+__host__ __device__ inline Layout layout_for(int slices, bool resident, int stages, bool topk) {
+  constexpr size_t QBYTES = static_cast<size_t>(Rows<T>::QTERMS) * QSLICE;
   Layout l;
-  l.ring = resident ? static_cast<size_t>(slices) * TERMS * QSLICE : 0;
-  l.stage = BOX + (resident ? 0 : TERMS * QSLICE);
-  l.qnorm = l.ring + 2 * stages * l.stage;
+  l.ring = resident ? static_cast<size_t>(slices) * QBYTES : 0;
+  if (Rows<T>::SPLIT) {
+    l.stage = QBYTES + 2 * BOX;
+    l.scores = l.ring + stages * l.stage;
+  } else {
+    l.stage = BOX + (resident ? 0 : QBYTES);
+    l.scores = l.ring + 2 * stages * l.stage;
+  }
+  l.qnorm = l.scores + (topk ? 2 * SCORE_BYTES : 0);
   l.bars = l.qnorm + 3 * QN * sizeof(float);
   l.bytes = l.bars + (2 * stages + 1) * 8 + 1024;
   return l;
+}
+
+// TOPK: the score tile's word of query ql, row r of the warpgroup's 64.
+__device__ __forceinline__ int score_at(int ql, int r) {
+  return ql * WG_ROWS + (r ^ (((ql >> 1) & 3) << 3));
+}
+
+// (s1, r1) precedes (s2, r2): higher score first, lower row on ties.
+__device__ __forceinline__ bool precedes(float s1, int r1, float s2, int r2) {
+  return s1 > s2 || (s1 == s2 && r1 < r2);
+}
+
+// TOPK: (s, r) into a sorted list of a warp, lane j holding entry j (lanes
+// past the list's length hold what they will): entries that precede it
+// stay, the entry it displaces and those after move one lane up. A pair
+// that precedes no entry leaves the list as it is.
+__device__ __forceinline__ void insert_entry(float& ls, int& lr, float s, int r, int lane) {
+  const float up_s = __shfl_up_sync(0xffffffffu, ls, 1);
+  const int up_r = __shfl_up_sync(0xffffffffu, lr, 1);
+  const bool stay = precedes(ls, lr, s, r);
+  const bool here = lane == 0 || precedes(up_s, up_r, s, r);
+  ls = stay ? ls : (here ? s : up_s);
+  lr = stay ? lr : (here ? r : up_r);
+}
+
+// TOPK: one compare-exchange step (run `size`, distance d) of a bitonic
+// sort of a warp's 64 (score, row) pairs by (score descending, row
+// ascending), element e in lane e % 32 (e < 32: s0/r0, else s1/r1):
+// partners in one lane at distance 32, across lanes by shuffles below it.
+// The lower element of a pair takes the better one in a descending run (e
+// & size == 0), the worse one in an ascending run. The 21 steps of size 2,
+// 4, ..., 64 and d size / 2, ..., 1 sort the 64.
+__device__ __forceinline__ void sort_step(float& s0, int& r0, float& s1, int& r1, int size,
+                                          int d, int lane) {
+  if (d == 32) {  // size 64: element e before element e + 32
+    const bool swap = !precedes(s0, r0, s1, r1);
+    const float ts = s0;
+    const int tr = r0;
+    s0 = swap ? s1 : s0;
+    r0 = swap ? r1 : r0;
+    s1 = swap ? ts : s1;
+    r1 = swap ? tr : r1;
+    return;
+  }
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    float& s = jj ? s1 : s0;
+    int& r = jj ? r1 : r0;
+    const int e = jj * 32 + lane;
+    const float os = __shfl_xor_sync(0xffffffffu, s, d);
+    const int orow = __shfl_xor_sync(0xffffffffu, r, d);
+    const bool better = ((e & d) == 0) == ((e & size) == 0);
+    if (precedes(os, orow, s, r) == better) {
+      s = os;
+      r = orow;
+    }
+  }
 }
 
 // Shared-memory matrix descriptor of a K-major operand in the 128-byte
@@ -316,14 +504,14 @@ __device__ __forceinline__ void list_update(float (&ls)[W][LISTS], Ids<W>& ids, 
 // A block: 64 queries (blockIdx.x) x a run of tiles (blockIdx.y: tiles
 // blockIdx.y * tiles_per_block on, one without F_WALK), into out_s/out_i
 // [n_tiles, B, n_out] or, with F_QUERY_MAJOR, [B, n_tiles, n_out] (n_out =
-// 128 for FIRST, W * 128 otherwise, position w * 128 + lane group). K8
-// passes no qsq, sqnorms or validity (dot, every row valid); only int8 rows
-// have scales and query term scales.
+// 128 for FIRST, W * 128 otherwise, position w * 128 + lane group; TOPK
+// writes [B, n_tiles, k]). K8 passes no qsq, sqnorms or validity (dot,
+// every row valid); only int8 rows have scales and query term scales.
 template <typename T, int MODE, int W>
 __global__ void __launch_bounds__(THREADS, 1)
 lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
              const T* __restrict__ values,                   // [N, D] (plain loads)
-             const uint8_t* __restrict__ q_img,   // [B/64, S, 3, 64, 128 bytes], swizzled
+             const uint8_t* __restrict__ q_img,   // [B/64, S, terms, 64, 128 bytes], swizzled
              const float* __restrict__ q_scale,   // [B] (int8) or null
              const float* __restrict__ qsq,       // [B] or null
              const float* __restrict__ scales,    // [N] (int8) or null
@@ -331,12 +519,14 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
              const uint8_t* __restrict__ valid,   // [N] or null
              float* __restrict__ out_s, int* __restrict__ out_i,
              int d, int b, int tile_n, int n_tiles, int tiles_per_block, int metric,
-             int slices, int stages, int flags) {
+             int slices, int stages, int flags, int k) {
+  constexpr bool SPLIT = Rows<T>::SPLIT;
+  constexpr int QBYTES = Rows<T>::QTERMS * QSLICE;
   extern __shared__ __align__(16) uint8_t body_smem[];
   uint8_t* smem = body_smem + ((1024 - (smem_addr(body_smem) & 1023)) & 1023);
   const bool tma = flags & F_TMA;
   const bool resident = flags & F_RESIDENT;
-  const Layout lay = layout_for(slices, resident, stages);
+  const Layout lay = layout_for<T>(slices, resident, stages, MODE == TOPK);
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -352,17 +542,25 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
   const int tile_chunks = tile_n / CHUNK;
   const int steps = my_tiles * tile_chunks * slices;
 
-  uint8_t* ring = smem + lay.ring + static_cast<size_t>(wg) * stages * lay.stage;
+  // SPLIT: one ring for both warpgroups, full barriers then empty ones
+  uint8_t* ring = smem + lay.ring + (SPLIT ? 0 : static_cast<size_t>(wg) * stages * lay.stage);
   float* qn = reinterpret_cast<float*>(smem + lay.qnorm);  // qsq, 1 / |q|, term scale
   const uint32_t bars = smem_addr(smem + lay.bars);
-  const uint32_t full0 = bars + 8 * wg * stages;
+  const uint32_t full0 = bars + (SPLIT ? 0 : 8 * wg * stages);
+  const uint32_t empty0 = bars + 8 * stages;  // SPLIT
   const uint32_t img_bar = bars + 8 * 2 * stages;
-  const uint32_t stage_tx = (tma ? BOX : 0) + (resident ? 0 : TERMS * QSLICE);
-  const size_t img_bytes = static_cast<size_t>(slices) * TERMS * QSLICE;
+  const uint32_t stage_tx = SPLIT ? QBYTES + (tma ? 2 * BOX : 0)
+                                  : (tma ? BOX : 0) + (resident ? 0 : QBYTES);
+  const size_t img_bytes = static_cast<size_t>(slices) * QBYTES;
   const uint8_t* img = q_img + blockIdx.x * img_bytes;
+  // this warpgroup's rows in stage st
+  auto rows_at = [&](int st) {
+    return ring + static_cast<size_t>(st) * lay.stage + (SPLIT ? QBYTES + wg * BOX : 0);
+  };
 
   if (tid == 0) {
-    for (int i = 0; i < 2 * stages + 1; ++i) mbar_init(bars + 8 * i, 1);
+    for (int i = 0; i < 2 * stages + 1; ++i)
+      mbar_init(bars + 8 * i, SPLIT && i >= stages && i < 2 * stages ? 2 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (tid < QN) {
@@ -374,13 +572,23 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
   }
   __syncthreads();
 
-  // step j = chunk j / slices of the run, slice j % slices, into stage j % stages
+  // step j = chunk j / slices of the run, slice j % slices, into stage j %
+  // stages (SPLIT: the block's first thread, for both warpgroups)
   auto issue = [&](int j) {
     if (stage_tx == 0) return;
     const int st = j % stages;
     const int s = j % slices;
     const uint32_t bar = full0 + 8 * st;
     const uint32_t dst = smem_addr(ring + st * lay.stage);
+    if constexpr (SPLIT) {
+      const long long row0 = run_base + static_cast<long long>(j / slices) * CHUNK;
+      mbar_expect_tx(bar, stage_tx);
+      bulk_load(dst, img + static_cast<size_t>(s) * QBYTES, QBYTES, bar);
+      for (int w = 0; tma && w < 2; ++w)
+        tma_load_2d(dst + QBYTES + w * BOX, &rows_map, s * (SLICE_BYTES / Rows<T>::BYTES),
+                    static_cast<int>(row0 + w * WG_ROWS), bar);
+      return;
+    }
     mbar_expect_tx(bar, stage_tx);
     if (tma)
       tma_load_2d(dst, &rows_map, s * (SLICE_BYTES / Rows<T>::BYTES),
@@ -388,7 +596,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
                                    wg * WG_ROWS),
                   bar);
     if (!resident)
-      bulk_load(dst + BOX, img + static_cast<size_t>(s) * TERMS * QSLICE, TERMS * QSLICE, bar);
+      bulk_load(dst + BOX, img + static_cast<size_t>(s) * QBYTES, QBYTES, bar);
   };
   // the staging path for rows TMA refuses: this warpgroup's 64 rows of the
   // slice by plain loads, swizzled as TMA would, then fenced to the async
@@ -396,7 +604,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
   auto copy_rows = [&](int j) {
     const int c = j / slices;
     const int s = j % slices;
-    uint8_t* dst = ring + (j % stages) * lay.stage;
+    uint8_t* dst = rows_at(j % stages);
     const long long row0 = run_base + static_cast<long long>(c) * CHUNK + wg * WG_ROWS;
     const size_t row_bytes = static_cast<size_t>(d) * Rows<T>::BYTES;
     const uint8_t* vb = reinterpret_cast<const uint8_t*>(values);
@@ -415,12 +623,57 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
   };
+  // SPLIT (the block's first thread): issue the steps whose stage both
+  // warpgroups have released, up to step j + stages - 1, waiting only when
+  // step j itself is not issued yet
+  int issued = min(stages, steps);
+  auto refill = [&](int j) {
+    while (issued < steps && issued < j + stages) {
+      const int prev = issued - stages;  // the step that held the stage
+      const uint32_t e = empty0 + 8 * (prev % stages);
+      const uint32_t parity = (prev / stages) & 1;
+      if (issued > j) {
+        if (!mbar_test_wait(e, parity)) break;
+      } else {
+        mbar_wait(e, parity);
+      }
+      issue(issued++);
+    }
+  };
+  // SPLIT: this thread's A words of step j (rows ra and ra + 8 of the
+  // warpgroup's 64, columns 8 kk + t and + 4: wgmma_tf32_rs's fragment)
+  // from the staged tile (swizzled as TMA left it) or, where TMA refuses
+  // the rows, from device memory; each split into its hi and lo tf32 words
+  auto load_a = [&](int j, uint32_t (&ah)[4][4], uint32_t (&al)[4][4]) {
+    const int ra = warp * 16 + g;
+    const uint8_t* tile = rows_at(j % stages);
+    const long long row0 = run_base + static_cast<long long>(j / slices) * CHUNK + wg * WG_ROWS;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // a0..a3: row ra + 8 (e & 1), column + 4 (e >> 1)
+        const int r = ra + 8 * (e & 1);
+        uint32_t x;
+        if (tma) {
+          const int chunk = 2 * kk + (e >> 1);
+          x = *reinterpret_cast<const uint32_t*>(tile + r * SLICE_BYTES +
+                                                  ((chunk ^ (r & 7)) << 4) + 4 * t);
+        } else {
+          const int col = (j % slices) * (SLICE_BYTES / 4) + 8 * kk + 4 * (e >> 1) + t;
+          x = col < d ? __float_as_uint(
+                            reinterpret_cast<const float*>(values)[(row0 + r) * d + col])
+                      : 0u;
+        }
+        split_tf32(x, ah[kk][e], al[kk][e]);
+      }
+    }
+  };
 
   if (tid == 0 && resident) {
     mbar_expect_tx(img_bar, static_cast<uint32_t>(img_bytes));
     bulk_load(smem_addr(smem), img, static_cast<uint32_t>(img_bytes), img_bar);
   }
-  if (wtid == 0)
+  if (SPLIT ? tid == 0 : wtid == 0)
     for (int j = 0; j < stages && j < steps; ++j) issue(j);
   __syncwarp();
   if (resident) mbar_wait(img_bar, 0);
@@ -430,12 +683,25 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
   const int lg = wg * WG_ROWS + warp * 16 + g;
   float ls[W][LISTS];
   Ids<W> ids;
+  // TOPK: entry `lane` of the top k of queries q0 + 16 warp + i (i < 16)
+  // over this warpgroup's rows of the tile
+  float ks[WARP_QUERIES];
+  int kr[WARP_QUERIES];
+  float* const score_tile = reinterpret_cast<float*>(smem + lay.scores);
   auto reset = [&]() {
+    if constexpr (MODE == TOPK) {
 #pragma unroll
-    for (int L = 0; L < LISTS; ++L) {
+      for (int i = 0; i < WARP_QUERIES; ++i) {
+        ks[i] = -CUDART_INF_F;
+        kr[i] = 0x7fffffff;
+      }
+    } else {
 #pragma unroll
-      for (int w = 0; w < W; ++w) ls[w][L] = -CUDART_INF_F;
-      ids.v[L] = 0;
+      for (int L = 0; L < LISTS; ++L) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) ls[w][L] = -CUDART_INF_F;
+        ids.v[L] = 0;
+      }
     }
   };
   auto out_at = [&](int tile, int q, int n_out) {
@@ -479,6 +745,148 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
       }
     }
   };
+  // TOPK: the chunk's 64 rows (from row0) of this warpgroup's score tile
+  // into the warp's 16 queries' lists, four queries at a time so that
+  // their steps overlap (each query's are a chain of shuffles). A tile's
+  // first chunk: a bitonic sort of each query's 64 (score, row) pairs, two
+  // a lane, whose first k are the list. Later chunks, a half (32 rows) at a
+  // time: the rows that beat the k-th entry (a ballot) are packed into the
+  // query's row of the score tile (read already) and inserted in turn
+  // (insert_entry). The per-candidate work is the cost here (~105
+  // candidates a list a tile at k 32 and 2,048 rows, ~53 at k 16), so it
+  // is kept to two shared-memory reads and one insertion. The loop over
+  // the groups is not unrolled (one copy of its body: the sort alone is
+  // ~600 instructions); the lists rotate through ks[0..3] / kr[0..3].
+  auto topk_merge = [&](int row0, bool first) {
+    float* sc = score_tile + wg * (QN * WG_ROWS);
+    constexpr int G = 4;
+#pragma unroll 1
+    for (int i = 0; i < WARP_QUERIES; i += G) {
+      float s0[G], s1[G];
+      int r0[G], r1[G];
+      bool live[G];
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int ql = warp * WARP_QUERIES + i + u;
+        live[u] = q0 + ql < b;
+        s0[u] = sc[score_at(ql, lane)];
+        s1[u] = sc[score_at(ql, lane + 32)];
+        r0[u] = row0 + lane;
+        r1[u] = row0 + lane + 32;
+      }
+      if (first) {
+#pragma unroll 1
+        for (int size = 2; size <= 64; size <<= 1) {
+#pragma unroll 1
+          for (int d = size >> 1; d > 0; d >>= 1) {
+#pragma unroll
+            for (int u = 0; u < G; ++u) sort_step(s0[u], r0[u], s1[u], r1[u], size, d, lane);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+          ks[u] = s0[u];
+          kr[u] = r0[u];
+        }
+      } else {
+        // each half of the chunk in turn (the second against the k-th
+        // entries the first left): its candidates packed into the query's
+        // row of the score tile (read already), then inserted in order
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          int n[G];
+#pragma unroll
+          for (int u = 0; u < G; ++u) {
+            const float kth_s = __shfl_sync(0xffffffffu, ks[u], k - 1);
+            const int kth_r = __shfl_sync(0xffffffffu, kr[u], k - 1);
+            const float x = half ? s1[u] : s0[u];
+            const int xr = half ? r1[u] : r0[u];
+            const bool in = live[u] && precedes(x, xr, kth_s, kth_r);
+            const unsigned m = __ballot_sync(0xffffffffu, in);
+            n[u] = __popc(m);
+            float* ts = sc + (warp * WARP_QUERIES + i + u) * WG_ROWS;
+            const int at = __popc(m & ((1u << lane) - 1));
+            if (in) {
+              ts[at] = x;
+              reinterpret_cast<int*>(ts)[TOPK_MAX + at] = xr;
+            }
+          }
+          __syncwarp();
+          int most = 0;
+#pragma unroll
+          for (int u = 0; u < G; ++u) most = max(most, n[u]);
+          for (int j = 0; j < most; ++j) {
+            // a query without a j-th candidate inserts (-inf, INT_MAX),
+            // which precedes no entry
+#pragma unroll
+            for (int u = 0; u < G; ++u) {
+              const float* ts = sc + (warp * WARP_QUERIES + i + u) * WG_ROWS;
+              const bool have = j < n[u];
+              const float x = ts[have ? j : 0];
+              const int xr = reinterpret_cast<const int*>(ts)[TOPK_MAX + (have ? j : 0)];
+              insert_entry(ks[u], kr[u], have ? x : -CUDART_INF_F, have ? xr : 0x7fffffff,
+                           lane);
+            }
+          }
+          __syncwarp();
+        }
+      }
+      // the next group's lists into ks[0..3] / kr[0..3]
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const float s_ = ks[u];
+        const int r_ = kr[u];
+#pragma unroll
+        for (int v = u; v + G < WARP_QUERIES; v += G) {
+          ks[v] = ks[v + G];
+          kr[v] = kr[v + G];
+        }
+        ks[WARP_QUERIES - G + u] = s_;
+        kr[WARP_QUERIES - G + u] = r_;
+      }
+    }
+  };
+  // TOPK: the two warpgroups' lists of the tile merged into [B, T, k]: each
+  // entry goes to its index plus the number of the other list's entries
+  // that precede it (the lists hold distinct rows, each sorted)
+  auto topk_flush = [&](int tile) {
+    float* mine_s = score_tile + wg * (QN * WG_ROWS);  // [QN][32] scores, then rows
+    int* mine_r = reinterpret_cast<int*>(mine_s + QN * TOPK_MAX);
+#pragma unroll
+    for (int i = 0; i < WARP_QUERIES; ++i) {
+      const int ql = warp * WARP_QUERIES + i;
+      mine_s[ql * TOPK_MAX + lane] = ks[i];
+      mine_r[ql * TOPK_MAX + lane] = kr[i];
+    }
+    __syncthreads();
+    const float* other_s = score_tile + (1 - wg) * (QN * WG_ROWS);
+    const int* other_r = reinterpret_cast<const int*>(other_s + QN * TOPK_MAX);
+#pragma unroll
+    for (int i = 0; i < WARP_QUERIES; ++i) {
+      const int ql = warp * WARP_QUERIES + i;
+      const int q = q0 + ql;
+      if (q >= b) break;  // warp-uniform
+      if (lane < k) {
+        const float s = ks[i];
+        const int r = kr[i];
+        int lo = 0, hi = k;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (precedes(other_s[ql * TOPK_MAX + mid], other_r[ql * TOPK_MAX + mid], s, r))
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        const int pos = lane + lo;
+        if (pos < k) {
+          const size_t o = (static_cast<size_t>(q) * n_tiles + tile) * k + pos;
+          out_s[o] = s;
+          out_i[o] = r;
+        }
+      }
+    }
+    __syncthreads();  // the score tiles are free again
+  };
 
   const uint32_t img_s = smem_addr(smem);
   Dots<T> acc;
@@ -491,17 +899,48 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
       for (int s = 0; s < slices; ++s) {
         const int j = c * slices + s;
         const int st = j % stages;
+        if constexpr (SPLIT) {
+          // the shared ring: the A words to registers, the stage released
+          // as soon as this warpgroup's wgmmas have read its query terms
+          // (a second set of A words, to load the next step's during this
+          // step's wgmmas, took ~90 more registers and ran slower)
+          if (tid == 0) refill(j);
+          __syncwarp();
+          mbar_wait(full0 + 8 * st, (j / stages) & 1);
+          uint32_t ah[4][4], al[4][4];
+          load_a(j, ah, al);
+          uint64_t db = sw128_desc(smem_addr(ring + st * lay.stage));
+          hold(db);
+          acc.hold_all();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              hold(ah[kk][e]);
+              hold(al[kk][e]);
+            }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) acc.mma(ah[kk], al[kk], db, kk);
+          wgmma_commit();
+          wgmma_wait<0>();  // the A words are live until the group completes
+          if (wtid == 0) mbar_arrive(empty0 + 8 * st);
+          __syncwarp();
+          continue;
+        }
         if (!tma) copy_rows(j);
         if (stage_tx != 0) mbar_wait(full0 + 8 * st, (j / stages) & 1);
-        const uint32_t a = smem_addr(ring + st * lay.stage);
+        const uint32_t a = smem_addr(rows_at(st));
         uint64_t da = sw128_desc(a);
-        uint64_t db = sw128_desc(resident ? img_s + s * TERMS * QSLICE : a + BOX);
+        uint64_t db = sw128_desc(resident ? img_s + s * QBYTES : a + BOX);
         hold(da);
         hold(db);
         acc.hold_all();
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) acc.mma(da, db, kk);
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (!SPLIT) acc.mma(da, db, kk);
+        }
         wgmma_commit();
         // the previous step's group has completed: refill its stage
         wgmma_wait<1>();
@@ -545,6 +984,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
         if (valid != nullptr) ok[h] = valid[row + 8 * h] != 0;
       }
       const float inv[2] = {inv_norm(sq[0]), inv_norm(sq[1])};
+      float* sc = score_tile + wg * (QN * WG_ROWS);
 #pragma unroll
       for (int L = 0; L < LISTS; ++L) {
         const int h = (L >> 1) & 1;
@@ -552,10 +992,22 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
         float s = dot[L];
         if (metric != DOT) s = score_of(s, qn[ql], qn[QN + ql], sq[h], inv[h], metric);
         if (!ok[h]) s = -CUDART_INF_F;
-        list_update<MODE, W>(ls, ids, L, s, static_cast<uint32_t>(cl));
+        if constexpr (MODE == TOPK)
+          sc[score_at(ql, warp * 16 + g + 8 * h)] = s;
+        else
+          list_update<MODE, W>(ls, ids, L, s, static_cast<uint32_t>(cl));
+      }
+      if constexpr (MODE == TOPK) {
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+        topk_merge(static_cast<int>(run_base + static_cast<long long>(c) * CHUNK) + wg * WG_ROWS,
+                   cl == 0);
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
       }
     }
-    if (MODE != FIRST) flush(tile);
+    if constexpr (MODE == TOPK)
+      topk_flush(tile);
+    else if (MODE != FIRST)
+      flush(tile);
   }
 }
 
@@ -596,29 +1048,46 @@ inline int walk_tiles(int n_tiles, int q_blocks) {
   return static_cast<int>((units + sms - 1) / sms);
 }
 
-// One launch over bf16 (T = uint16_t) or int8 rows [n, d]: mode and W
-// choose the instantiation; metric is applied with qsq/sqnorms (null for a
-// dot). Returns the CUDA error of the launch.
+// The shared-memory plan of a launch over rows of width d: whether the
+// query terms stay resident (never over f32 rows) and the ring's stages, the
+// most that fit (0 if not even 2 do).
+template <typename T, int MODE>
+int plan_stages(int d, bool* resident) {
+  const int slices = (d * Rows<T>::BYTES + SLICE_BYTES - 1) / SLICE_BYTES;
+  constexpr bool topk = MODE == TOPK;
+  int stages = MAX_STAGES;
+  *resident = !Rows<T>::SPLIT;
+  if (*resident) {
+    while (stages >= 2 && layout_for<T>(slices, true, stages, topk).bytes > SMEM_MAX) --stages;
+    if (stages < 2) *resident = false;
+  }
+  if (!*resident) {
+    stages = MAX_STAGES;
+    while (stages >= 2 && layout_for<T>(slices, false, stages, topk).bytes > SMEM_MAX) --stages;
+  }
+  return stages < 2 ? 0 : stages;
+}
+
+// One launch over bf16 (T = uint16_t), int8 or (TOPK only) f32 rows [n,
+// d]: mode and W choose the instantiation; metric is applied with
+// qsq/sqnorms (null for a dot); k is TOPK's list length. Returns the CUDA
+// error of the launch.
 template <typename T, int MODE, int W>
 int launch(const void* values, const void* q_img, const float* q_scale, const float* qsq,
            const float* scales, const float* sqnorms, const uint8_t* valid, float* out_s,
            int* out_i, int n, int d, int b, int tile_n, int metric, int flags,
-           cudaStream_t stream) {
+           cudaStream_t stream, int k = 0) {
+  static_assert(!Rows<T>::SPLIT || MODE == TOPK, "f32 rows have the TOPK mode only");
   if (n <= 0 || d <= 0 || b <= 0 || tile_n <= 0 || tile_n % CHUNK || n % tile_n)
     return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (MODE != FIRST && W > 1) {
+  if constexpr (MODE != FIRST && MODE != TOPK && W > 1) {
     if (tile_n / CHUNK > (1 << Ids<W>::BITS)) return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (MODE == TOPK && (k < 1 || k > TOPK_MAX)) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int BYTES = Rows<T>::BYTES;
   const int slices = (d * BYTES + SLICE_BYTES - 1) / SLICE_BYTES;
   bool resident = true;
-  int stages = MAX_STAGES;
-  while (stages >= 2 && layout_for(slices, true, stages).bytes > SMEM_MAX) --stages;
-  if (stages < 2) {
-    resident = false;
-    stages = MAX_STAGES;
-    while (stages >= 2 && layout_for(slices, false, stages).bytes > SMEM_MAX) --stages;
-  }
+  const int stages = plan_stages<T, MODE>(d, &resident);
   if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
@@ -641,7 +1110,7 @@ int launch(const void* values, const void* q_img, const float* q_scale, const fl
   const int n_tiles = n / tile_n;
   const int q_blocks = (b + QN - 1) / QN;
   const int per_block = (flags & F_WALK) ? walk_tiles(n_tiles, q_blocks) : 1;
-  const size_t smem = layout_for(slices, resident, stages).bytes;
+  const size_t smem = layout_for<T>(slices, resident, stages, MODE == TOPK).bytes;
   auto kernel = lanes_kernel<T, MODE, W>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
@@ -650,7 +1119,7 @@ int launch(const void* values, const void* q_img, const float* q_scale, const fl
   kernel<<<grid, THREADS, smem, stream>>>(
       map, static_cast<const T*>(values), static_cast<const uint8_t*>(q_img), q_scale, qsq,
       scales, sqnorms, valid, out_s, out_i, d, b, tile_n, n_tiles, per_block, metric, slices,
-      stages, flags);
+      stages, flags, k);
   return static_cast<int>(cudaGetLastError());
 }
 

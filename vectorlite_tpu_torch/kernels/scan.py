@@ -5,9 +5,14 @@ Port of ``vectorlite_tpu/kernels/pallas_scan.py`` and
 reference's names and contracts so the two packages read side by side:
 
 * ``pallas_search_topk`` / ``pallas_search_topk_int8`` — exact top-k
-  without a ``[B, N]`` intermediate: kernel K1 / K2
-  (``csrc/scan.cu`` ``scan_topk_exact`` / ``scan_topk_exact_int8``) keeps
-  each tile's top-k, a stable sort merges the tiles.
+  without a ``[B, N]`` intermediate: kernel K1 / K2 keeps each tile's
+  top-k, a stable sort merges the tiles. Up to k = 32 they run on the
+  tensor-core body's per-query top-k mode (``csrc/exact.cu``: f32 rows
+  ``scan_topk_exact_tf32``, three tf32 passes of the split queries and
+  rows; bf16 rows ``scan_topk_exact_bf16``; int8 rows
+  ``scan_topk_exact_s8``), beyond it on the CUDA-core body
+  (``csrc/scan.cu`` ``scan_topk_exact`` / ``scan_topk_exact_int8``): the
+  route is decided before any launch (``exact_route``).
 * ``pallas_search_block_topk`` / ``pallas_search_block_topk_int8`` —
   lane-group top-W candidate selection: kernel K3 keeps, per tile and per
   lane group l (the rows ``l mod 128`` of the tile), the W best rows; a
@@ -94,6 +99,18 @@ SCAN_BLOCK_TOPW_BF16 = _build.Kernel(
 SCAN_TOPK_L1 = _build.Kernel(
     "scan", "scan_topk_l1",
     [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_EXACT_TF32 = _build.Kernel(
+    "exact", "scan_topk_exact_tf32",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_EXACT_BF16 = _build.Kernel(
+    "exact", "scan_topk_exact_bf16",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_EXACT_S8 = _build.Kernel(
+    "exact", "scan_topk_exact_s8",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
 
 
@@ -207,11 +224,30 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+#: the longest per-tile list the tensor-core body's TOPK mode keeps (one
+#: entry a lane of a warp)
+MMA_MAX_K = 32
+
+
+def exact_route(dtype, k, metric=SimilarityMetric.COSINE):
+    """The per-tile top-k kernel for rows of ``dtype``, lists of ``k`` and
+    ``metric``: manhattan K4 (CUDA-core body, f32/bf16 rows); up to
+    ``MMA_MAX_K`` the tensor-core body's TOPK mode (f32 rows: 3xTF32, bf16
+    rows, int8 rows: K2); beyond it the CUDA-core K1 (f32/bf16) or K2."""
+    if metric is SimilarityMetric.MANHATTAN:
+        return SCAN_TOPK_L1
+    if k <= MMA_MAX_K:
+        return {torch.float32: SCAN_TOPK_EXACT_TF32, torch.bfloat16: SCAN_TOPK_EXACT_BF16,
+                torch.int8: SCAN_TOPK_EXACT_S8}[dtype]
+    return SCAN_TOPK_EXACT_INT8 if dtype == torch.int8 else SCAN_TOPK_EXACT
+
+
 def tile_topk_cuda(
     values, scales, sqnorms, valid, queries, *, metric, k_tile, tile_n
 ):
     """K1 (f32/bf16 rows), K2 (int8 rows + scales) or, for manhattan, K4
-    (f32/bf16 rows): same outputs as ``tile_topk_plain``."""
+    (f32/bf16 rows) on the kernel ``exact_route`` names: same outputs as
+    ``tile_topk_plain``."""
     int8 = values.dtype == torch.int8
     l1 = metric is SimilarityMetric.MANHATTAN
     if int8 and scales is None:
@@ -231,6 +267,30 @@ def tile_topk_cuda(
     dev = values.device
     out_s = torch.empty((b, n // tile_n, k_tile), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, n // tile_n, k_tile), dtype=torch.int32, device=dev)
+    kernel = exact_route(values.dtype, k_tile, metric)
+    metric_code = _METRIC_CODE.get(metric)
+    if kernel is SCAN_TOPK_EXACT_S8:
+        q_op, q_scale = scan_mma.query_operand_int8(queries)
+        with torch.cuda.device(dev):
+            kernel.launch(
+                q_op.data_ptr(), q_scale.data_ptr(), qsq.data_ptr(), values.data_ptr(),
+                scales.data_ptr(), sqnorms.data_ptr(), valid.data_ptr(),
+                out_s.data_ptr(), out_i.data_ptr(),
+                n, d, b, k_tile, tile_n, metric_code, _stream(dev),
+            )
+        return out_s, out_i
+    if kernel in (SCAN_TOPK_EXACT_TF32, SCAN_TOPK_EXACT_BF16):
+        if kernel is SCAN_TOPK_EXACT_TF32:
+            q_op = scan_mma.query_operand_tf32(queries)
+        else:
+            q_op = scan_mma.query_operand(queries)
+        with torch.cuda.device(dev):
+            kernel.launch(
+                q_op.data_ptr(), qsq.data_ptr(), values.data_ptr(), sqnorms.data_ptr(),
+                valid.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                n, d, b, k_tile, tile_n, metric_code, _stream(dev),
+            )
+        return out_s, out_i
     with torch.cuda.device(dev):
         if l1:
             SCAN_TOPK_L1.launch(
@@ -244,7 +304,7 @@ def tile_topk_cuda(
                 q_t.data_ptr(), qsq.data_ptr(), values.data_ptr(),
                 scales.data_ptr(), sqnorms.data_ptr(), valid.data_ptr(),
                 out_s.data_ptr(), out_i.data_ptr(),
-                n, d, b, k_tile, tile_n, _METRIC_CODE[metric], _stream(dev),
+                n, d, b, k_tile, tile_n, metric_code, _stream(dev),
             )
         else:
             SCAN_TOPK_EXACT.launch(
@@ -252,7 +312,7 @@ def tile_topk_cuda(
                 int(values.dtype == torch.bfloat16),
                 sqnorms.data_ptr(), valid.data_ptr(),
                 out_s.data_ptr(), out_i.data_ptr(),
-                n, d, b, k_tile, tile_n, _METRIC_CODE[metric], _stream(dev),
+                n, d, b, k_tile, tile_n, metric_code, _stream(dev),
             )
     return out_s, out_i
 

@@ -1,6 +1,6 @@
 """Host side of the tensor-core scan body (``csrc/scan_mma.cuh``): the
-split of f32 queries into bf16 or int8 terms and the query operand in the
-order the kernel's wgmma reads it. Plain torch, on the queries' device.
+split of f32 queries into bf16, int8 or tf32 terms and the query operand in
+the order the kernel's wgmma reads it. Plain torch, on the queries' device.
 
 Against bf16 rows: an f32 value has 24 significant bits and a bf16 value
 8, so three bf16 terms ``h = bf16(q)``, ``m = bf16(q - h)``, ``l = bf16(q -
@@ -23,6 +23,12 @@ Scales stepping by 128 (powers of two, the terms at most 64 past the
 first) leave s1 2^-15, ~1.4e-5 (rms) on the dots of N(0, 1) queries and
 rows at D = 384: more than the plain f32 product's own error and than the
 1e-5 rule allows a score near 0.
+
+Against f32 rows (3xTF32): two tf32 terms ``hi = rna(q)``, ``lo = rna(q -
+hi)`` (``round_tf32``: round to nearest, ties away from zero, to 10
+mantissa bits, the low 13 bits zero), so ``|q - hi| <= 2^-11 |q|`` and
+``|q - hi - lo| <= 2^-22 |q|``; the kernel splits the rows the same way and
+sums hi.hi, hi.lo and lo.hi (the header states the bound that follows).
 """
 
 from __future__ import annotations
@@ -30,8 +36,8 @@ from __future__ import annotations
 import torch
 
 #: queries a block of the body (the wgmma's N) and bytes of a query row a
-#: slice holds (one 128-byte row of the 128-byte swizzle: 64 bf16 or 128
-#: int8 columns)
+#: slice holds (one 128-byte row of the 128-byte swizzle: 64 bf16, 128
+#: int8 or 32 f32 columns)
 QUERIES = 64
 SLICE_BYTES = 128
 TERMS = 3
@@ -71,24 +77,41 @@ def split_query_int8(queries: torch.Tensor):
     return torch.stack(terms).to(torch.int8), s1.to(torch.float32)
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to tf32 (nearest, ties away from zero: what
+    cvt.rna.tf32.f32 gives), as f32 values with the low 13 bits zero: the
+    kernel's integer form of the rounding, bit for bit."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_query_tf32(queries: torch.Tensor) -> torch.Tensor:
+    """[2, B, D] f32 tf32 terms (hi, lo) of f32 queries [B, D]: hi =
+    round_tf32(q), lo = round_tf32(q - hi); q - hi is exact in f32, and
+    ``|q - hi - lo| <= 2^-22 |q|``."""
+    q = queries.to(torch.float32)
+    hi = round_tf32(q)
+    return torch.stack((hi, round_tf32(q - hi)))
+
+
 def _swizzled(terms: torch.Tensor) -> torch.Tensor:
-    """[3, B, D] terms as [ceil(B/64), S, 3, 64, 128 bytes / itemsize]: block
+    """[T, B, D] terms as [ceil(B/64), S, T, 64, 128 bytes / itemsize]: block
     j's slice s term t is the [64 queries, 128 bytes] tile of term t, zero
     past B and D, each query's 128-byte row with its 16-byte chunk c stored
     at chunk c ^ (query mod 8)."""
-    _, b, d = terms.shape
+    n_terms, b, d = terms.shape
     cols = SLICE_BYTES // terms.element_size()
     per = 16 // terms.element_size()  # elements a 16-byte chunk
     nb = -(-b // QUERIES)
     ns = -(-d // cols)
-    x = terms.new_zeros((TERMS, nb * QUERIES, ns * cols))
+    x = terms.new_zeros((n_terms, nb * QUERIES, ns * cols))
     x[:, :b, :d] = terms
     # term, block, query, slice, chunk, element -> block, slice, term, query, chunk, element
-    x = x.view(TERMS, nb, QUERIES, ns, 8, per).permute(1, 3, 0, 2, 4, 5)
+    x = x.view(n_terms, nb, QUERIES, ns, 8, per).permute(1, 3, 0, 2, 4, 5)
     r = torch.arange(QUERIES, device=terms.device)
     src = torch.arange(8, device=terms.device)[None, :] ^ (r[:, None] % 8)  # [64, 8]
-    idx = src[:, :, None].expand(QUERIES, 8, per).expand(nb, ns, TERMS, QUERIES, 8, per)
-    return torch.gather(x, 4, idx).reshape(nb, ns, TERMS, QUERIES, cols).contiguous()
+    idx = src[:, :, None].expand(QUERIES, 8, per).expand(nb, ns, n_terms, QUERIES, 8, per)
+    return torch.gather(x, 4, idx).reshape(nb, ns, n_terms, QUERIES, cols).contiguous()
 
 
 def query_operand(queries: torch.Tensor) -> torch.Tensor:
@@ -108,6 +131,13 @@ def query_operand_int8(queries: torch.Tensor):
     [B] f32 term scales s1)."""
     terms, scales = split_query_int8(queries)
     return _swizzled(terms), scales
+
+
+def query_operand_tf32(queries: torch.Tensor) -> torch.Tensor:
+    """The body's query operand against f32 rows: [ceil(B/64), ceil(D/32),
+    2, 64, 32] f32 in ``query_operand``'s swizzled order, the terms of
+    ``split_query_tf32``."""
+    return _swizzled(split_query_tf32(queries))
 
 
 def max_tile_rows(winners: int) -> int:
