@@ -6,20 +6,23 @@ Phases (any failure raises and the exit code is not 0):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every native source under vectorlite_tpu_torch/csrc (scan.cu,
-   lanes.cu, exact.cu, pq.cu, ivf.cu with nvcc, host_rescore.cpp with g++;
-   one compiler per source, all started together).
+   lanes.cu, exact.cu, wide.cu, pq.cu, ivf.cu with nvcc, host_rescore.cpp
+   with g++; one compiler per source, all started together); the wide
+   mode's shared-memory plans.
 2. Kernels against their plain-torch versions on the card: K1 and K2 on
    the route scan.exact_route names (k <= 32: the tensor-core body's
    per-query top-k, scan_topk_exact_tf32 over f32 rows, _bf16 over bf16
-   rows, scan_topk_exact_s8 over int8 rows; k 1, 16, 32; k > 32: the
-   CUDA-core scan_topk_exact / _int8 with shared-memory lists, and k > 256
-   with lists in the output), K3 on its three routes (int8 rows: scan_block_topw_s8, the
+   rows, scan_topk_exact_s8 over int8 rows; k 1, 16, 32; 32 < k <= 256:
+   its wide mode, scan_topk_wide_tf32 / _bf16 / _s8, k 33, 100, 256; k >
+   256: the CUDA-core scan_topk_exact / _int8 with lists in the output,
+   k 300), K3 on its three routes (int8 rows: scan_block_topw_s8, the
    tensor-core body's int8 form; bf16 rows: scan_block_topw_bf16; f32 rows:
    scan_block_topw, the CUDA-core body; three metrics), K4 on f32 and bf16
    rows, at N=65,536 x 384, B=64, and at an odd shape (8,192 x 100, B=5).
    Then each kernel at the main-path shape (2^20 x 384, B=256, four query
    blocks; K1 over f32 rows at k 16 and bf16 rows at k 32, K2 at k 32, and
-   both at k 100's lists on the CUDA-core body; K3 on each route): timed
+   the wide mode at k 100's lists: K1 over f32 rows at 128, over bf16 rows
+   at 256, K2 at 256; the CUDA-core K1 and K2 at k 300; K3 on each route): timed
    beside its plain version and the PyTorch library path (K3's: one torch.mm, bf16 over the int8 or bf16
    values cast outside the timing, TF32-off f32 over f32 rows, then
    torch.topk of each lane group), and its output held against the plain
@@ -74,9 +77,11 @@ Phases (any failure raises and the exit code is not 0):
    (whichever kernel it picks on this corpus), then with the guard off
    the speed path (K3 over the int8 scan copy: scan_block_topw_s8, +
    exact re-score), approx=False (K1), a where filter (K1), manhattan
-   (K4), a `quantized`-profile collection (K3 on int8 rows, and K2),
-   approx=False at k 100 on both (K1 and K2 on the CUDA-core body) and a
-   `memory-optimized` collection's exact path (K1 over bf16 rows). Launch
+   (K4), a `quantized`-profile collection (K3 on int8 rows, and K2), a
+   `memory-optimized` collection's exact path (K1 over bf16 rows), and
+   approx=False at k 100 on all three (K1 over f32 and bf16 rows and K2 on
+   the wide mode); those three again, taken apart into the device stage,
+   merge_topk's sort in it and the host remainder. Launch
    counts are zeroed just before and read just after; every kernel must
    have launched, each exact path on the route exact_route names. Recall@10 of each
    speed path against its exact path must be >= 0.99; the cosine and
@@ -158,7 +163,7 @@ import torch
 D = 384
 B = 256
 K = 10
-K_WIDE = 100  # phase 3's wide exact searches: lists past the tensor-core body's 32
+K_WIDE = 100  # phase 3's wide exact searches: lists past the TOPK mode's 32
 
 #: NVIDIA H100 SXM data sheet (dense, 700 W): device-memory bandwidth and
 #: the peak rate of each operand type the functions need. The reference
@@ -174,7 +179,10 @@ REPLACES = {
     "scan_topk_exact_tf32": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_exact_bf16": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_exact": "vectorlite_tpu/kernels/pallas_scan.py:46",
+    "scan_topk_wide_tf32": "vectorlite_tpu/kernels/pallas_scan.py:46",
+    "scan_topk_wide_bf16": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_exact_s8": "vectorlite_tpu/kernels/pallas_scan.py:471",
+    "scan_topk_wide_s8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_topk_exact_int8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_block_topw": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_block_topw_s8": "vectorlite_tpu/kernels/pallas_scan.py:159",
@@ -195,11 +203,13 @@ K3_INT8, K3_BF16, K3_F32 = "scan_block_topw_s8", "scan_block_topw_bf16", "scan_b
 K3_SYMBOLS = (K3_INT8, K3_BF16, K3_F32)
 #: K1's and K2's routes (kernels/scan.py exact_route): k <= 32 on the
 #: tensor-core body's per-query top-k mode (f32 rows: 3xTF32; bf16 rows;
-#: int8 rows), k > 32 on the CUDA-core body
+#: int8 rows), 32 < k <= 256 on its wide mode, k > 256 on the CUDA-core
+#: body
 K1_TF32, K1_BF16, K1_CORE = "scan_topk_exact_tf32", "scan_topk_exact_bf16", "scan_topk_exact"
-K1_SYMBOLS = (K1_TF32, K1_BF16, K1_CORE)
-K2_S8, K2_CORE = "scan_topk_exact_s8", "scan_topk_exact_int8"
-K2_SYMBOLS = (K2_S8, K2_CORE)
+K1_WIDE, K1_WIDE_BF16 = "scan_topk_wide_tf32", "scan_topk_wide_bf16"
+K1_SYMBOLS = (K1_TF32, K1_BF16, K1_WIDE, K1_WIDE_BF16, K1_CORE)
+K2_S8, K2_WIDE, K2_CORE = "scan_topk_exact_s8", "scan_topk_wide_s8", "scan_topk_exact_int8"
+K2_SYMBOLS = (K2_S8, K2_WIDE, K2_CORE)
 
 #: the SMs' shared-memory rate: 128 bytes a clock an SM, 132 SMs at 1.755
 #: GHz (H100 SXM); what K5's look-up entry reads its LUT entries at
@@ -208,6 +218,26 @@ SMEM_BYTES_PER_S = 128 * 132 * 1.755e9
 
 def log(*args):
     print(*args, flush=True)
+
+
+def wide_plans(build, widths=(100, 384, 768)) -> dict:
+    """The wide mode's shared-memory plan by row dtype, width and list
+    length (csrc/wide.cu scan_topk_wide_plan): the ring's stages and the
+    bytes of the ring, the score tiles, the lists and all."""
+    import ctypes
+
+    fn = build.load("wide").scan_topk_wide_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = None
+    plans = {}
+    for code, dtype in enumerate(("f32", "bf16", "int8")):
+        for d in widths:
+            for k in (128, 256):
+                plan = (ctypes.c_int * 5)()
+                fn(code, d, k, plan)
+                plans[f"{dtype} D{d} k{k}"] = dict(zip(
+                    ("stages", "ring_bytes", "score_bytes", "list_bytes", "smem_bytes"), plan))
+    return plans
 
 
 def peak_rss_gb() -> float:
@@ -328,12 +358,16 @@ def variants(scan, SM):
         (None, "f32 k1", dots, *exact(2048), 1),
         (None, "f32 k32", dots, *exact(2048), 32),
         (None, "f32 k100", dots, *exact(2048), 100),
+        (None, "f32 k256", (SM.COSINE,), *exact(2048), 256),
         (None, "f32 k300", (SM.COSINE,), *exact(2048), 300),
         (None, "bf16", dots, *exact(4096), 16),
         (None, "bf16 k33", (SM.COSINE,), *exact(4096), 33),
+        (None, "bf16 k256", dots, *exact(4096), 256),
         (None, "int8", dots, *exact(2048), 16),
         (None, "int8 k32", dots, *exact(2048), 32),
         (None, "int8 k100", (SM.COSINE,), *exact(2048), 100),
+        (None, "int8 k256", dots, *exact(2048), 256),
+        (None, "int8 k300", (SM.COSINE,), *exact(2048), 300),
         (K3_F32, "f32", dots, block, block_plain, 16),
         (K3_BF16, "bf16", dots, block, block_plain, 16),
         (K3_INT8, "int8", dots, block, block_plain, 16),
@@ -360,8 +394,8 @@ def check_kernels(scan, metrics_mod, dev, rng) -> dict:
     errs = {}
     for name, label, metrics, kern, plain, k in variants(scan, SM):
         for shape, rows, sq, valid, q in shapes:
-            if k > 32 and shape != shapes[0][0]:
-                continue  # large k: the main shape only
+            if k > 256 and shape != shapes[0][0]:
+                continue  # the CUDA-core lists: the main shape only
             v, sc = rows[label.split()[0]]
             for metric in metrics:
                 sym = name or scan.exact_route(v.dtype, k, metric).symbol
@@ -406,13 +440,15 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
 
     # the shapes the main path hands each kernel: K1 over f32 rows with
     # k_pad 16 (tile 2048), over bf16 rows (the memory-optimized profile)
-    # with the 2x pool (32) and tile 4096, and at k 100 (k_pad 128) on the
-    # CUDA-core body; K2 over int8 rows with the 2x pool (32,
-    # and 256 at k 100); K3 over the int8 scan copy, 4096-row tiles, W = 2,
-    # pool 128 (and its two other routes: a bf16 scan copy, f32 rows without
-    # a copy); K4 over f32 rows, k_pad 16. K1 over f32 rows is priced at
-    # three tf32 passes (the reference's HIGHEST on the tensor cores), K2 at
-    # one int8 pass, K1 over bf16 rows at one bf16 pass.
+    # with the 2x pool (32, and 256 at k 100) and tile 4096, and at k 100
+    # (k_pad 128) on the wide mode; K2 over int8 rows with the 2x pool (32,
+    # and 256 at k 100 on the wide mode); the CUDA-core K1 and K2, which no
+    # path hands a list up to 256, at k 300; K3 over the int8 scan copy,
+    # 4096-row tiles, W = 2, pool 128 (and its two other routes: a bf16 scan
+    # copy, f32 rows without a copy); K4 over f32 rows, k_pad 16. K1 over
+    # f32 rows is priced at three tf32 passes (the reference's HIGHEST on the
+    # tensor cores), K2 at one int8 pass, K1 over bf16 rows at one bf16
+    # pass.
     k3_out = B * (n // 4096) * 256 * 8
 
     def tiles_out(tile_n, k):
@@ -423,12 +459,18 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
          3 * dot_ops, n * D * 4 + side + tiles_out(2048, 16)),
         (K1_BF16, SM.COSINE, vb, None, 32, 4096, None, "bf16",
          dot_ops, n * D * 2 + side + tiles_out(4096, 32)),
-        (K1_CORE, SM.COSINE, v, None, 128, 2048, None, "tf32",
+        (K1_WIDE, SM.COSINE, v, None, 128, 2048, None, "tf32",
          3 * dot_ops, n * D * 4 + side + tiles_out(2048, 128)),
+        (K1_WIDE_BF16, SM.COSINE, vb, None, 256, 4096, None, "bf16",
+         dot_ops, n * D * 2 + side + tiles_out(4096, 256)),
+        (K1_CORE, SM.COSINE, v, None, 300, 2048, None, "tf32",
+         3 * dot_ops, n * D * 4 + side + tiles_out(2048, 300)),
         (K2_S8, SM.COSINE, vq, sc, 32, 2048, None, "int8",
          dot_ops, n * D + n * 4 + side + tiles_out(2048, 32)),
-        (K2_CORE, SM.COSINE, vq, sc, 256, 2048, None, "int8",
+        (K2_WIDE, SM.COSINE, vq, sc, 256, 2048, None, "int8",
          dot_ops, n * D + n * 4 + side + tiles_out(2048, 256)),
+        (K2_CORE, SM.COSINE, vq, sc, 300, 2048, None, "int8",
+         dot_ops, n * D + n * 4 + side + tiles_out(2048, 300)),
         (K3_INT8, SM.COSINE, vq, sc, 128, 4096, 2, "int8",
          dot_ops, n * D + n * 4 + side + k3_out),
         (K3_BF16, SM.COSINE, vb, None, 128, 4096, 2, "bf16",
@@ -466,19 +508,19 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
                 return torch.topk(torch.mm(lq, lrows.T).view(
                     B, n // tile_n, tile_n // 128, 128), winners, dim=2)
         plain_reps = 2 if metric is SM.MANHATTAN else 5
-        ms, plain_ms = interleaved_ms(kern, plain, reps=20, plain_reps=plain_reps)
+        reps = 5 if name in (K1_CORE, K2_CORE) else 20  # ~0.25 s a call
+        ms, plain_ms = interleaved_ms(kern, plain, reps=reps, plain_reps=plain_reps)
         lib_ms = cuda_time_ms(lib, 10)
         err = compare(f"{name} at the main-path shape (top {k})",
                       merged(scan, kern(), B, k), merged(scan, plain(), B, k + 1))
         errs[name] = max(errs.get(name, 0.0), err)
         t = out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          **bound(nbytes, ops, op_type)}
-        work = {K3_INT8: f"; tensor work {3 * dot_ops / PEAK_OPS_PER_S['int8'] * 1e3:.4f} "
-                         f"ms (3 int8 passes)",
-                K2_S8: f"; tensor work {3 * dot_ops / PEAK_OPS_PER_S['int8'] * 1e3:.4f} "
-                       f"ms (3 int8 passes)",
-                K3_BF16: f"; {design_work(n)}",
-                K1_BF16: f"; {design_work(n)}"}.get(name, "")
+        int8_work = (f"; tensor work {3 * dot_ops / PEAK_OPS_PER_S['int8'] * 1e3:.4f} "
+                     f"ms (3 int8 passes)")
+        work = {K3_INT8: int8_work, K2_S8: int8_work, K2_WIDE: int8_work,
+                K3_BF16: f"; {design_work(n)}", K1_BF16: f"; {design_work(n)}",
+                K1_WIDE_BF16: f"; {design_work(n)}"}.get(name, "")
         log(f"  {name:22s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{op_type} rate){work}")
@@ -1065,6 +1107,49 @@ def drive(paths, queries, n_batches, build, card, native=None):
     return results, moved_all, times
 
 
+def wide_breakdown(wide, exact, queries, times, n_batches, build, card) -> None:
+    """Phase 3's k 100 paths taken apart on n_batches more batches: the
+    device stage (the index's _device_topk to torch.cuda.synchronize()),
+    within it the kernel (to a synchronize before the merge) and
+    merge_topk's stable sort of the tiles' lists (from that synchronize to
+    the next), and the host remainder (the main run's batch p50 less the
+    device stage's p50), within it the index's _finalize_device (the f64
+    re-score of reduced-precision rows, else the cosine clamp) and the
+    rest (the fetch, the ids, one result object a hit)."""
+    from vectorlite_tpu_torch.kernels import scan
+
+    saved = scan.merge_topk
+    for name, client, _ in wide:
+        spent = {"device": [], "merge": [], "finalize": []}
+
+        def merge_topk(s, i, k, spent=spent):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = saved(s, i, k)
+            torch.cuda.synchronize()
+            spent["merge"].append((time.perf_counter() - t) * 1e3)
+            return out
+        with client.get_collection("main").index_read() as index:
+            pass
+        index._device_topk = timed(spent, "device", index._device_topk, True)
+        index._finalize_device = timed(spent, "finalize", index._finalize_device, False)
+        scan.merge_topk = merge_topk
+        try:
+            drive([(f"{name}, taken apart", exact(client.get_collection("main"), K_WIDE))],
+                  queries, n_batches, build, card)
+        finally:
+            scan.merge_topk = saved
+            del index._device_topk, index._finalize_device
+        dev_p50, merge_p50, fin_p50 = (float(np.percentile(spent[key], 50))
+                                       for key in ("device", "merge", "finalize"))
+        host = float(np.percentile(times[name], 50)) - dev_p50
+        log(f"    {name}: device stage p50 {dev_p50:.3f} ms (kernel and query "
+            f"operands {dev_p50 - merge_p50:.3f}, merge_topk sort {merge_p50:.3f}); host "
+            f"remainder (batch p50 {np.percentile(times[name], 50):.3f} - device p50) "
+            f"{host:.3f} ms (_finalize_device p50 {fin_p50:.3f}, the rest "
+            f"{host - fin_p50:.3f}) [{card}]")
+
+
 def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     """Phase 3: the SDK main path; returns (per-kernel launch counts, the
     exact path's ids for the 256 queries)."""
@@ -1129,36 +1214,38 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
         ("quantized speed, numpy re-score (VECTORLITE_NO_NATIVE=1)",
          with_env(quantized_speed, "VECTORLITE_NO_NATIVE", "1")),
         ("quantized exact (K2 + f64 re-score)", exact(qclient.get_collection("main"))),
-        # k = 100: lists past the tensor-core body's 32 (k_pad 128, K2's pool
-        # 256) run on the CUDA-core body
-        (f"exact approx=False, k {K_WIDE} (K1, CUDA-core lists)",
-         exact(client.get_collection("main"), K_WIDE)),
-        (f"quantized exact, k {K_WIDE} (K2, CUDA-core lists)",
-         exact(qclient.get_collection("main"), K_WIDE)),
         ("memory-optimized exact (K1 over bf16 rows + f64 re-score)",
          exact(mclient.get_collection("main"))),
     ]
+    # k = 100: lists past the TOPK mode's 32 (k_pad 128, the 2x pools of 256
+    # over int8 and bf16 rows) run on the tensor-core body's wide mode
+    wide = [(f"exact approx=False, k {K_WIDE} (K1, wide lists)", client, K1_WIDE),
+            (f"quantized exact, k {K_WIDE} (K2, wide lists)", qclient, K2_WIDE),
+            (f"memory-optimized exact, k {K_WIDE} (K1 over bf16 rows, wide lists)", mclient,
+             K1_WIDE_BF16)]
+    paths += [(name, exact(cl.get_collection("main"), K_WIDE)) for name, cl, _ in wide]
     build.reset_launch_counts()
     calls = native.calls
-    results, moved, _ = drive(paths, queries, n_batches, build, card, native)
+    results, moved, times = drive(paths, queries, n_batches, build, card, native)
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
-    for sym in (*K1_SYMBOLS, *K2_SYMBOLS, K3_INT8, "scan_topk_l1"):
+    for sym in (K1_TF32, K1_BF16, K1_WIDE, K1_WIDE_BF16, K2_S8, K2_WIDE, K3_INT8,
+                "scan_topk_l1"):
         if not launches[sym]:
             raise AssertionError(f"{sym} was never launched on the main path")
     # each exact path on the route exact_route names: k_pad 16 (K1) and the
-    # 2x pool of 32 (K2) on the tensor-core body, k 100 on the CUDA-core one
+    # 2x pool of 32 (K2) on the tensor-core body's TOPK mode, k 100 on its
+    # wide mode
     for path, want in (("exact approx=False (K1)", K1_TF32),
                        ("where-filtered (K1)", K1_TF32),
                        ("quantized exact (K2 + f64 re-score)", K2_S8),
-                       (f"exact approx=False, k {K_WIDE} (K1, CUDA-core lists)", K1_CORE),
-                       (f"quantized exact, k {K_WIDE} (K2, CUDA-core lists)", K2_CORE),
-                       ("memory-optimized exact (K1 over bf16 rows + f64 re-score)", K1_BF16)):
+                       ("memory-optimized exact (K1 over bf16 rows + f64 re-score)", K1_BF16),
+                       *((name, sym) for name, _, sym in wide)):
         if set(moved[path]) & {*K1_SYMBOLS, *K2_SYMBOLS} != {want}:
             raise AssertionError(f"{path}: launched {moved[path]}, not {want}")
     if native.calls == calls:
         raise AssertionError("the native f64 re-score never served the quantized paths")
+    wide_breakdown(wide, exact, queries, times, n_batches // 2, build, card)
     dclient.delete_collection("default")
-    mclient.delete_collection("main")
 
     # correctness by the repo's own means
     speed = ids_of(results["speed, guard off (K3 + f32 re-score)"])
@@ -1172,14 +1259,15 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     ]
     checks += [
         (f"exact k {K_WIDE} (its first {K}) vs exact",
-         ids_of(results[f"exact approx=False, k {K_WIDE} (K1, CUDA-core lists)"])[:, :K],
-         exact_ids),
+         ids_of(results[wide[0][0]])[:, :K], exact_ids),
         (f"quantized exact k {K_WIDE} (its first {K}) vs quantized exact",
-         ids_of(results[f"quantized exact, k {K_WIDE} (K2, CUDA-core lists)"])[:, :K],
+         ids_of(results[wide[1][0]])[:, :K],
          ids_of(results["quantized exact (K2 + f64 re-score)"])),
         ("memory-optimized exact vs exact",
          ids_of(results["memory-optimized exact (K1 over bf16 rows + f64 re-score)"]),
          exact_ids),
+        (f"memory-optimized exact k {K_WIDE} (its first {K}) vs exact",
+         ids_of(results[wide[2][0]])[:, :K], exact_ids),
     ]
     for label, got, ref in checks:
         r = recall(got, ref)
@@ -1189,6 +1277,7 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     filt = results["where-filtered (K1)"]
     if any(h.metadata["shard"] != 3 for row in filt for h in row):
         raise AssertionError("the where filter let another shard through")
+    mclient.delete_collection("main")
 
     # exact paths against float64 truth on 32 queries from all 4 blocks
     pick = slice(0, B, B // 32)
@@ -1788,6 +1877,8 @@ def main() -> int:
     for name in sources:
         _build.load(name)
     log(f"    built {sources} in {time.perf_counter() - t0:.2f} s")
+    for key, plan in wide_plans(_build).items():
+        log(f"    wide mode plan, {key}: {plan}")
     for name, text in _build.build_logs.items():
         for line in _build.ptxas_report(name):
             log(f"    {name} ptxas:", line)

@@ -1,23 +1,30 @@
-"""K1 and K2 on the tensor-core body's per-query top-k mode
-(vectorlite_tpu_torch/csrc/exact.cu on csrc/scan_mma.cuh) on one CUDA
-card: held, timed and taken apart.
+"""K1 and K2 on the tensor-core body's per-query top-k modes
+(vectorlite_tpu_torch/csrc/exact.cu, k <= 32, and csrc/wide.cu, 32 < k <=
+256, both on csrc/scan_mma.cuh) on one CUDA card: held, timed and taken
+apart.
 
     env PYTHONPATH=. python3 scripts/probe_exact_topk.py [--seed S] [--check-only]
+        [--wide-only]
 
-Builds csrc/exact.cu and csrc/scan.cu and prints ptxas's registers and
-spills of the three entries and each TOPK launch's ring at D 100, 384 and
-768 (stages; the query terms resident or streamed). Holds each entry's
-lists, tile by tile, against tile_topk_plain's under the 1e-5 rule (scores
-within rtol/atol 1e-5, ids equal beyond 1e-5 near-ties, -inf slots naming
-the same rows) at small shapes: k 1, 10, 16 and 32,
-three metrics, duplicate rows, an all-invalid tile. With --check-only it
-stops there. Then, at the main-path shapes (2^20 x 384, B 256: f32 rows at
-k 16 and tile 2,048, bf16 rows at k 32 and tile 4,096, int8 rows at k 32
-and tile 2,048), holds each entry once more and times it with CUDA events
-beside the CUDA-core entry of the same call (scan_topk_exact,
-scan_topk_exact_int8; old, new, new, old), and beside variants of the
-body built from edited copies of scan_mma.cuh, instruments that compute
-wrong results:
+Builds csrc/exact.cu, csrc/wide.cu and csrc/scan.cu and prints ptxas's
+registers and spills of the six entries, each TOPK launch's ring at D 100,
+384 and 768 (stages; the query terms resident or streamed) and each wide
+launch's shared-memory plan there at k 128 and 256 (stages of the shared
+ring, bytes of the ring, the score tiles and the lists). Holds each
+entry's lists, tile by tile, against tile_topk_plain's under the 1e-5 rule
+(scores within rtol/atol 1e-5, ids equal beyond 1e-5 near-ties, -inf slots
+naming the same rows) at small shapes: k 1, 10, 16 and 32 (TOPK) and 33,
+64, 100, 128 and 256 (wide), three metrics, duplicate rows, an all-invalid
+tile. With --check-only it stops there; --wide-only leaves out the TOPK
+entries. Then, at the main-path shapes (2^20 x 384, B 256: f32 rows at k
+16 and tile 2,048, bf16 rows at k 32 and tile 4,096, int8 rows at k 32 and
+tile 2,048; the wide entries at k 100's lists: f32 rows at 128 and tile
+2,048, bf16 rows at 256 and tile 4,096, int8 rows at 256 and tile 2,048),
+holds each entry once more and times it with CUDA events beside the
+CUDA-core entry of the same call (scan_topk_exact, scan_topk_exact_int8;
+old, new, new, old), and beside variants of the body built from edited
+copies of scan_mma.cuh, instruments that compute wrong results. For the
+TOPK entries:
 
 * no merge: the chunk's scores reach the score tile, no list takes them
   (what the per-query merge costs);
@@ -30,6 +37,14 @@ wrong results:
   queries, chunk) pairs), printed as means a warp; its outputs are right
   but for each block's first four scores of eight queries, where the
   counters go.
+
+For the wide entries:
+
+* no merge: both score tiles written and the block's barriers kept, no
+  list takes the rows (body - no merge: what the batched merges cost);
+* no scores: nor the score tiles (the contraction on the shared ring and
+  its epilogue's metric; no merge - no scores: the score tiles' round
+  trip and barriers).
 
 Prints a line a measurement, the card's name and power limit, and a JSON
 object last. Exits 1 without a CUDA device, and raises if an entry
@@ -90,28 +105,37 @@ VARIANTS = {
     "no scores": [(MERGE, "        if (false) topk_merge(static_cast<int>(run_base"),
                   (SCORES, "          ks[0] = fmaxf(ks[0], s);")],
 }
+WIDE_MERGE = "        wide_merge(cl * CHUNK);"
+WIDE_VARIANTS = {
+    "no merge": [(WIDE_MERGE, "        if (false) wide_merge(cl * CHUNK);")],
+    # the score stays computed (a compare a score) without the tile's stores
+    "no scores": [(WIDE_MERGE, "        if (false) wide_merge(cl * CHUNK);"),
+                  (SCORES, "          { if (s == 1.0e30f) sc[0] = s; }")],
+}
 
 
-def build_variant(_build, name, edits):
-    """exact.cu with scan_mma.cuh edited, built once per edit and flags."""
+def build_variant(_build, name, edits, source="exact"):
+    """csrc/<source>.cu with scan_mma.cuh edited, built once per edit and
+    flags."""
     body = (_build.CSRC / "scan_mma.cuh").read_text()
     for old, new in edits:
         if old not in body:
             raise RuntimeError(f"variant {name!r}: the body no longer holds {old!r}")
         body = body.replace(old, new)
     digest = hashlib.sha256(
-        body.encode() + (_build.CSRC / "exact.cu").read_bytes()
+        body.encode() + (_build.CSRC / f"{source}.cu").read_bytes()
         + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"libexact_probe_{digest}.so"
+    out = _build.BUILD_DIR / f"lib{source}_probe_{digest}.so"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-            for src in (*_build.CSRC.glob("*.cuh"), _build.CSRC / "exact.cu"):
+            for src in (*_build.CSRC.glob("*.cuh"), _build.CSRC / f"{source}.cu"):
                 shutil.copy(src, tmp)
             Path(tmp, "scan_mma.cuh").write_text(body)
             part = out.with_suffix(f".{os.getpid()}.tmp")
             done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(part),
-                                   str(Path(tmp, "exact.cu"))], capture_output=True, text=True)
+                                   str(Path(tmp, f"{source}.cu"))], capture_output=True,
+                                  text=True)
             if done.returncode != 0:
                 raise RuntimeError(f"variant {name!r} does not build:\n{done.stdout}{done.stderr}")
             os.replace(part, out)
@@ -157,6 +181,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--check-only", action="store_true")
+    ap.add_argument("--wide-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_exact_topk: no CUDA device is available", file=sys.stderr)
@@ -167,14 +192,18 @@ def main() -> int:
     from vectorlite_tpu_torch.kernels import _build, scan
 
     card = cs.card_line()
-    _build.build_all(["exact", "scan"])
-    for name in ("exact", "scan"):
+    sources = ["wide", "scan"] if args.wide_only else ["exact", "wide", "scan"]
+    _build.build_all(sources)
+    for name in sources:
         _build.load(name)
         for line in _build.ptxas_report(name):
             cs.log(f"  {name} ptxas: {line}")
-    plans = ring_plans(_build)
+    plans = {} if args.wide_only else ring_plans(_build)
     for key, plan in plans.items():
         cs.log(f"  TOPK ring, {key}: {plan}")
+    wide_plans = cs.wide_plans(_build)
+    for key, plan in wide_plans.items():
+        cs.log(f"  wide plan, {key}: {plan}")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng([args.seed, 9])
     SM = SimilarityMetric
@@ -185,41 +214,48 @@ def main() -> int:
                                    tile_n=tile_n)
 
     def check(label, rows, scales, sq, valid, q, metric, k, tile_n):
-        kernel = scan.exact_route(rows.dtype, k, metric)
+        kernel = scan.exact_route(rows.dtype, k, metric, tile_n)
         before = kernel.launches
         got = run(rows, scales, sq, valid, q, metric, k, tile_n)
         torch.cuda.synchronize()
         if kernel.launches != before + 1:
             raise AssertionError(f"{label}: {kernel.symbol} did not launch")
         want = scan.tile_topk_plain(rows, scales, sq, valid, q, metric=metric,
-                                    k_tile=k + 1, tile_n=tile_n)
+                                    k_tile=min(k + 1, tile_n), tile_n=tile_n)
         # every tile's list, -inf slots naming the plain version's rows
-        return cs.compare(f"{kernel.symbol} {label}",
-                          [x.reshape(-1, k) for x in got], [x.reshape(-1, k + 1) for x in want])
+        return cs.compare(f"{kernel.symbol} {label}", [x.reshape(-1, k) for x in got],
+                          [x.reshape(-1, want[0].shape[-1]) for x in want])
 
     errs = {}
+    ks = (33, 64, 100, 128, 256) if args.wide_only else (1, 10, 16, 32, 33, 64, 100, 128, 256)
     # D 99: every row type on the plain-load staging (TMA refuses the stride)
     for n, d, b, tile_n in ((16384, 100, 5, 2048), (8192, 99, 3, 1024),
                             (65536, 384, 256, 4096), (16384, 768, 70, 2048)):
         rows, sq, valid, q = inputs(dev, rng, n, d, b, tile_n)
         for dtype, (v, sc) in rows.items():
             for metric in metrics:
-                for k in (1, 10, 16, 32):
+                for k in ks:
                     err = check(f"{dtype} {n}x{d} B{b} t{tile_n} k{k} {metric.name}",
                                 v, sc, sq, valid, q, metric, k, tile_n)
-                    errs[dtype] = max(errs.get(dtype, 0.0), err)
+                    mode = "wide" if k > scan.MMA_MAX_K else "topk"
+                    errs[f"{dtype} {mode}"] = max(errs.get(f"{dtype} {mode}", 0.0), err)
     cs.log(f"  small shapes: every entry agrees (max |score diff| {errs}) [{card}]")
     if args.check_only:
         print(card, flush=True)
-        print(json.dumps({"card": card, "plans": plans, "max_abs_err": errs}), flush=True)
+        print(json.dumps({"card": card, "plans": plans, "wide_plans": wide_plans,
+                          "max_abs_err": errs}), flush=True)
         return 0
 
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc each
-        built = {name: pool.submit(build_variant, _build, name, edits)
-                 for name, edits in VARIANTS.items()}
-    libs = {"body": _build.load("exact")}
-    for name, path in built.items():
-        libs[name] = ctypes.CDLL(str(path.result()))
+    variants = {} if args.wide_only else {
+        name: ("exact", edits) for name, edits in VARIANTS.items()}
+    variants.update({f"wide {name}": ("wide", edits) for name, edits in WIDE_VARIANTS.items()})
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:  # one nvcc each
+        built = {name: (source, pool.submit(build_variant, _build, name, edits, source))
+                 for name, (source, edits) in variants.items()}
+    libs = {"exact": {"body": _build.load("exact")} if not args.wide_only else {},
+            "wide": {"body": _build.load("wide")}}
+    for name, (source, path) in built.items():
+        libs[source][name] = ctypes.CDLL(str(path.result()))
     n, d, b = 1 << 20, cs.D, cs.B
     g = np.random.default_rng([args.seed, 10])
     v = torch.from_numpy(g.standard_normal((n, d), dtype=np.float32)).to(dev)
@@ -229,10 +265,16 @@ def main() -> int:
     from vectorlite_tpu_torch.core.metrics import quantize_rows_int8
 
     v8, sc = quantize_rows_int8(v)
-    cases = {"K1 f32": (v, None, 16, 2048), "K1 bf16": (v.to(torch.bfloat16), None, 32, 4096),
-             "K2 int8": (v8, sc, 32, 2048)}
+    vb = v.to(torch.bfloat16)
+    cases = {"K1 f32": ("exact", v, None, 16, 2048), "K1 bf16": ("exact", vb, None, 32, 4096),
+             "K2 int8": ("exact", v8, sc, 32, 2048),
+             "K1 f32 wide": ("wide", v, None, 128, 2048),
+             "K1 bf16 wide": ("wide", vb, None, 256, 4096),
+             "K2 int8 wide": ("wide", v8, sc, 256, 2048)}
     out = {}
-    for name, (rows, scales, k, tile_n) in cases.items():
+    for name, (source, rows, scales, k, tile_n) in cases.items():
+        if args.wide_only and source == "exact":
+            continue
         check(f"{name} at the main-path shape", rows, scales, sq, valid, q, SM.COSINE, k,
               tile_n)
 
@@ -240,19 +282,21 @@ def main() -> int:
             return run(rows, scales, sq, valid, q, SM.COSINE, k, tile_n)
 
         def old(rows=rows, scales=scales, k=k, tile_n=tile_n):
-            saved, scan.MMA_MAX_K = scan.MMA_MAX_K, 0  # the CUDA-core route
+            # the CUDA-core route
+            saved = scan.MMA_MAX_K, scan.WIDE_MAX_K
+            scan.MMA_MAX_K, scan.WIDE_MAX_K = 0, 0
             try:
                 return new(rows, scales, k, tile_n)
             finally:
-                scan.MMA_MAX_K = saved
+                scan.MMA_MAX_K, scan.WIDE_MAX_K = saved
 
         o1 = cs.cuda_time_ms(old, 5)
         n1 = cs.cuda_time_ms(new, 20)
         n2 = cs.cuda_time_ms(new, 20)
         o2 = cs.cuda_time_ms(old, 5)
         ms = {"new": [n1, n2], "cuda_core": [o1, o2]}
-        for variant, lib in libs.items():
-            _build._libs["exact"] = lib
+        for variant, lib in libs[source].items():
+            _build._libs[source] = lib
             ms[variant] = cs.cuda_time_ms(new, 20)
             if variant in VARIANTS and VARIANTS[variant][:1] == PROFILE[:1]:
                 s_out = new()[0]
@@ -264,15 +308,15 @@ def main() -> int:
                 ms[f"{variant}: per warp"] = {key: float(prof[:, j].mean()) for j, key in enumerate(
                     ("merge_cycles", "candidate_block_cycles", "candidates", "group_chunks"))}
                 cs.log(f"    {variant} (means a warp): {ms[f'{variant}: per warp']}")
-        _build._libs["exact"] = libs["body"]
+        _build._libs[source] = libs[source]["body"]
         out[name] = ms
         cs.log(f"  {name} (k {k}, tile {tile_n}): tensor-core body {n1:.4f} / {n2:.4f} ms, "
                f"CUDA-core body {o1:.4f} / {o2:.4f} ms; "
                + ", ".join(f"{var} {t:.4f}" for var, t in ms.items()
                            if isinstance(t, float)) + f" [{card}]")
     print(card, flush=True)
-    print(json.dumps({"card": card, "plans": plans, "max_abs_err": errs, "ms": out}),
-          flush=True)
+    print(json.dumps({"card": card, "plans": plans, "wide_plans": wide_plans,
+                      "max_abs_err": errs, "ms": out}), flush=True)
     return 0
 
 

@@ -72,6 +72,29 @@ def test_exact_matches_pallas(metric, dtype, rng):
     check(jout, tout)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_exact_wide_k_matches_pallas(dtype, rng):
+    """k 100 (lists past 32, the wide mode's range on the card): the JAX
+    K1 / K2 in interpret mode against the port, cosine, tile_n 512."""
+    n, d, b, k = 2048, 64, 8, 100
+    values, valid = corpus(rng, n, d, invalid_frac=0.1)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    (jv, jsq, jvalid), (tv, tsq, tvalid) = both(values, valid, "f32" if dtype == "int8" else dtype)
+    kw = dict(k=k, tile_n=512)
+    if dtype == "int8":
+        (jq, js), (tq, ts) = quantized(values)
+        jout = jscan.pallas_search_topk_int8(
+            jq, js, jsq, jvalid, jnp.asarray(q), metric=JMetric.COSINE, interpret=True, **kw)
+        tout = scan.pallas_search_topk_int8(
+            tq, ts, tsq, tvalid, torch.from_numpy(q), metric=SimilarityMetric.COSINE, **kw)
+    else:
+        jout = jscan.pallas_search_topk(
+            jv, jsq, jvalid, jnp.asarray(q), metric=JMetric.COSINE, interpret=True, **kw)
+        tout = scan.pallas_search_topk(
+            tv, tsq, tvalid, torch.from_numpy(q), metric=SimilarityMetric.COSINE, **kw)
+    check(jout, tout)
+
+
 def test_tie_break_lowest_row(rng):
     n, d, b, k = 1024, 64, 8, 4
     base = rng.normal(size=(1, d)).astype(np.float32)
@@ -654,37 +677,165 @@ def test_topk_mode_model_matches_tile_topk_plain(k):
     assert np.array_equal(got_s, want_s.numpy())
 
 
+def tensor_core_entry(dtype, k):
+    """The symbol of K1 / K2's tensor-core entry for rows of ``dtype`` and
+    lists of ``k`` (the TOPK mode to k 32, the wide mode to k 256), or
+    None past them."""
+    if k > 256:
+        return None
+    return ("scan_topk_exact_" if k <= 32 else "scan_topk_wide_") + {
+        "f32": "tf32", "bf16": "bf16", "int8": "s8"}[dtype]
+
+
+#: the wide mode's empty slot: (-inf, WIDE_PLACE), after every row
+WIDE_PLACE = 0xFFFF
+
+
+def _precedes(s1, r1, s2, r2):
+    return (s1 > s2) | ((s1 == s2) & (r1 < r2))
+
+
+def _cx_steps(s, r, size, d):
+    """The wide mode's compare-exchange steps d, d / 2, ..., 1 over runs of
+    ``size`` (csrc/scan_mma.cuh cx_step): element e's partner is e ^ d; the
+    lower element of a pair takes the better one in a run sorted descending
+    ((e & size) == 0), the worse one in an ascending run."""
+    e = np.arange(len(s))
+    while d >= 1:
+        p = e ^ d
+        better = ((e & d) == 0) == ((e & size) == 0)
+        take = _precedes(s[p], r[p], s, r) == better
+        s, r = np.where(take, s[p], s), np.where(take, r[p], r)
+        d //= 2
+    return s, r
+
+
+def _bitonic_sort(s, r):
+    size = 2
+    while size <= len(s):
+        s, r = _cx_steps(s, r, size, size // 2)
+        size *= 2
+    return s, r
+
+
+def _merge_batch(ls, lr, bs, br):
+    """merge_batch: the batch sorted; list entry i takes the better of
+    itself and batch entry len(ls) - 1 - i (empty slots past the batch);
+    then a bitonic merge of the list."""
+    kp = len(ls)
+    bs, br = _bitonic_sort(bs, br)
+    ps = np.full(kp, -np.inf, np.float32)
+    pr = np.full(kp, WIDE_PLACE)
+    ps[:len(bs)], pr[:len(br)] = bs, br
+    take = _precedes(ps[::-1], pr[::-1], ls, lr)
+    ls, lr = np.where(take, ps[::-1], ls), np.where(take, pr[::-1], lr)
+    return _cx_steps(ls, lr, kp, kp // 2)
+
+
+def wide_mode_model(s, tile_n, k, batches=None):
+    """A NumPy model of the wide mode's selection over a [B, N] score
+    matrix, network for network: per tile and query one list of 128 (k <=
+    128) or 256 entries, empty slots (-inf, 0xFFFF); each 128-row chunk's
+    rows that precede the k-th entry (none: the chunk is skipped), packed in
+    row order into a batch of 32 or 64 (empty slots past them) or, past 64,
+    all 128 rows; the batch sorted and merged into the list
+    (_merge_batch). Order: (score descending, row ascending). Returns ([B,
+    T, k] scores, int32 rows); ``batches`` counts the batch sizes."""
+    b, n = s.shape
+    n_tiles = n // tile_n
+    kp = 128 if k <= 128 else 256
+    out_s = np.empty((b, n_tiles, k), np.float32)
+    out_i = np.empty((b, n_tiles, k), np.int32)
+    for q in range(b):
+        for t in range(n_tiles):
+            ls = np.full(kp, -np.inf, np.float32)
+            lr = np.full(kp, WIDE_PLACE)
+            for c in range(tile_n // 128):
+                cs = s[q, t * tile_n + c * 128:t * tile_n + (c + 1) * 128]
+                cr = np.arange(c * 128, (c + 1) * 128)
+                cand = _precedes(cs, cr, ls[k - 1], lr[k - 1])
+                m = int(cand.sum())
+                if m == 0:
+                    continue
+                if m > 64:
+                    bs, br = cs, cr
+                else:
+                    size = 32 if m <= 32 else 64
+                    bs = np.full(size, -np.inf, np.float32)
+                    br = np.full(size, WIDE_PLACE)
+                    bs[:m], br[:m] = cs[cand], cr[cand]
+                if batches is not None:
+                    batches[len(bs)] = batches.get(len(bs), 0) + 1
+                ls, lr = _merge_batch(ls, lr, bs, br)
+            out_s[q, t] = ls[:k]
+            out_i[q, t] = lr[:k] + t * tile_n
+    return out_s, out_i
+
+
+@pytest.mark.parametrize("k, tile_n", [
+    (33, 512), (64, 512), (100, 512), (128, 512), (256, 512), (33, 2048), (100, 2048),
+    (128, 2048), (256, 2048), (128, 128), (256, 256),
+])
+def test_wide_mode_model_matches_tile_topk_plain(k, tile_n):
+    """The wide mode's selection (a list a query, a batch a chunk merged by
+    bitonic networks) gives tile_topk_plain's ids and scores exactly on
+    integer-valued scores with many ties, an all-invalid tile, a tile
+    invalid but for one row, a tile whose rows rise (every chunk's rows
+    all enter) and one whose rows fall, and k up to tile_n; over 2,048-row
+    tiles batches of 32, 64 and 128 all occur."""
+    g = np.random.default_rng([k, tile_n])
+    b, n = 3, 5 * tile_n
+    s = g.integers(-4, 5, size=(b, n)).astype(np.float32)
+    s[:, tile_n:3 * tile_n] = -np.inf  # tile 1: no valid row
+    s[:, 2 * tile_n + 100] = 2.0  # tile 2: one valid row
+    s[0, 3 * tile_n:4 * tile_n] = np.arange(tile_n) // 3  # rising, in ties of three
+    s[1, 3 * tile_n:4 * tile_n] = -np.arange(tile_n) // 5  # falling, in ties of five
+    s[2, 3 * tile_n:4 * tile_n] = g.normal(size=tile_n)
+    batches = {}
+    got_s, got_i = wide_mode_model(s, tile_n, k, batches)
+    want_s, want_i = scan.stable_topk(torch.from_numpy(s).view(b, n // tile_n, tile_n), k)
+    want_i = want_i + torch.arange(n // tile_n)[None, :, None] * tile_n
+    assert np.array_equal(got_i, want_i.numpy())
+    assert np.array_equal(got_s, want_s.numpy())
+    if tile_n == 2048:
+        assert set(batches) == {32, 64, 128}
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("k", [1, 16, 32, 33])
+@pytest.mark.parametrize("k", [1, 16, 32, 33, 128, 256, 257])
 def test_exact_route(dtype, k):
     """exact_route: up to k 32 the tensor-core body's TOPK mode by the rows'
-    dtype (f32: 3xTF32, bf16, int8: K2), beyond it the CUDA-core K1 / K2;
-    manhattan always K4."""
+    dtype (f32: 3xTF32, bf16, int8: K2), up to k 256 its wide mode (tiles
+    of at most 32,768 rows), beyond them the CUDA-core K1 / K2; manhattan
+    always K4."""
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
-    want = {
-        "f32": scan.SCAN_TOPK_EXACT_TF32, "bf16": scan.SCAN_TOPK_EXACT_BF16,
-        "int8": scan.SCAN_TOPK_EXACT_S8,
-    }[dtype] if k <= 32 else (scan.SCAN_TOPK_EXACT_INT8 if dtype == "int8"
-                              else scan.SCAN_TOPK_EXACT)
+    core = scan.SCAN_TOPK_EXACT_INT8 if dtype == "int8" else scan.SCAN_TOPK_EXACT
+    want = tensor_core_entry(dtype, k) or core.symbol
     for metric in METRICS:
-        assert scan.exact_route(dt, k, SimilarityMetric[metric]) is want
+        assert scan.exact_route(dt, k, SimilarityMetric[metric]).symbol == want
+        for tile_n in (2048, 32768, 65536):
+            wide = 32 < k <= 256 and tile_n > scan.WIDE_MAX_TILE
+            assert scan.exact_route(dt, k, SimilarityMetric[metric], tile_n).symbol == (
+                core.symbol if wide else want)
     assert scan.exact_route(dt, k, SimilarityMetric.MANHATTAN) is scan.SCAN_TOPK_L1
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("k", [16, 33])
+@pytest.mark.parametrize("k", [16, 32, 33, 128, 256, 257])
 def test_exact_wrapper_routes_rows_by_dtype_and_k(dtype, k, monkeypatch):
     """tile_topk_cuda launches the kernel exact_route names, once, with its
     own operands: the tf32 / bf16 / int8 query operand (and the int8 term
-    scales) on the tensor-core body, the transposed f32 queries and a dtype
-    code on the CUDA-core body. A fake card lets the host side run here."""
+    scales) on the tensor-core body (both modes), the transposed f32
+    queries and a dtype code on the CUDA-core body. A fake card lets the
+    host side run here."""
     n, d, b, tile_n = 1024, 100, 5, 512
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
     rows = torch.zeros((n, d), dtype=dt)
     scales = torch.ones(n) if dtype == "int8" else None
     launched = []
     kernels = (scan.SCAN_TOPK_EXACT, scan.SCAN_TOPK_EXACT_INT8, scan.SCAN_TOPK_EXACT_TF32,
-               scan.SCAN_TOPK_EXACT_BF16, scan.SCAN_TOPK_EXACT_S8)
+               scan.SCAN_TOPK_EXACT_BF16, scan.SCAN_TOPK_EXACT_S8, scan.SCAN_TOPK_WIDE_TF32,
+               scan.SCAN_TOPK_WIDE_BF16, scan.SCAN_TOPK_WIDE_S8)
     for kern in kernels:
         monkeypatch.setattr(kern, "launch",
                             lambda *a, kern=kern: launched.append((kern.symbol, a)))
@@ -701,10 +852,11 @@ def test_exact_wrapper_routes_rows_by_dtype_and_k(dtype, k, monkeypatch):
                                torch.zeros((b, d)), metric=SimilarityMetric.EUCLIDEAN,
                                k_tile=k, tile_n=tile_n)
     assert s.shape == i.shape == (b, n // tile_n, k)
-    want = scan.exact_route(dt, k, SimilarityMetric.EUCLIDEAN)
+    want = scan.exact_route(dt, k, SimilarityMetric.EUCLIDEAN, tile_n)
+    assert want.symbol == (tensor_core_entry(dtype, k) or want.symbol)
     assert [sym for sym, _ in launched] == [want.symbol]
     args = launched[0][1]
-    if k <= 32:
+    if k <= 256:
         assert ops == [{"f32": "query_operand_tf32", "bf16": "query_operand",
                         "int8": "query_operand_int8"}[dtype]]
         tail = args[9:15] if dtype == "int8" else args[7:13]
@@ -766,8 +918,8 @@ def assert_topk_matches(got, want):
 def test_exact_kernel_matches_plain_on_the_card(dtype, k, tile_n, shape):
     """K1 on the route exact_route names: the tensor-core body's TOPK mode
     (k <= 32; scan_topk_exact_tf32 over f32 rows, _bf16 over bf16 rows),
-    the CUDA-core scan_topk_exact's shared-memory lists (k > 32) and lists
-    in the output (k > 256)."""
+    its wide mode (k 33-256: scan_topk_wide_tf32) and the CUDA-core
+    scan_topk_exact's lists in the output (k > 256)."""
     rows, sq, valid, q = card_inputs(*shape)
     v, _ = rows[dtype]
     for metric in METRICS:
@@ -805,13 +957,13 @@ TOPK_IDS = ["8192x100-B5-t2048", "65536x384-B256-t4096", "16384x768-B70-t2048",
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", TOPK_SHAPES, ids=TOPK_IDS)
-@pytest.mark.parametrize("k", [1, 10, 16, 32, 33])
+@pytest.mark.parametrize("k", [1, 10, 16, 32, 33, 64, 100, 128, 256])
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 def test_exact_topk_mode_matches_plain_on_the_card(dtype, k, shape):
     """K1 and K2 on the route exact_route names (k <= 32: the tensor-core
-    body's TOPK mode, scan_topk_exact_tf32 / _bf16 / _s8; k 33: the
-    CUDA-core scan_topk_exact / _int8), one launch a metric: every tile's
-    list held against tile_topk_plain's under the 1e-5 rule, with 5%
+    body's TOPK mode, scan_topk_exact_tf32 / _bf16 / _s8; k 33-256: its wide
+    mode, scan_topk_wide_tf32 / _bf16 / _s8), one launch a metric: every
+    tile's list held against tile_topk_plain's under the 1e-5 rule, with 5%
     invalid rows, rows 7, 300 and 900 one row (ties to the lowest), query 0
     near them, and tile 1 without a valid row."""
     n, d, b, tile_n = shape
@@ -827,13 +979,8 @@ def test_exact_topk_mode_matches_plain_on_the_card(dtype, k, shape):
     valid[tile_n:2 * tile_n] = False
     q[0] = rows["f32"][0][7] + 0.5 * q[0]
     v, scales = rows[dtype]
-    kernel = scan.exact_route(v.dtype, k, SimilarityMetric.COSINE)
-    if k <= 32:
-        want = {"f32": "scan_topk_exact_tf32", "bf16": "scan_topk_exact_bf16",
-                "int8": "scan_topk_exact_s8"}[dtype]
-    else:
-        want = "scan_topk_exact_int8" if dtype == "int8" else "scan_topk_exact"
-    assert kernel.symbol == want
+    kernel = scan.exact_route(v.dtype, k, SimilarityMetric.COSINE, tile_n)
+    assert kernel.symbol == tensor_core_entry(dtype, k)
     for metric in METRICS:
         m = SimilarityMetric[metric]
         before = kernel.launches

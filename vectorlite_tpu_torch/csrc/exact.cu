@@ -11,9 +11,10 @@
 //                         scale in the epilogue.
 //
 // Each writes tile_topk_plain's [B, n / tile_n, k]: each tile's top k by
-// (score descending, row ascending), invalid rows at -inf. k > 32 stays on
-// the CUDA-core body (csrc/scan.cu scan_topk_exact / _int8), chosen before
-// any launch (kernels/scan.py exact_route).
+// (score descending, row ascending), invalid rows at -inf. 32 < k <= 256
+// runs on the body's wide mode (csrc/wide.cu), k > 256 on the CUDA-core
+// body (csrc/scan.cu scan_topk_exact / _int8), chosen before any launch
+// (kernels/scan.py exact_route).
 //
 // Bounds at the main-path shapes (2^20 x 384 rows, B = 256): f32 rows,
 // three tf32 passes of 2 B N D = 206 GFLOP at 494.7 TFLOP/s, 1.25 ms
@@ -78,9 +79,9 @@ int scan_topk_exact_s8(const void* q_img, const void* q_scale, const void* qsq,
 int scan_topk_exact_stages(int dtype, int d) {
   bool resident = false;
   const int stages =
-      dtype == 2   ? scan_mma::plan_stages<int8_t, scan_mma::TOPK>(d, &resident)
-      : dtype == 1 ? scan_mma::plan_stages<uint16_t, scan_mma::TOPK>(d, &resident)
-                   : scan_mma::plan_stages<float, scan_mma::TOPK>(d, &resident);
+      dtype == 2   ? scan_mma::plan_stages<int8_t, scan_mma::TOPK, 1>(d, &resident)
+      : dtype == 1 ? scan_mma::plan_stages<uint16_t, scan_mma::TOPK, 1>(d, &resident)
+                   : scan_mma::plan_stages<float, scan_mma::TOPK, 1>(d, &resident);
   return resident ? stages : -stages;
 }
 

@@ -1,12 +1,14 @@
 // The tensor-core scan body for Hopper (sm_90a): f32 queries against bf16,
 // int8 or f32 rows on wgmma, with a per-(query, lane group) selection that
-// lives on the accumulators, or a per-query top-k (TOPK, below).
+// lives on the accumulators, or a per-query top-k (TOPK and WIDE, below).
 // csrc/lanes.cu runs on it K3 over bf16 and int8 rows
 // (scan_block_topw_bf16, scan_block_topw_s8), K7 over bf16 rows
 // (scan_merge_topw) and K8 (scan_fold_probe); csrc/exact.cu K1 over f32 and
 // bf16 rows (scan_topk_exact_tf32, scan_topk_exact_bf16) and K2
-// (scan_topk_exact_s8) at k <= 32. The CUDA-core body of scan_kernel.cuh
-// keeps K1 and K2 at k > 32, K4, and K3 and K7 over f32 rows.
+// (scan_topk_exact_s8) at k <= 32; csrc/wide.cu the same three at 32 < k
+// <= 256 (scan_topk_wide_tf32, _bf16, _s8). The CUDA-core body of
+// scan_kernel.cuh keeps K1 and K2 at k > 256, K4, and K3 and K7 over f32
+// rows.
 //
 // Bounds at the headline shape (2^20 x 384 rows, B = 256). bf16 rows: one
 // bf16 pass is 2 B N D = 206 GFLOP, 0.21 ms at 989 TFLOP/s, and the rows'
@@ -142,7 +144,34 @@
 // list's 1,024 rows a tile enter it, and each insertion is a chain of
 // shuffles.
 //
-// f32 rows (TOPK only). A stage cannot carry the query terms a warpgroup
+// WIDE (K1, K2: [B, T, k], 32 < k <= 32 W; W 4 or 8). Lists of 128 or
+// 256 entries a query fit neither a warp's registers (16 queries a warp)
+// nor two a query in shared memory, and at these k most of a tile's rows
+// enter a list, so one insertion a row (the CUDA-core body's lists, 77-93
+// ms at the main path's k) is the wrong design. A block keeps one list a
+// query in shared memory, 32 W scores and 32 W rows as 16-bit offsets in
+// the tile (tiles up to WIDE_MAX_TILE rows; 48 KB at W 4, 96 KB at W 8),
+// fed by both warpgroups' score tiles: after each chunk's scores are
+// written, a block barrier, then each of the 8 warps merges the chunk's
+// 128 rows into its 8 queries' lists, one query at a time
+// (wide_merge_query): a ballot against the k-th entry decides whether the
+// query merges and which batch (up to 32 or 64 rows packed, else all 128),
+// a bitonic sort of the batch, and a bitonic merge of the batch into the
+// list (merge_batch), a fixed network whatever the number of rows that
+// enter. Every row passes through a batch or is beaten by the k-th entry,
+// and placeholders (-inf, WIDE_PLACE) sort after every row, so a list's
+// first k are the tile's top k once its k <= tile_n rows are seen. A
+// block barrier before the next chunk's scores keeps the tiles intact for
+// the merges. The lists and score tiles leave no room for resident query
+// terms, and terms streamed a warpgroup would take 32 KB a stage each: so
+// one ring serves both warpgroups (Ring::SHARED, as over f32 rows, below),
+// a stage holding the slice's terms once and each warpgroup's rows (40 KB
+// over bf16 and int8 rows: 2-3 stages), released once both have read it.
+// The merges hold most of the time (scripts/probe_exact_topk.py, PERF.md):
+// each step is a handful of integer and predicate instructions a pair,
+// the SMs' issue of them bounds it, not the shuffles' latency.
+//
+// f32 rows (TOPK and WIDE). A stage cannot carry the query terms a warpgroup
 // as over bf16 rows: two tf32 terms of 64 queries are 192 KB at D 384, and
 // streamed per warpgroup they would double the L2 reads of the terms. So
 // one ring serves both warpgroups: a stage holds the slice's two query
@@ -186,14 +215,18 @@ constexpr int MAX_STAGES = 8;
 constexpr int SMEM_MAX = 232448;         // Hopper's per-block shared-memory limit
 constexpr int TOPK_MAX = 32;             // TOPK: a list's entries, one a lane
 constexpr int WARP_QUERIES = QN / 4;     // TOPK: queries a warp merges
-constexpr int SCORE_BYTES = WG_ROWS * QN * 4;  // TOPK: a warpgroup's score tile
+constexpr int SCORE_BYTES = WG_ROWS * QN * 4;  // TOPK, WIDE: a warpgroup's score tile
+constexpr int WIDE_QUERIES = QN / 8;     // WIDE: queries a warp merges (of the block's 8)
+constexpr int WIDE_MAX_TILE = 1 << 15;   // WIDE: a list names rows by 16-bit offsets in the tile
+constexpr int WIDE_PLACE = 0xFFFF;       // WIDE: an empty slot's row (-inf, after every row)
 
 // What a block keeps of each (query, lane group): its top W by (score
 // descending, row ascending) (K3, K7, K8 full), its W largest distinct
 // scores (K8 maxonly), or nothing: the tile's first chunk is written as it
 // is (K8 none; the wgmmas are volatile asm, so every chunk is contracted
-// all the same); or each query's top k of the tile (TOPK: K1, K2).
-enum Mode { TOPW = 0, DISTINCT = 1, FIRST = 2, TOPK = 3 };
+// all the same); or each query's top k of the tile (TOPK: K1, K2, k <= 32;
+// WIDE: k <= 32 W, W 4 or 8).
+enum Mode { TOPW = 0, DISTINCT = 1, FIRST = 2, TOPK = 3, WIDE = 4 };
 // TMA: rows staged by tensor copies (else by plain loads); RESIDENT: the
 // query terms stay in shared memory (else each stage carries its slice's);
 // GROUP_ROW: an empty TOPW slot names its lane group's first row of the
@@ -232,6 +265,15 @@ struct Rows<float> {
   static constexpr int QTERMS = 2;
   static constexpr bool SPLIT = true;
   static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
+// SHARED: one ring serves both warpgroups, a stage holding the slice's
+// query terms once and each warpgroup's 64 rows (f32 rows, and every row
+// type in the WIDE mode, whose lists leave no room for resident terms);
+// else each warpgroup has a ring of its own.
+template <typename T, int MODE>
+struct Ring {
+  static constexpr bool SHARED = Rows<T>::SPLIT || MODE == WIDE;
 };
 
 // A chunk's three passes and their sums, by row type. bf16: the h term's
@@ -334,29 +376,31 @@ __device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& l
 struct Layout {
   size_t ring;    // offset of warpgroup 0's ring (the resident query terms come first)
   size_t stage;   // bytes of a stage
-  size_t scores;  // TOPK: [2][QN][WG_ROWS] f32, each warpgroup's score tile
+  size_t scores;  // TOPK, WIDE: [2][QN][WG_ROWS] f32, each warpgroup's score tile
+  size_t lists;   // WIDE: [QN][32 W] f32 scores, then [QN][32 W] u16 rows, a list a query
   size_t qnorm;   // [3][QN] f32: the block's query squared norms, 1 / the norms, term scales
-  size_t bars;    // 2 x stages full barriers (SPLIT: stages full, stages empty), then the
+  size_t bars;    // 2 x stages full barriers (SHARED: stages full, stages empty), then the
                   // query terms' barrier
   size_t bytes;   // dynamic shared memory, with the slack to align the base to 1 KB
 };
 
 // A warpgroup's ring (bf16, int8 rows): a stage is its 64 rows of a slice,
-// then (unless resident) the slice's query terms. The shared ring (SPLIT):
+// then (unless resident) the slice's query terms. The shared ring (SHARED):
 // a stage is the slice's query terms, then each warpgroup's 64 rows.
-template <typename T>
-__host__ __device__ inline Layout layout_for(int slices, bool resident, int stages, bool topk) {
+template <typename T, int MODE, int W>
+__host__ __device__ inline Layout layout_for(int slices, bool resident, int stages) {
   constexpr size_t QBYTES = static_cast<size_t>(Rows<T>::QTERMS) * QSLICE;
   Layout l;
   l.ring = resident ? static_cast<size_t>(slices) * QBYTES : 0;
-  if (Rows<T>::SPLIT) {
+  if (Ring<T, MODE>::SHARED) {
     l.stage = QBYTES + 2 * BOX;
     l.scores = l.ring + stages * l.stage;
   } else {
     l.stage = BOX + (resident ? 0 : QBYTES);
     l.scores = l.ring + 2 * stages * l.stage;
   }
-  l.qnorm = l.scores + (topk ? 2 * SCORE_BYTES : 0);
+  l.lists = l.scores + (MODE == TOPK || MODE == WIDE ? 2 * SCORE_BYTES : 0);
+  l.qnorm = l.lists + (MODE == WIDE ? static_cast<size_t>(QN) * 32 * W * 6 : 0);
   l.bars = l.qnorm + 3 * QN * sizeof(float);
   l.bytes = l.bars + (2 * stages + 1) * 8 + 1024;
   return l;
@@ -416,6 +460,151 @@ __device__ __forceinline__ void sort_step(float& s0, int& r0, float& s1, int& r1
       s = os;
       r = orow;
     }
+  }
+}
+
+// WIDE: a warp's 32 S (score, row) pairs, element e = 32 a + lane in slot a
+// of lane e % 32. One compare-exchange step of a bitonic network: partners
+// at distance D, from 32 on in one lane across slots, below it across lanes
+// by shuffles; the lower element of a pair takes the better one in a run
+// sorted descending ((e & SIZE) == 0), the worse one in an ascending run.
+template <int S, int SIZE, int D>
+__device__ __forceinline__ void cx_step(float (&s)[S], int (&r)[S], int lane) {
+  if constexpr (D >= 32) {
+    constexpr int DS = D / 32;
+#pragma unroll
+    for (int a = 0; a < S; ++a) {
+      if ((a & DS) == 0) {
+        const bool desc = ((a * 32) & SIZE) == 0;
+        const bool swap = precedes(s[a + DS], r[a + DS], s[a], r[a]) == desc;
+        const float ts = s[a];
+        const int tr = r[a];
+        s[a] = swap ? s[a + DS] : s[a];
+        r[a] = swap ? r[a + DS] : r[a];
+        s[a + DS] = swap ? ts : s[a + DS];
+        r[a + DS] = swap ? tr : r[a + DS];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int a = 0; a < S; ++a) {
+      const int e = a * 32 + lane;
+      const float os = __shfl_xor_sync(0xffffffffu, s[a], D);
+      const int orow = __shfl_xor_sync(0xffffffffu, r[a], D);
+      const bool better = ((e & D) == 0) == ((e & SIZE) == 0);
+      if (precedes(os, orow, s[a], r[a]) == better) {
+        s[a] = os;
+        r[a] = orow;
+      }
+    }
+  }
+}
+
+// The steps D, D / 2, ..., 1 of runs of SIZE.
+template <int S, int SIZE, int D>
+__device__ __forceinline__ void cx_steps(float (&s)[S], int (&r)[S], int lane) {
+  cx_step<S, SIZE, D>(s, r, lane);
+  if constexpr (D > 1) cx_steps<S, SIZE, D / 2>(s, r, lane);
+}
+
+// A bitonic sort of the warp's 32 S pairs, descending: runs of SIZE, 2
+// SIZE, ..., 32 S.
+template <int S, int SIZE = 2>
+__device__ __forceinline__ void bitonic_sort(float (&s)[S], int (&r)[S], int lane) {
+  cx_steps<S, SIZE, SIZE / 2>(s, r, lane);
+  if constexpr (SIZE < 32 * S) bitonic_sort<S, SIZE * 2>(s, r, lane);
+}
+
+// WIDE: a batch of 32 SB (score, row) pairs (SB <= KS; any order, (-inf,
+// WIDE_PLACE) where a lane has none) into a query's list of 32 KS in shared
+// memory (sorted), which keeps the top 32 KS of both. The batch is sorted;
+// list entry i takes the better of itself and batch entry 32 KS - 1 - i,
+// which leaves the top 32 KS of both in a bitonic order (the list
+// descending against the batch ascending; entries below 32 (KS - SB)
+// face the batch's empty slots and stay), and a bitonic merge sorts them.
+// A fixed network: log^2 steps of the batch and log2(32 KS) of the merge,
+// however many of the batch enter.
+template <int KS, int SB>
+__device__ __forceinline__ void merge_batch(float* lst_s, uint16_t* lst_r, float (&bs)[SB],
+                                            int (&br)[SB], int lane) {
+  bitonic_sort<SB>(bs, br, lane);
+  float s[KS];
+  int r[KS];
+#pragma unroll
+  for (int a = 0; a < KS; ++a) {
+    s[a] = lst_s[a * 32 + lane];
+    r[a] = lst_r[a * 32 + lane];
+  }
+#pragma unroll
+  for (int a = KS - SB; a < KS; ++a) {
+    const float os = __shfl_xor_sync(0xffffffffu, bs[KS - 1 - a], 31);
+    const int orow = __shfl_xor_sync(0xffffffffu, br[KS - 1 - a], 31);
+    if (precedes(os, orow, s[a], r[a])) {
+      s[a] = os;
+      r[a] = orow;
+    }
+  }
+  cx_steps<KS, 32 * KS, 16 * KS>(s, r, lane);
+#pragma unroll
+  for (int a = 0; a < KS; ++a) {
+    lst_s[a * 32 + lane] = s[a];
+    lst_r[a * 32 + lane] = static_cast<uint16_t>(r[a]);
+  }
+}
+
+// WIDE: a chunk's 128 rows (both warpgroups' score tiles; base: the
+// chunk's first row in the tile) into query ql's list. The rows that
+// precede the k-th entry (a ballot) decide whether the query merges at all
+// and which batch it merges: up to 32 or 64 of them packed into the
+// query's rows of the score tiles (read already), else all 128 rows as
+// they are (a row that does not beat the k-th entry only moves entries
+// past k).
+template <int W>
+__device__ __forceinline__ void wide_merge_query(float* score_tile, float* ls_, uint16_t* lr_,
+                                                 int ql, int base, int k, int lane) {
+  float cs[4];
+  int cr[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    cs[u] = score_tile[(u >> 1) * (QN * WG_ROWS) + score_at(ql, (u & 1) * 32 + lane)];
+    cr[u] = base + u * 32 + lane;
+  }
+  const float kth_s = ls_[k - 1];
+  const int kth_r = lr_[k - 1];
+  unsigned in[4];
+  int m = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    in[u] = __ballot_sync(0xffffffffu, precedes(cs[u], cr[u], kth_s, kth_r));
+    m += __popc(in[u]);
+  }
+  if (m == 0) return;
+  if (m > 64) {
+    merge_batch<W, 4>(ls_, lr_, cs, cr, lane);
+    return;
+  }
+  float* const pack_s = score_tile + ql * WG_ROWS;  // the query's row of tile 0 ...
+  int* const pack_r = reinterpret_cast<int*>(score_tile + (QN + ql) * WG_ROWS);  // ... of 1
+  __syncwarp();
+  int at = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if ((in[u] >> lane) & 1) {
+      const int p = at + __popc(in[u] & ((1u << lane) - 1));
+      pack_s[p] = cs[u];
+      pack_r[p] = cr[u];
+    }
+    at += __popc(in[u]);
+  }
+  __syncwarp();
+  if (m <= 32) {
+    float bs[1] = {lane < m ? pack_s[lane] : -CUDART_INF_F};
+    int br[1] = {lane < m ? pack_r[lane] : WIDE_PLACE};
+    merge_batch<W, 1>(ls_, lr_, bs, br, lane);
+  } else {
+    float bs[2] = {pack_s[lane], lane + 32 < m ? pack_s[lane + 32] : -CUDART_INF_F};
+    int br[2] = {pack_r[lane], lane + 32 < m ? pack_r[lane + 32] : WIDE_PLACE};
+    merge_batch<W, 2>(ls_, lr_, bs, br, lane);
   }
 }
 
@@ -505,7 +694,7 @@ __device__ __forceinline__ void list_update(float (&ls)[W][LISTS], Ids<W>& ids, 
 // blockIdx.y * tiles_per_block on, one without F_WALK), into out_s/out_i
 // [n_tiles, B, n_out] or, with F_QUERY_MAJOR, [B, n_tiles, n_out] (n_out =
 // 128 for FIRST, W * 128 otherwise, position w * 128 + lane group; TOPK
-// writes [B, n_tiles, k]). K8 passes no qsq, sqnorms or validity (dot,
+// and WIDE write [B, n_tiles, k]). K8 passes no qsq, sqnorms or validity (dot,
 // every row valid); only int8 rows have scales and query term scales.
 template <typename T, int MODE, int W>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -521,12 +710,13 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
              int d, int b, int tile_n, int n_tiles, int tiles_per_block, int metric,
              int slices, int stages, int flags, int k) {
   constexpr bool SPLIT = Rows<T>::SPLIT;
+  constexpr bool SHARED = Ring<T, MODE>::SHARED;
   constexpr int QBYTES = Rows<T>::QTERMS * QSLICE;
   extern __shared__ __align__(16) uint8_t body_smem[];
   uint8_t* smem = body_smem + ((1024 - (smem_addr(body_smem) & 1023)) & 1023);
   const bool tma = flags & F_TMA;
   const bool resident = flags & F_RESIDENT;
-  const Layout lay = layout_for<T>(slices, resident, stages, MODE == TOPK);
+  const Layout lay = layout_for<T, MODE, W>(slices, resident, stages);
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -542,25 +732,25 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
   const int tile_chunks = tile_n / CHUNK;
   const int steps = my_tiles * tile_chunks * slices;
 
-  // SPLIT: one ring for both warpgroups, full barriers then empty ones
-  uint8_t* ring = smem + lay.ring + (SPLIT ? 0 : static_cast<size_t>(wg) * stages * lay.stage);
+  // SHARED: one ring for both warpgroups, full barriers then empty ones
+  uint8_t* ring = smem + lay.ring + (SHARED ? 0 : static_cast<size_t>(wg) * stages * lay.stage);
   float* qn = reinterpret_cast<float*>(smem + lay.qnorm);  // qsq, 1 / |q|, term scale
   const uint32_t bars = smem_addr(smem + lay.bars);
-  const uint32_t full0 = bars + (SPLIT ? 0 : 8 * wg * stages);
-  const uint32_t empty0 = bars + 8 * stages;  // SPLIT
+  const uint32_t full0 = bars + (SHARED ? 0 : 8 * wg * stages);
+  const uint32_t empty0 = bars + 8 * stages;  // SHARED
   const uint32_t img_bar = bars + 8 * 2 * stages;
-  const uint32_t stage_tx = SPLIT ? QBYTES + (tma ? 2 * BOX : 0)
+  const uint32_t stage_tx = SHARED ? QBYTES + (tma ? 2 * BOX : 0)
                                   : (tma ? BOX : 0) + (resident ? 0 : QBYTES);
   const size_t img_bytes = static_cast<size_t>(slices) * QBYTES;
   const uint8_t* img = q_img + blockIdx.x * img_bytes;
   // this warpgroup's rows in stage st
   auto rows_at = [&](int st) {
-    return ring + static_cast<size_t>(st) * lay.stage + (SPLIT ? QBYTES + wg * BOX : 0);
+    return ring + static_cast<size_t>(st) * lay.stage + (SHARED ? QBYTES + wg * BOX : 0);
   };
 
   if (tid == 0) {
     for (int i = 0; i < 2 * stages + 1; ++i)
-      mbar_init(bars + 8 * i, SPLIT && i >= stages && i < 2 * stages ? 2 : 1);
+      mbar_init(bars + 8 * i, SHARED && i >= stages && i < 2 * stages ? 2 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (tid < QN) {
@@ -573,14 +763,14 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
   __syncthreads();
 
   // step j = chunk j / slices of the run, slice j % slices, into stage j %
-  // stages (SPLIT: the block's first thread, for both warpgroups)
+  // stages (SHARED: the block's first thread, for both warpgroups)
   auto issue = [&](int j) {
     if (stage_tx == 0) return;
     const int st = j % stages;
     const int s = j % slices;
     const uint32_t bar = full0 + 8 * st;
     const uint32_t dst = smem_addr(ring + st * lay.stage);
-    if constexpr (SPLIT) {
+    if constexpr (SHARED) {
       const long long row0 = run_base + static_cast<long long>(j / slices) * CHUNK;
       mbar_expect_tx(bar, stage_tx);
       bulk_load(dst, img + static_cast<size_t>(s) * QBYTES, QBYTES, bar);
@@ -623,7 +813,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
   };
-  // SPLIT (the block's first thread): issue the steps whose stage both
+  // SHARED (the block's first thread): issue the steps whose stage both
   // warpgroups have released, up to step j + stages - 1, waiting only when
   // step j itself is not issued yet
   int issued = min(stages, steps);
@@ -673,7 +863,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
     mbar_expect_tx(img_bar, static_cast<uint32_t>(img_bytes));
     bulk_load(smem_addr(smem), img, static_cast<uint32_t>(img_bytes), img_bar);
   }
-  if (SPLIT ? tid == 0 : wtid == 0)
+  if (SHARED ? tid == 0 : wtid == 0)
     for (int j = 0; j < stages && j < steps; ++j) issue(j);
   __syncwarp();
   if (resident) mbar_wait(img_bar, 0);
@@ -688,12 +878,23 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
   float ks[WARP_QUERIES];
   int kr[WARP_QUERIES];
   float* const score_tile = reinterpret_cast<float*>(smem + lay.scores);
+  // WIDE: the list of query ql at list_s / list_r + 32 W ql, which warp
+  // ql / WIDE_QUERIES (of the block's 8) alone reads and writes
+  constexpr int KP = 32 * W;
+  float* const list_s = reinterpret_cast<float*>(smem + lay.lists);
+  uint16_t* const list_r = reinterpret_cast<uint16_t*>(smem + lay.lists + QN * KP * 4);
   auto reset = [&]() {
     if constexpr (MODE == TOPK) {
 #pragma unroll
       for (int i = 0; i < WARP_QUERIES; ++i) {
         ks[i] = -CUDART_INF_F;
         kr[i] = 0x7fffffff;
+      }
+    } else if constexpr (MODE == WIDE) {
+      const int first = (tid >> 5) * WIDE_QUERIES * KP;
+      for (int e = lane; e < WIDE_QUERIES * KP; e += 32) {
+        list_s[first + e] = -CUDART_INF_F;
+        list_r[first + e] = WIDE_PLACE;
       }
     } else {
 #pragma unroll
@@ -887,6 +1088,36 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
     }
     __syncthreads();  // the score tiles are free again
   };
+  // WIDE: the chunk's rows into the lists of the warp's 8 queries
+  // (wide_merge_query), one query at a time (two at a time, their steps
+  // interleaved, ran no faster: the merge is bound by the instructions
+  // it issues, not by the shuffles' latency)
+  auto wide_merge = [&](int base) {
+    if constexpr (MODE == WIDE) {
+#pragma unroll 1
+      for (int i = 0; i < WIDE_QUERIES; ++i) {
+        const int ql = (tid >> 5) * WIDE_QUERIES + i;
+        if (q0 + ql >= b) break;  // warp-uniform
+        wide_merge_query<W>(score_tile, list_s + ql * KP, list_r + ql * KP, ql, base, k, lane);
+      }
+    }
+  };
+  // WIDE: the first k entries of the warp's queries' lists to [B, T, k]
+  auto wide_flush = [&](int tile) {
+    if constexpr (MODE == WIDE) {
+      const long long tile_base = static_cast<long long>(tile) * tile_n;
+      for (int i = 0; i < WIDE_QUERIES; ++i) {
+        const int ql = (tid >> 5) * WIDE_QUERIES + i;
+        const int q = q0 + ql;
+        if (q >= b) break;  // warp-uniform
+        const size_t o = (static_cast<size_t>(q) * n_tiles + tile) * k;
+        for (int e = lane; e < k; e += 32) {
+          out_s[o + e] = list_s[ql * KP + e];
+          out_i[o + e] = static_cast<int>(tile_base + list_r[ql * KP + e]);
+        }
+      }
+    }
+  };
 
   const uint32_t img_s = smem_addr(smem);
   Dots<T> acc;
@@ -899,31 +1130,45 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
       for (int s = 0; s < slices; ++s) {
         const int j = c * slices + s;
         const int st = j % stages;
-        if constexpr (SPLIT) {
-          // the shared ring: the A words to registers, the stage released
-          // as soon as this warpgroup's wgmmas have read its query terms
-          // (a second set of A words, to load the next step's during this
-          // step's wgmmas, took ~90 more registers and ran slower)
+        if constexpr (SHARED) {
+          // the shared ring: the stage released as soon as this
+          // warpgroup's wgmmas have read it
           if (tid == 0) refill(j);
           __syncwarp();
           mbar_wait(full0 + 8 * st, (j / stages) & 1);
-          uint32_t ah[4][4], al[4][4];
-          load_a(j, ah, al);
           uint64_t db = sw128_desc(smem_addr(ring + st * lay.stage));
           hold(db);
-          acc.hold_all();
+          if constexpr (SPLIT) {
+            // the A words to registers (a second set of A words, to load
+            // the next step's during this step's wgmmas, took ~90 more
+            // registers and ran slower)
+            uint32_t ah[4][4], al[4][4];
+            load_a(j, ah, al);
+            acc.hold_all();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
+            for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              hold(ah[kk][e]);
-              hold(al[kk][e]);
-            }
-          wgmma_fence();
+              for (int e = 0; e < 4; ++e) {
+                hold(ah[kk][e]);
+                hold(al[kk][e]);
+              }
+            wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) acc.mma(ah[kk], al[kk], db, kk);
-          wgmma_commit();
-          wgmma_wait<0>();  // the A words are live until the group completes
+            for (int kk = 0; kk < 4; ++kk) acc.mma(ah[kk], al[kk], db, kk);
+            wgmma_commit();
+            wgmma_wait<0>();  // the A words are live until the group completes
+          } else {
+            // this warpgroup's rows of the stage (the terms come first)
+            if (!tma) copy_rows(j);
+            uint64_t da = sw128_desc(smem_addr(rows_at(st)));
+            hold(da);
+            acc.hold_all();
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) acc.mma(da, db, kk);
+            wgmma_commit();
+            wgmma_wait<0>();
+          }
           if (wtid == 0) mbar_arrive(empty0 + 8 * st);
           __syncwarp();
           continue;
@@ -985,6 +1230,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
       }
       const float inv[2] = {inv_norm(sq[0]), inv_norm(sq[1])};
       float* sc = score_tile + wg * (QN * WG_ROWS);
+      if constexpr (MODE == WIDE) __syncthreads();  // the last chunk's merges are done
 #pragma unroll
       for (int L = 0; L < LISTS; ++L) {
         const int h = (L >> 1) & 1;
@@ -992,10 +1238,14 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
         float s = dot[L];
         if (metric != DOT) s = score_of(s, qn[ql], qn[QN + ql], sq[h], inv[h], metric);
         if (!ok[h]) s = -CUDART_INF_F;
-        if constexpr (MODE == TOPK)
+        if constexpr (MODE == TOPK || MODE == WIDE)
           sc[score_at(ql, warp * 16 + g + 8 * h)] = s;
         else
           list_update<MODE, W>(ls, ids, L, s, static_cast<uint32_t>(cl));
+      }
+      if constexpr (MODE == WIDE) {
+        __syncthreads();  // both score tiles are written
+        wide_merge(cl * CHUNK);
       }
       if constexpr (MODE == TOPK) {
         asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
@@ -1006,7 +1256,9 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
     }
     if constexpr (MODE == TOPK)
       topk_flush(tile);
-    else if (MODE != FIRST)
+    else if constexpr (MODE == WIDE)
+      wide_flush(tile);
+    else if constexpr (MODE != FIRST)
       flush(tile);
   }
 }
@@ -1049,45 +1301,49 @@ inline int walk_tiles(int n_tiles, int q_blocks) {
 }
 
 // The shared-memory plan of a launch over rows of width d: whether the
-// query terms stay resident (never over f32 rows) and the ring's stages, the
-// most that fit (0 if not even 2 do).
-template <typename T, int MODE>
+// query terms stay resident (never with the shared ring) and the ring's
+// stages, the most that fit (0 if not even 2 do).
+template <typename T, int MODE, int W>
 int plan_stages(int d, bool* resident) {
   const int slices = (d * Rows<T>::BYTES + SLICE_BYTES - 1) / SLICE_BYTES;
-  constexpr bool topk = MODE == TOPK;
   int stages = MAX_STAGES;
-  *resident = !Rows<T>::SPLIT;
+  *resident = !Ring<T, MODE>::SHARED;
   if (*resident) {
-    while (stages >= 2 && layout_for<T>(slices, true, stages, topk).bytes > SMEM_MAX) --stages;
+    while (stages >= 2 && layout_for<T, MODE, W>(slices, true, stages).bytes > SMEM_MAX)
+      --stages;
     if (stages < 2) *resident = false;
   }
   if (!*resident) {
     stages = MAX_STAGES;
-    while (stages >= 2 && layout_for<T>(slices, false, stages, topk).bytes > SMEM_MAX) --stages;
+    while (stages >= 2 && layout_for<T, MODE, W>(slices, false, stages).bytes > SMEM_MAX)
+      --stages;
   }
   return stages < 2 ? 0 : stages;
 }
 
-// One launch over bf16 (T = uint16_t), int8 or (TOPK only) f32 rows [n,
-// d]: mode and W choose the instantiation; metric is applied with
-// qsq/sqnorms (null for a dot); k is TOPK's list length. Returns the CUDA
-// error of the launch.
+// One launch over bf16 (T = uint16_t), int8 or (TOPK, WIDE only) f32 rows
+// [n, d]: mode and W choose the instantiation; metric is applied with
+// qsq/sqnorms (null for a dot); k is TOPK's and WIDE's list length. Returns
+// the CUDA error of the launch.
 template <typename T, int MODE, int W>
 int launch(const void* values, const void* q_img, const float* q_scale, const float* qsq,
            const float* scales, const float* sqnorms, const uint8_t* valid, float* out_s,
            int* out_i, int n, int d, int b, int tile_n, int metric, int flags,
            cudaStream_t stream, int k = 0) {
-  static_assert(!Rows<T>::SPLIT || MODE == TOPK, "f32 rows have the TOPK mode only");
+  static_assert(!Rows<T>::SPLIT || MODE == TOPK || MODE == WIDE,
+                "f32 rows have the per-query modes only");
   if (n <= 0 || d <= 0 || b <= 0 || tile_n <= 0 || tile_n % CHUNK || n % tile_n)
     return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (MODE != FIRST && MODE != TOPK && W > 1) {
+  if constexpr (MODE != FIRST && MODE != TOPK && MODE != WIDE && W > 1) {
     if (tile_n / CHUNK > (1 << Ids<W>::BITS)) return static_cast<int>(cudaErrorInvalidValue);
   }
   if (MODE == TOPK && (k < 1 || k > TOPK_MAX)) return static_cast<int>(cudaErrorInvalidValue);
+  if (MODE == WIDE && (k < 1 || k > 32 * W || k > tile_n || tile_n > WIDE_MAX_TILE))
+    return static_cast<int>(cudaErrorInvalidValue);
   constexpr int BYTES = Rows<T>::BYTES;
   const int slices = (d * BYTES + SLICE_BYTES - 1) / SLICE_BYTES;
   bool resident = true;
-  const int stages = plan_stages<T, MODE>(d, &resident);
+  const int stages = plan_stages<T, MODE, W>(d, &resident);
   if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
@@ -1110,7 +1366,7 @@ int launch(const void* values, const void* q_img, const float* q_scale, const fl
   const int n_tiles = n / tile_n;
   const int q_blocks = (b + QN - 1) / QN;
   const int per_block = (flags & F_WALK) ? walk_tiles(n_tiles, q_blocks) : 1;
-  const size_t smem = layout_for<T>(slices, resident, stages, MODE == TOPK).bytes;
+  const size_t smem = layout_for<T, MODE, W>(slices, resident, stages).bytes;
   auto kernel = lanes_kernel<T, MODE, W>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));

@@ -10,9 +10,12 @@ reference's names and contracts so the two packages read side by side:
   tensor-core body's per-query top-k mode (``csrc/exact.cu``: f32 rows
   ``scan_topk_exact_tf32``, three tf32 passes of the split queries and
   rows; bf16 rows ``scan_topk_exact_bf16``; int8 rows
-  ``scan_topk_exact_s8``), beyond it on the CUDA-core body
-  (``csrc/scan.cu`` ``scan_topk_exact`` / ``scan_topk_exact_int8``): the
-  route is decided before any launch (``exact_route``).
+  ``scan_topk_exact_s8``), up to k = 256 on its wide mode (``csrc/wide.cu``
+  ``scan_topk_wide_tf32`` / ``_bf16`` / ``_s8``: lists in shared memory,
+  merged a chunk at a time by bitonic networks), beyond it on the
+  CUDA-core body (``csrc/scan.cu`` ``scan_topk_exact`` /
+  ``scan_topk_exact_int8``): the route is decided before any launch
+  (``exact_route``).
 * ``pallas_search_block_topk`` / ``pallas_search_block_topk_int8`` —
   lane-group top-W candidate selection: kernel K3 keeps, per tile and per
   lane group l (the rows ``l mod 128`` of the tile), the W best rows; a
@@ -110,6 +113,18 @@ SCAN_TOPK_EXACT_BF16 = _build.Kernel(
 )
 SCAN_TOPK_EXACT_S8 = _build.Kernel(
     "exact", "scan_topk_exact_s8",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_WIDE_TF32 = _build.Kernel(
+    "wide", "scan_topk_wide_tf32",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_WIDE_BF16 = _build.Kernel(
+    "wide", "scan_topk_wide_bf16",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_WIDE_S8 = _build.Kernel(
+    "wide", "scan_topk_wide_s8",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
 
@@ -227,18 +242,28 @@ def _stream(dev) -> int:
 #: the longest per-tile list the tensor-core body's TOPK mode keeps (one
 #: entry a lane of a warp)
 MMA_MAX_K = 32
+#: the longest per-tile list its wide mode keeps (256 entries a query in
+#: shared memory), and the widest tile it takes (a list names its rows by
+#: 16-bit offsets in the tile)
+WIDE_MAX_K = 256
+WIDE_MAX_TILE = 1 << 15
 
 
-def exact_route(dtype, k, metric=SimilarityMetric.COSINE):
-    """The per-tile top-k kernel for rows of ``dtype``, lists of ``k`` and
-    ``metric``: manhattan K4 (CUDA-core body, f32/bf16 rows); up to
-    ``MMA_MAX_K`` the tensor-core body's TOPK mode (f32 rows: 3xTF32, bf16
-    rows, int8 rows: K2); beyond it the CUDA-core K1 (f32/bf16) or K2."""
+def exact_route(dtype, k, metric=SimilarityMetric.COSINE, tile_n=DEFAULT_TILE_N):
+    """The per-tile top-k kernel for rows of ``dtype``, lists of ``k``,
+    ``metric`` and tiles of ``tile_n`` rows: manhattan K4 (CUDA-core body,
+    f32/bf16 rows); up to ``MMA_MAX_K`` the tensor-core body's TOPK mode
+    (f32 rows: 3xTF32, bf16 rows, int8 rows: K2); up to ``WIDE_MAX_K`` (and
+    tiles up to ``WIDE_MAX_TILE``) its wide mode; beyond them the CUDA-core
+    K1 (f32/bf16) or K2."""
     if metric is SimilarityMetric.MANHATTAN:
         return SCAN_TOPK_L1
     if k <= MMA_MAX_K:
         return {torch.float32: SCAN_TOPK_EXACT_TF32, torch.bfloat16: SCAN_TOPK_EXACT_BF16,
                 torch.int8: SCAN_TOPK_EXACT_S8}[dtype]
+    if k <= WIDE_MAX_K and tile_n <= WIDE_MAX_TILE:
+        return {torch.float32: SCAN_TOPK_WIDE_TF32, torch.bfloat16: SCAN_TOPK_WIDE_BF16,
+                torch.int8: SCAN_TOPK_WIDE_S8}[dtype]
     return SCAN_TOPK_EXACT_INT8 if dtype == torch.int8 else SCAN_TOPK_EXACT
 
 
@@ -267,9 +292,9 @@ def tile_topk_cuda(
     dev = values.device
     out_s = torch.empty((b, n // tile_n, k_tile), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, n // tile_n, k_tile), dtype=torch.int32, device=dev)
-    kernel = exact_route(values.dtype, k_tile, metric)
+    kernel = exact_route(values.dtype, k_tile, metric, tile_n)
     metric_code = _METRIC_CODE.get(metric)
-    if kernel is SCAN_TOPK_EXACT_S8:
+    if kernel in (SCAN_TOPK_EXACT_S8, SCAN_TOPK_WIDE_S8):
         q_op, q_scale = scan_mma.query_operand_int8(queries)
         with torch.cuda.device(dev):
             kernel.launch(
@@ -279,8 +304,9 @@ def tile_topk_cuda(
                 n, d, b, k_tile, tile_n, metric_code, _stream(dev),
             )
         return out_s, out_i
-    if kernel in (SCAN_TOPK_EXACT_TF32, SCAN_TOPK_EXACT_BF16):
-        if kernel is SCAN_TOPK_EXACT_TF32:
+    if kernel in (SCAN_TOPK_EXACT_TF32, SCAN_TOPK_EXACT_BF16, SCAN_TOPK_WIDE_TF32,
+                  SCAN_TOPK_WIDE_BF16):
+        if values.dtype == torch.float32:
             q_op = scan_mma.query_operand_tf32(queries)
         else:
             q_op = scan_mma.query_operand(queries)
