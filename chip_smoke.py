@@ -6,9 +6,9 @@ Phases (any failure raises and the exit code is not 0):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every native source under vectorlite_tpu_torch/csrc (scan.cu,
-   lanes.cu, exact.cu, wide.cu, pq.cu, ivf.cu with nvcc, host_rescore.cpp
-   with g++; one compiler per source, all started together); the wide
-   mode's shared-memory plans.
+   lanes.cu, exact.cu, wide.cu, l1.cu, pq.cu, ivf.cu with nvcc,
+   host_rescore.cpp with g++; one compiler per source, all started
+   together); the wide mode's shared-memory plans.
 2. Kernels against their plain-torch versions on the card: K1 and K2 on
    the route scan.exact_route names (k <= 32: the tensor-core body's
    per-query top-k, scan_topk_exact_tf32 over f32 rows, _bf16 over bf16
@@ -17,15 +17,21 @@ Phases (any failure raises and the exit code is not 0):
    256: the CUDA-core scan_topk_exact / _int8 with lists in the output,
    k 300), K3 on its three routes (int8 rows: scan_block_topw_s8, the
    tensor-core body's int8 form; bf16 rows: scan_block_topw_bf16; f32 rows:
-   scan_block_topw, the CUDA-core body; three metrics), K4 on f32 and bf16
-   rows, at N=65,536 x 384, B=64, and at an odd shape (8,192 x 100, B=5).
+   scan_block_topw, the CUDA-core body; three metrics), K4 on the route
+   exact_route names (k <= 32: the FADD stream, scan_topk_l1_fadd over f32
+   rows, _bf16 over bf16 rows; k 1, 16, 32; k > 32: the CUDA-core
+   scan_topk_l1, k 300), at N=65,536 x 384, B=64, and at an odd shape
+   (8,192 x 100, B=5).
    Then each kernel at the main-path shape (2^20 x 384, B=256, four query
    blocks; K1 over f32 rows at k 16 and bf16 rows at k 32, K2 at k 32, and
    the wide mode at k 100's lists: K1 over f32 rows at 128, over bf16 rows
-   at 256, K2 at 256; the CUDA-core K1 and K2 at k 300; K3 on each route): timed
+   at 256, K2 at 256; the CUDA-core K1 and K2 at k 300; K3 on each route;
+   K4 over f32 rows at k 16, over bf16 rows at the memory-optimized pool of
+   32 and at k 16, the CUDA-core K4 at k 300): timed
    beside its plain version and the PyTorch library path (K3's: one torch.mm, bf16 over the int8 or bf16
    values cast outside the timing, TF32-off f32 over f32 rows, then
-   torch.topk of each lane group), and its output held against the plain
+   torch.topk of each lane group; K4's: 1 / (1 + torch.cdist(p=1)) and
+   torch.topk), and its output held against the plain
    version's. Everywhere: ids equal except among scores within 1e-5 of
    each other, scores within rtol/atol 1e-5.
    K5 against pq_rank_plain, both entries: the tensor-core entry
@@ -77,14 +83,16 @@ Phases (any failure raises and the exit code is not 0):
    (whichever kernel it picks on this corpus), then with the guard off
    the speed path (K3 over the int8 scan copy: scan_block_topw_s8, +
    exact re-score), approx=False (K1), a where filter (K1), manhattan
-   (K4), a `quantized`-profile collection (K3 on int8 rows, and K2), a
-   `memory-optimized` collection's exact path (K1 over bf16 rows), and
+   (K4's FADD stream over f32 rows), a `quantized`-profile collection (K3
+   on int8 rows, and K2), a `memory-optimized` collection's exact path (K1
+   over bf16 rows) and its manhattan path (K4 over bf16 rows), and
    approx=False at k 100 on all three (K1 over f32 and bf16 rows and K2 on
    the wide mode); those three again, taken apart into the device stage,
    merge_topk's sort in it and the host remainder. Launch
    counts are zeroed just before and read just after; every kernel must
    have launched, each exact path on the route exact_route names. Recall@10 of each
-   speed path against its exact path must be >= 0.99; the cosine and
+   speed path against its exact path must be >= 0.99, and of the
+   memory-optimized manhattan path against the manhattan path; the cosine and
    manhattan exact paths must agree with float64 truth on 32 queries
    taken across all four query blocks. The quantized speed path runs
    twice: with the native f64 re-score and with VECTORLITE_NO_NATIVE=1.
@@ -171,9 +179,14 @@ K_WIDE = 100  # phase 3's wide exact searches: lists past the TOPK mode's 32
 #: that is three tf32 passes (3xTF32, the rate K1 over f32 rows is priced
 #: at; CUDA-core f32 FMAs would take 3.08 ms at the headline shape), int8
 #: or bf16 rows at DEFAULT precision (one pass). Manhattan has no matmul
-#: form: elementwise f32 on CUDA cores.
+#: form: |q - v| + acc is two FADD instructions (a subtract, then an add
+#: with |.| as a source modifier; sm_90 has no packed f32 add), and an FADD
+#: issues at the FMA rate, 132 SMs x 128 lanes x 1.98 GHz = 33.5e12 a second
+#: ("f32_add", counted in instructions: the "f32" rate of 67e12 counts an
+#: FMA as two operations).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "tf32": 494.7e12, "bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"f32": 67e12, "f32_add": 33.5e12, "tf32": 494.7e12, "bf16": 989e12,
+                  "int8": 1979e12}
 
 REPLACES = {
     "scan_topk_exact_tf32": "vectorlite_tpu/kernels/pallas_scan.py:46",
@@ -188,6 +201,8 @@ REPLACES = {
     "scan_block_topw_s8": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_block_topw_bf16": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_topk_l1": "vectorlite_tpu/kernels/pallas_l1.py:44",
+    "scan_topk_l1_fadd": "vectorlite_tpu/kernels/pallas_l1.py:44",
+    "scan_topk_l1_fadd_bf16": "vectorlite_tpu/kernels/pallas_l1.py:44",
     "pq_rank_mma": "vectorlite_tpu/kernels/pq.py:291",
     "pq_rank": "vectorlite_tpu/kernels/pq.py:291",
     "gather_score": "vectorlite_tpu/kernels/ivf.py:290",
@@ -210,6 +225,10 @@ K1_WIDE, K1_WIDE_BF16 = "scan_topk_wide_tf32", "scan_topk_wide_bf16"
 K1_SYMBOLS = (K1_TF32, K1_BF16, K1_WIDE, K1_WIDE_BF16, K1_CORE)
 K2_S8, K2_WIDE, K2_CORE = "scan_topk_exact_s8", "scan_topk_wide_s8", "scan_topk_exact_int8"
 K2_SYMBOLS = (K2_S8, K2_WIDE, K2_CORE)
+#: K4's routes (exact_route, manhattan): k <= 32 on the FADD stream (f32 and
+#: bf16 rows), k > 32 on the CUDA-core body
+K4_F32, K4_BF16, K4_CORE = "scan_topk_l1_fadd", "scan_topk_l1_fadd_bf16", "scan_topk_l1"
+K4_SYMBOLS = (K4_F32, K4_BF16, K4_CORE)
 
 #: the SMs' shared-memory rate: 128 bytes a clock an SM, 132 SMs at 1.755
 #: GHz (H100 SXM); what K5's look-up entry reads its LUT entries at
@@ -371,9 +390,12 @@ def variants(scan, SM):
         (K3_F32, "f32", dots, block, block_plain, 16),
         (K3_BF16, "bf16", dots, block, block_plain, 16),
         (K3_INT8, "int8", dots, block, block_plain, 16),
-        ("scan_topk_l1", "f32", (SM.MANHATTAN,), *exact(2048), 16),
-        ("scan_topk_l1", "f32 k300", (SM.MANHATTAN,), *exact(2048), 300),
-        ("scan_topk_l1", "bf16", (SM.MANHATTAN,), *exact(2048), 16),
+        (None, "f32", (SM.MANHATTAN,), *exact(2048), 16),
+        (None, "f32 k1", (SM.MANHATTAN,), *exact(2048), 1),
+        (None, "f32 k32", (SM.MANHATTAN,), *exact(2048), 32),
+        (None, "f32 k300", (SM.MANHATTAN,), *exact(2048), 300),
+        (None, "bf16", (SM.MANHATTAN,), *exact(2048), 16),
+        (None, "bf16 k32", (SM.MANHATTAN,), *exact(2048), 32),
     ]
 
 
@@ -445,11 +467,16 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     # and 256 at k 100 on the wide mode); the CUDA-core K1 and K2, which no
     # path hands a list up to 256, at k 300; K3 over the int8 scan copy,
     # 4096-row tiles, W = 2, pool 128 (and its two other routes: a bf16 scan
-    # copy, f32 rows without a copy); K4 over f32 rows, k_pad 16. K1 over
-    # f32 rows is priced at three tf32 passes (the reference's HIGHEST on the
-    # tensor cores), K2 at one int8 pass, K1 over bf16 rows at one bf16
-    # pass.
+    # copy, f32 rows without a copy); K4 over f32 rows at k_pad 16, over
+    # bf16 rows (the memory-optimized profile) at the 2x pool of 32 (and at
+    # k 16, logged only), the CUDA-core K4 (lists past 32, on no path here)
+    # at k 300. K1 over f32 rows is priced at three tf32 passes (the
+    # reference's HIGHEST on the tensor cores), K2 at one int8 pass, K1 over
+    # bf16 rows at one bf16 pass, K4 at two FADD instructions a (query,
+    # row, dimension).
     k3_out = B * (n // 4096) * 256 * 8
+    l1_ops = 2.0 * B * n * D  # FADD instructions
+    l1_side = n * 1 + B * D * 4  # validity, queries
 
     def tiles_out(tile_n, k):
         return B * (n // tile_n) * k * 8
@@ -477,11 +504,18 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
          dot_ops, n * D * 2 + side + k3_out),
         (K3_F32, SM.COSINE, v, None, 128, 4096, 2, "f32",
          dot_ops, n * D * 4 + side + k3_out),
-        ("scan_topk_l1", SM.MANHATTAN, v, None, 16, 2048, None, "f32",
-         3.0 * B * n * D, n * D * 4 + n * 1 + B * D * 4 + B * (n // 2048) * 16 * 8),
+        (K4_F32, SM.MANHATTAN, v, None, 16, 2048, None, "f32_add",
+         l1_ops, n * D * 4 + l1_side + tiles_out(2048, 16)),
+        (K4_BF16, SM.MANHATTAN, vb, None, 32, 2048, None, "f32_add",
+         l1_ops, n * D * 2 + l1_side + tiles_out(2048, 32)),
+        (K4_BF16 + " k16", SM.MANHATTAN, vb, None, 16, 2048, None, "f32_add",
+         l1_ops, n * D * 2 + l1_side + tiles_out(2048, 16)),
+        (K4_CORE, SM.MANHATTAN, v, None, 300, 2048, None, "f32_add",
+         l1_ops, n * D * 4 + l1_side + tiles_out(2048, 300)),
     ]
     out = {}
-    for name, metric, rows, scales, k, tile_n, winners, op_type, ops, nbytes in specs:
+    for key, metric, rows, scales, k, tile_n, winners, op_type, ops, nbytes in specs:
+        name = key.split()[0]
         if winners is None:
             def kern(rows=rows, scales=scales, metric=metric, k=k, tile_n=tile_n):
                 return scan.tile_topk_cuda(rows, scales, sq, valid, q, metric=metric,
@@ -508,20 +542,20 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
                 return torch.topk(torch.mm(lq, lrows.T).view(
                     B, n // tile_n, tile_n // 128, 128), winners, dim=2)
         plain_reps = 2 if metric is SM.MANHATTAN else 5
-        reps = 5 if name in (K1_CORE, K2_CORE) else 20  # ~0.25 s a call
+        reps = 5 if name in (K1_CORE, K2_CORE, K4_CORE) else 20  # ~0.25 s a call
         ms, plain_ms = interleaved_ms(kern, plain, reps=reps, plain_reps=plain_reps)
         lib_ms = cuda_time_ms(lib, 10)
-        err = compare(f"{name} at the main-path shape (top {k})",
+        err = compare(f"{key} at the main-path shape (top {k})",
                       merged(scan, kern(), B, k), merged(scan, plain(), B, k + 1))
         errs[name] = max(errs.get(name, 0.0), err)
-        t = out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         **bound(nbytes, ops, op_type)}
+        t = out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        **bound(nbytes, ops, op_type)}
         int8_work = (f"; tensor work {3 * dot_ops / PEAK_OPS_PER_S['int8'] * 1e3:.4f} "
                      f"ms (3 int8 passes)")
         work = {K3_INT8: int8_work, K2_S8: int8_work, K2_WIDE: int8_work,
                 K3_BF16: f"; {design_work(n)}", K1_BF16: f"; {design_work(n)}",
                 K1_WIDE_BF16: f"; {design_work(n)}"}.get(name, "")
-        log(f"  {name:22s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        log(f"  {key:22s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{op_type} rate){work}")
     return out
@@ -1210,6 +1244,8 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
          lambda qs: client.search_vectors_in_collection("main", qs, K, where={"shard": 3})),
         ("manhattan (K4)",
          lambda qs: client.search_vectors_in_collection("main", qs, K, SM.MANHATTAN)),
+        ("memory-optimized manhattan (K4 over bf16 rows + f64 re-score)",
+         lambda qs: mclient.search_vectors_in_collection("main", qs, K, SM.MANHATTAN)),
         ("quantized speed (K3 int8 + f64 re-score)", quantized_speed),
         ("quantized speed, numpy re-score (VECTORLITE_NO_NATIVE=1)",
          with_env(quantized_speed, "VECTORLITE_NO_NATIVE", "1")),
@@ -1228,19 +1264,23 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     calls = native.calls
     results, moved, times = drive(paths, queries, n_batches, build, card, native)
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
-    for sym in (K1_TF32, K1_BF16, K1_WIDE, K1_WIDE_BF16, K2_S8, K2_WIDE, K3_INT8,
-                "scan_topk_l1"):
+    for sym in (K1_TF32, K1_BF16, K1_WIDE, K1_WIDE_BF16, K2_S8, K2_WIDE, K3_INT8, K4_F32,
+                K4_BF16):
         if not launches[sym]:
             raise AssertionError(f"{sym} was never launched on the main path")
     # each exact path on the route exact_route names: k_pad 16 (K1) and the
     # 2x pool of 32 (K2) on the tensor-core body's TOPK mode, k 100 on its
-    # wide mode
+    # wide mode; manhattan at k_pad 16 and the bf16 rows' pool of 32 on K4's
+    # FADD stream
     for path, want in (("exact approx=False (K1)", K1_TF32),
                        ("where-filtered (K1)", K1_TF32),
                        ("quantized exact (K2 + f64 re-score)", K2_S8),
                        ("memory-optimized exact (K1 over bf16 rows + f64 re-score)", K1_BF16),
+                       ("manhattan (K4)", K4_F32),
+                       ("memory-optimized manhattan (K4 over bf16 rows + f64 re-score)",
+                        K4_BF16),
                        *((name, sym) for name, _, sym in wide)):
-        if set(moved[path]) & {*K1_SYMBOLS, *K2_SYMBOLS} != {want}:
+        if set(moved[path]) & {*K1_SYMBOLS, *K2_SYMBOLS, *K4_SYMBOLS} != {want}:
             raise AssertionError(f"{path}: launched {moved[path]}, not {want}")
     if native.calls == calls:
         raise AssertionError("the native f64 re-score never served the quantized paths")
@@ -1268,6 +1308,9 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
          exact_ids),
         (f"memory-optimized exact k {K_WIDE} (its first {K}) vs exact",
          ids_of(results[wide[2][0]])[:, :K], exact_ids),
+        ("memory-optimized manhattan vs manhattan",
+         ids_of(results["memory-optimized manhattan (K4 over bf16 rows + f64 re-score)"]),
+         ids_of(results["manhattan (K4)"])),
     ]
     for label, got, ref in checks:
         r = recall(got, ref)

@@ -5,6 +5,7 @@ Scores agree within rtol/atol 1e-5 (f32 sums taken in another order);
 row ids agree exactly, ties included."""
 
 import contextlib
+import ctypes
 from types import SimpleNamespace
 
 import numpy as np
@@ -802,12 +803,14 @@ def test_wide_mode_model_matches_tile_topk_plain(k, tile_n):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("k", [1, 16, 32, 33, 128, 256, 257])
+@pytest.mark.parametrize("k", [1, 16, 32, 33, 128, 256, 257, 300])
 def test_exact_route(dtype, k):
     """exact_route: up to k 32 the tensor-core body's TOPK mode by the rows'
     dtype (f32: 3xTF32, bf16, int8: K2), up to k 256 its wide mode (tiles
-    of at most 32,768 rows), beyond them the CUDA-core K1 / K2; manhattan
-    always K4."""
+    of at most 32,768 rows), beyond them the CUDA-core K1 / K2. Manhattan
+    (K4): up to k 32 the FADD stream over f32 and bf16 rows (tiles of a
+    multiple of 256 rows), beyond it (and for tiles of 384 rows) the
+    CUDA-core scan_topk_l1; over int8 rows the wrapper refuses it."""
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
     core = scan.SCAN_TOPK_EXACT_INT8 if dtype == "int8" else scan.SCAN_TOPK_EXACT
     want = tensor_core_entry(dtype, k) or core.symbol
@@ -817,7 +820,19 @@ def test_exact_route(dtype, k):
             wide = 32 < k <= 256 and tile_n > scan.WIDE_MAX_TILE
             assert scan.exact_route(dt, k, SimilarityMetric[metric], tile_n).symbol == (
                 core.symbol if wide else want)
-    assert scan.exact_route(dt, k, SimilarityMetric.MANHATTAN) is scan.SCAN_TOPK_L1
+    l1 = {"f32": "scan_topk_l1_fadd", "bf16": "scan_topk_l1_fadd_bf16"}.get(dtype)
+    want_l1 = l1 if k <= 32 and l1 else "scan_topk_l1"
+    MANHATTAN = SimilarityMetric.MANHATTAN
+    assert scan.exact_route(dt, k, MANHATTAN).symbol == want_l1
+    for tile_n in (256, 2048, 65536):
+        assert scan.exact_route(dt, k, MANHATTAN, tile_n).symbol == want_l1
+    assert scan.exact_route(dt, k, MANHATTAN, 384) is scan.SCAN_TOPK_L1
+    if dtype == "int8":
+        rows, scales = quantize_rows_int8(torch.ones((512, 8)))
+        with pytest.raises(ValueError, match="manhattan"):
+            scan.tile_topk_cuda(rows, scales, torch.ones(512), torch.ones(512, dtype=torch.bool),
+                                torch.ones((2, 8)), metric=MANHATTAN, k_tile=min(k, 256),
+                                tile_n=256)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
@@ -864,6 +879,131 @@ def test_exact_wrapper_routes_rows_by_dtype_and_k(dtype, k, monkeypatch):
     else:
         assert ops == []
         assert args[-7:-1] == (n, d, b, k, tile_n, 1)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 16, 32, 33, 300])
+def test_l1_wrapper_routes_rows_by_dtype_and_k(dtype, k, monkeypatch):
+    """Manhattan: tile_topk_cuda launches the kernel exact_route names,
+    once: up to k 32 the FADD stream's entry for the rows' dtype with K4's
+    query image (l1_query_operand), the rows, the validity and the outputs;
+    beyond it the CUDA-core scan_topk_l1 with the transposed queries and a
+    dtype code. A fake card lets the host side run here."""
+    n, d, b, tile_n = 1024, 100, 5, 512
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    rows = torch.zeros((n, d), dtype=dt)
+    launched = []
+    for kern in (scan.SCAN_TOPK_L1, scan.SCAN_TOPK_L1_FADD, scan.SCAN_TOPK_L1_FADD_BF16):
+        monkeypatch.setattr(kern, "launch",
+                            lambda *a, kern=kern: launched.append((kern.symbol, a)))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=0))
+    images = []
+    real = scan.l1_query_operand
+    monkeypatch.setattr(scan, "l1_query_operand",
+                        lambda q, dtype: images.append(real(q, dtype)) or images[-1])
+    s, i = scan.tile_topk_cuda(rows, None, None, torch.ones(n, dtype=torch.bool),
+                               torch.zeros((b, d)), metric=SimilarityMetric.MANHATTAN,
+                               k_tile=k, tile_n=tile_n)
+    assert s.shape == i.shape == (b, n // tile_n, k)
+    fadd = {"f32": "scan_topk_l1_fadd", "bf16": "scan_topk_l1_fadd_bf16"}[dtype]
+    assert [sym for sym, _ in launched] == [fadd if k <= 32 else "scan_topk_l1"]
+    args = launched[0][1]
+    if k <= 32:
+        assert len(images) == 1
+        assert images[0].shape == (1, 2 if dtype == "bf16" else 4, 64, 64 if dtype == "bf16" else 32)
+        assert args[0] == images[0].data_ptr() and args[1] == rows.data_ptr()
+        assert args[5:10] == (n, d, b, k, tile_n)
+    else:
+        assert images == []
+        assert args[2] == int(dtype == "bf16") and args[6:11] == (n, d, b, k, tile_n)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b, d", [(5, 100), (70, 384), (64, 32), (1, 768)])
+def test_l1_query_operand_layout(dtype, b, d, rng):
+    """K4's query image: [ceil(B / 64), slices, 64, S] f32 with S = 32
+    dimensions a slice over f32 rows and 64 over bf16 rows (128 bytes of a
+    row), entry (block, slice, i, e) query 64 block + i's dimension S slice
+    + e, zero past B and D."""
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    ds = 32 if dtype == "f32" else 64
+    img = scan.l1_query_operand(q, dt)
+    blocks, slices = -(-b // 64), -(-d // ds)
+    assert img.shape == (blocks, slices, 64, ds) and img.dtype == torch.float32
+    assert img.is_contiguous()
+    full = torch.zeros((blocks * 64, slices * ds))
+    full[:b, :d] = q
+    for blk in range(blocks):
+        for sl in range(slices):
+            assert torch.equal(img[blk, sl], full[64 * blk:64 * blk + 64, ds * sl:ds * sl + ds])
+
+
+def l1_selection_model(s, tile_n, k):
+    """K4's FADD-stream selection (csrc/l1.cu select_chunk) in NumPy, on a
+    [B, N] score matrix: per query and tile, 256-row chunks, lane l holding
+    rows l + 32 j (slot j < 8); the tile's first chunk seeds a 32-entry
+    list with each lane's best row (the lowest row among equal scores)
+    sorted by (score descending, row ascending); then slot by slot, lane by
+    lane, each row that precedes the list's k-th entry (the seeded rows
+    skipped) is inserted and the last entry dropped. Returns ([B, T, k]
+    scores, int32 rows)."""
+    b, n = s.shape
+    n_tiles = n // tile_n
+    out_s = np.empty((b, n_tiles, k), np.float32)
+    out_i = np.empty((b, n_tiles, k), np.int32)
+    lanes = np.arange(32)
+    for q in range(b):
+        for t in range(n_tiles):
+            ls, lr = [], []
+            for c in range(tile_n // 256):
+                base = t * tile_n + c * 256
+                sc = s[q, base:base + 256].reshape(8, 32)  # [slot j, lane]
+                rows = base + np.arange(256).reshape(8, 32)
+                skip = np.full(32, -1)
+                if c == 0:
+                    skip = np.argmax(sc, axis=0)  # the first of equal maxima: the lowest row
+                    seeds = sorted(zip(sc[skip, lanes], rows[skip, lanes]),
+                                   key=lambda e: (-e[0], e[1]))
+                    ls, lr = [float(e[0]) for e in seeds], [int(e[1]) for e in seeds]
+                for j in range(8):
+                    kth = (ls[k - 1], lr[k - 1])  # read once a slot, as the ballot is
+                    for lane in range(32):
+                        x, r = float(sc[j, lane]), int(rows[j, lane])
+                        if skip[lane] == j or not _precedes(x, r, *kth):
+                            continue
+                        p = sum(_precedes(ls[e], lr[e], x, r) for e in range(32))
+                        ls.insert(p, x)
+                        lr.insert(p, r)
+                        del ls[32:], lr[32:]
+            out_s[q, t] = ls[:k]
+            out_i[q, t] = lr[:k]
+    return out_s, out_i
+
+
+@pytest.mark.parametrize("k, tile_n", [(1, 256), (16, 256), (32, 256), (1, 2048), (10, 2048),
+                                       (16, 2048), (32, 2048), (32, 512)])
+def test_l1_selection_model_matches_tile_topk_plain(k, tile_n):
+    """K4's FADD-stream selection gives tile_topk_plain's ids and scores
+    exactly on integer-valued scores with many ties, an all-invalid tile, a
+    tile invalid but for one row, a tile whose rows rise (every chunk's rows
+    beat the list) and one whose rows fall, and random scores."""
+    g = np.random.default_rng([k, tile_n, 4])
+    b, n = 3, 5 * tile_n
+    s = g.integers(-4, 5, size=(b, n)).astype(np.float32)
+    s[:, tile_n:3 * tile_n] = -np.inf  # tile 1: no valid row
+    s[:, 2 * tile_n + 100] = 2.0  # tile 2: one valid row
+    s[0, 3 * tile_n:4 * tile_n] = np.arange(tile_n) // 3  # rising, in ties of three
+    s[1, 3 * tile_n:4 * tile_n] = -np.arange(tile_n) // 5  # falling, in ties of five
+    s[2, 3 * tile_n:4 * tile_n] = g.normal(size=tile_n)
+    got_s, got_i = l1_selection_model(s, tile_n, k)
+    want_s, want_i = scan.stable_topk(torch.from_numpy(s).view(b, n // tile_n, tile_n), k)
+    want_i = want_i + torch.arange(n // tile_n)[None, :, None] * tile_n
+    assert np.array_equal(got_i, want_i.numpy())
+    assert np.array_equal(got_s, want_s.numpy())
 
 
 # ---------------------------------------------------------- on the card
@@ -994,6 +1134,26 @@ def test_exact_topk_mode_matches_plain_on_the_card(dtype, k, shape):
                             (ws.reshape(-1, k + 1), wi.reshape(-1, k + 1)))
 
 
+@pytest.mark.cuda
+def test_l1_reciprocal_matches_the_exact_division_on_the_card():
+    """K4's FADD stream scores 1 / (1 + sum) by the exact reciprocal's
+    branch-free fast path (csrc/l1.cu rcp_fast): bit for bit __frcp_rn's
+    (IEEE division, round to nearest) over every f32 of [1, 2^126)."""
+    if not torch.cuda.is_available():
+        pytest.skip("K4's reciprocal is CUDA C++ and runs only on an NVIDIA card")
+    from vectorlite_tpu_torch.kernels import _build
+
+    fn = _build.load("l1").l1_rcp_check
+    fn.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for exponent in range(126):
+        assert fn((127 + exponent) << 23, 1 << 23, bad.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    assert int(bad.item()) == 0
+
+
 def assert_lane_lists_match(got, want, winners, raw_dots=False):
     """K3's [B, T, W*128] lists against the plain version's lists of W + 1
     (W where a lane group has only W rows): the same -inf pattern, finite
@@ -1091,16 +1251,57 @@ def check_block_kernel(dtype, shape, winners):
         assert_topk_matches(top, want)
 
 
+#: K4's card shapes: (rows, D, B, tile): the phase-2 shapes, 396-byte f32
+#: rows (TMA refuses them: the plain-load staging), D 768 (the queries ride
+#: the stages) over two query blocks in 4,096-row tiles, 256-row tiles
+#: (one chunk a tile), 384-row tiles (not a multiple of the FADD stream's
+#: 256-row chunk: the CUDA-core body at every k), and 2^19 rows at the main
+#: path's B and tile
+L1_SHAPES = [(65536, 384, 64, 2048), (8192, 100, 5, 2048), (8192, 99, 3, 2048),
+             (16384, 768, 70, 4096), (16384, 384, 64, 256), (12288, 384, 64, 384),
+             (1 << 19, 384, 256, 2048)]
+L1_IDS = ["65536x384-B64", "8192x100-B5", "8192x99-B3", "16384x768-B70-t4096",
+          "16384x384-B64-t256", "12288x384-B64-t384", "524288x384-B256"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", CARD_SHAPES, ids=CARD_IDS)
-@pytest.mark.parametrize("dtype, k", [("f32", 16), ("f32", 300), ("bf16", 16)],
-                         ids=["f32-k16", "f32-k300", "bf16-k16"])
+@pytest.mark.parametrize("shape", L1_SHAPES, ids=L1_IDS)
+@pytest.mark.parametrize("dtype, k", [
+    ("f32", 1), ("f32", 16), ("f32", 32), ("f32", 64), ("f32", 300), ("bf16", 1), ("bf16", 16),
+    ("bf16", 32),
+], ids=["f32-k1", "f32-k16", "f32-k32", "f32-k64", "f32-k300", "bf16-k1", "bf16-k16",
+        "bf16-k32"])
 def test_l1_kernel_matches_plain_on_the_card(dtype, k, shape):
-    """K4 (scan_topk_l1): Manhattan, 1 / (1 + sum |q - v|)."""
-    rows, sq, valid, q = card_inputs(*shape)
+    """K4, Manhattan 1 / (1 + sum |q - v|), on the route exact_route names
+    (k <= 32 over tiles of a multiple of 256 rows: the FADD stream,
+    scan_topk_l1_fadd / _bf16; else the CUDA-core scan_topk_l1, its lists
+    in shared memory up to k 256, in the output beyond), launched once:
+    every tile's list held against
+    tile_topk_plain's under the 1e-5 rule, with 5% invalid rows, rows 7, 300
+    and 900 one row (ties to the lowest), query 0 near them and tile 1
+    without a valid row; then the merged top k."""
+    n, d, b, tile_n = shape
+    rows, sq, valid, q = card_inputs(n, d, b)
     v, _ = rows[dtype]
-    got = scan.pallas_search_topk_l1(v, valid, q, k=k, tile_n=2048)
+    v[[300, 900]] = v[7].clone()
+    valid[[7, 300, 900]] = True
+    valid[tile_n:2 * tile_n] = False
+    q[0] = rows["f32"][0][7] + 0.5 * q[0]
+    M = SimilarityMetric.MANHATTAN
+    kernel = scan.exact_route(v.dtype, k, M, tile_n)
+    assert kernel.symbol == ({"f32": "scan_topk_l1_fadd", "bf16": "scan_topk_l1_fadd_bf16"}[dtype]
+                             if k <= 32 and tile_n % 256 == 0 else "scan_topk_l1")
+    k_tile = min(k, tile_n)
+    before = kernel.launches
+    s_, i_ = scan.tile_topk_cuda(v, None, None, valid, q, metric=M, k_tile=k_tile, tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ws, wi = scan.tile_topk_plain(v, None, None, valid, q, metric=M,
+                                  k_tile=min(k_tile + 1, tile_n), tile_n=tile_n)
+    assert_topk_matches((s_.reshape(-1, k_tile), i_.reshape(-1, k_tile)),
+                        (ws.reshape(-1, ws.shape[-1]), wi.reshape(-1, wi.shape[-1])))
+    got = scan.pallas_search_topk_l1(v, valid, q, k=k, tile_n=tile_n)
     want = plain_topk(scan.tile_topk_plain(
-        v, None, sq, valid, q, metric=SimilarityMetric.MANHATTAN, k_tile=k + 1,
-        tile_n=2048), q.shape[0], k + 1)
+        v, None, sq, valid, q, metric=M, k_tile=min(k + 1, tile_n), tile_n=tile_n),
+        q.shape[0], k + 1)
     assert_topk_matches(got, want)

@@ -1,15 +1,18 @@
-// Inline PTX for Hopper (sm_90a) shared by csrc/pq.cu (K5) and
-// csrc/scan_mma.cuh (the tensor-core scan body of K3, K7 and K8):
-// shared-memory addresses, mbarriers, TMA bulk and tensor copies, and the
-// asynchronous warpgroup matrix multiply (wgmma m64nNk16 over bf16 operands
-// and m64n64k8 over tf32 ones into f32 accumulators, and m64n64k32 over
-// int8 operands into s32 ones; B from shared memory, A too but for tf32,
-// whose A comes from registers; the sums in registers). No CUTLASS:
-// what the kernels use of it is these few instructions. kernels/_build.py hashes this header into
-// every CUDA library's key.
+// Inline PTX for Hopper (sm_90a) shared by csrc/pq.cu (K5), csrc/l1.cu
+// (K4) and csrc/scan_mma.cuh (the tensor-core scan body of K1-K3, K7 and
+// K8): shared-memory addresses, mbarriers, TMA bulk and tensor copies, and
+// the asynchronous warpgroup matrix multiply (wgmma m64nNk16 over bf16
+// operands and m64n64k8 over tf32 ones into f32 accumulators, and
+// m64n64k32 over int8 operands into s32 ones; B from shared memory, A too
+// but for tf32, whose A comes from registers; the sums in registers); on
+// the host, cuTensorMapEncodeTiled, looked up at run time. No CUTLASS:
+// what the kernels use of it is these few instructions. kernels/_build.py
+// hashes this header into every CUDA library's key.
 
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -259,6 +262,31 @@ __device__ __forceinline__ void wgmma_tf32_rs(Acc<64>& d, const uint32_t (&a)[4]
         "+f"(d.v[16]), "+f"(d.v[17]), "+f"(d.v[18]), "+f"(d.v[19]), "+f"(d.v[20]), "+f"(d.v[21]), "+f"(d.v[22]), "+f"(d.v[23]),
         "+f"(d.v[24]), "+f"(d.v[25]), "+f"(d.v[26]), "+f"(d.v[27]), "+f"(d.v[28]), "+f"(d.v[29]), "+f"(d.v[30]), "+f"(d.v[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 }  // namespace

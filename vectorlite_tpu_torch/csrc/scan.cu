@@ -11,7 +11,9 @@
 //   scan_block_topw       (K3) replaces pallas_scan.py _block_topw_kernel:
 //                         top-W of every lane group (tile rows = l mod 128).
 //   scan_topk_l1          (K4) replaces vectorlite_tpu/kernels/pallas_l1.py
-//                         _l1_tile_kernel: K1 with 1 / (1 + sum |q - v|).
+//                         _l1_tile_kernel: K1 with 1 / (1 + sum |q - v|),
+//                         for k > 32 (csrc/l1.cu serves k <= 32 on an FADD
+//                         stream fed by TMA; kernels/scan.py exact_route).
 //
 // Bounds at the main-path shape (B = 256 queries, N = 2^20 rows, D = 384),
 // from H100 SXM data-sheet rates at 700 W, priced at the precision each
@@ -20,9 +22,14 @@
 // tensor cores is 3.1 ms, against 0.48 ms to read 1.61 GB of rows at
 // 3.35 TB/s. K2 and K3 over int8 rows need one bf16 pass (the reference
 // contracts them at DEFAULT precision): 206 GFLOP at 989 TFLOP/s is
-// 0.21 ms, against 0.12 ms of row bytes. K4 has no matmul form: 3*B*N*D =
-// 309 G operations at the f32 rate is 4.6 ms. chip_smoke.py prints each
-// bound from its run's shapes.
+// 0.21 ms, against 0.12 ms of row bytes. K4 has no matmul form: |q - v| +
+// acc is two FADD instructions (a subtract, then an add with |.| as a free
+// source modifier; sm_90 has no packed f32 add), and an FADD issues at the
+// FMA rate, 132 SMs x 128 lanes x 1.98 GHz = 33.5e12 a second: 2*B*N*D =
+// 206 G instructions take 6.155 ms. (The 67 TFLOP/s above counts an FMA as
+// two operations; pricing K4's 3*B*N*D "operations" at it gave 4.6 ms, a
+// time no FADD stream can reach.) chip_smoke.py prints each bound from its
+// run's shapes.
 //
 // Each C entry launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -31,16 +38,15 @@
 
 namespace {
 
-// K1/K2/K4: lists in registers up to k = 32, in shared memory up to
-// SHARED_LIST_MAX, in the output beyond.
+// K1/K2/K4: lists in shared memory up to SHARED_LIST_MAX, in the output
+// beyond.
 template <typename T, bool SCALED, bool L1>
 int launch_exact(const float* q_t, const float* qsq, const void* values,
                  const float* scales, const float* sqnorms,
                  const uint8_t* valid, float* out_s, int* out_i, int n, int d,
                  int b, int k, int tile_n, int metric, cudaStream_t stream) {
-  auto f = k <= 32                ? launch_sel<T, SCALED, LIST_REGS, L1>
-           : k <= SHARED_LIST_MAX ? launch_sel<T, SCALED, LIST_SHARED, L1>
-                                  : launch_sel<T, SCALED, LIST_GLOBAL, L1>;
+  auto f = k <= SHARED_LIST_MAX ? launch_sel<T, SCALED, LIST_SHARED, L1>
+                                : launch_sel<T, SCALED, LIST_GLOBAL, L1>;
   return f(q_t, qsq, values, scales, sqnorms, valid, out_s, out_i, n, d, b, k,
            tile_n, 0, metric, stream);
 }

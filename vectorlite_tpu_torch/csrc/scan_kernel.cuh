@@ -1,31 +1,31 @@
 // The CUDA-core body of the scan kernels for Hopper (sm_90a), shared by
-// csrc/scan.cu (K1 and K2 at k > 32, K4, and K3 over f32 rows or W above
-// 3) and csrc/lanes.cu (K7 over f32 rows). K1 and K2 at k <= 32, K3 over
-// bf16 and int8 rows, K7 over bf16 rows and K8 run on the tensor-core
-// body, scan_mma.cuh. A tiled f32
-// contraction of a query block against a corpus tile (FMA dots, or |q - v|
-// sums for Manhattan), the similarity metric, the validity mask, and a
-// selection that never leaves the block, chosen at compile time
-// (`Select`). Two translation units build in parallel; kernels/_build.py
-// hashes this header into each one's library key.
+// csrc/scan.cu and csrc/lanes.cu. What it still serves: K1 and K2 past k =
+// 256 (scan_topk_exact, scan_topk_exact_int8, lists in the output), K3 over
+// f32 rows or W above 3 (scan_block_topw), K4 past k = 32 (scan_topk_l1)
+// and K7 over f32 rows (lanes.cu scan_merge_topw). The rest runs
+// elsewhere: K1 and K2 up to k = 256, K3 over bf16 and int8 rows, K7 over
+// bf16 rows and K8 on the tensor-core body (scan_mma.cuh), K4 up to k = 32
+// on the FADD stream of csrc/l1.cu. A tiled f32 contraction of a query
+// block against a corpus tile (FMA dots, or |q - v| sums for Manhattan),
+// the similarity metric, the validity mask, and a selection that never
+// leaves the block, chosen at compile time (`Select`). Two translation
+// units build in parallel; kernels/_build.py hashes this header into each
+// one's library key.
 //
 // What the design does about the scans' bounds: every corpus element
 // staged in shared memory feeds 64 queries and each thread keeps an 8x4
 // register tile (32 FMAs for 6 shared-memory loads). Rows are loaded 16
 // bytes at a time whatever their type and widened to f32 once, in shared
-// memory. Rows are read from device memory about once: the B/64 query
-// blocks of one tile are adjacent in the grid and find the tile in L2.
-// Selection stays out of the row stream: K1/K2/K4 merge each 128-row chunk
-// into a per-query sorted list (one entry per lane in registers for k <=
-// 32, in shared memory up to SHARED_LIST_MAX, beyond that in the block's
-// own slice of the output), inserting only rows that beat its k-th entry;
-// K3 gives each lane group's 32 rows to the 32 lanes of one warp, so its
-// top-W is a butterfly of shuffles with no shared state; K7 keeps each
-// (query, lane group) list in shared memory, owned by one thread. All of
-// it runs on CUDA cores in f32: K1 is within ~3x of its bound, while the
-// kernels priced at one bf16 pass sit far above theirs, which only bf16 /
-// int8 tensor cores can close (scan_mma.cuh is that body for K3, K7, K8);
-// double-buffered staging is the other later lever.
+// memory, by the threads themselves (two block barriers a 32-wide step of
+// D). Rows are read from device memory about once: the B/64 query blocks
+// of one tile are adjacent in the grid and find the tile in L2. Selection
+// stays out of the row stream: K1/K2/K4 merge each 128-row chunk into a
+// per-query sorted list (in shared memory up to SHARED_LIST_MAX, beyond
+// that in the block's own slice of the output), inserting
+// only rows that beat its k-th entry; K3 gives each lane group's 32 rows
+// to the 32 lanes of one warp, so its top-W is a butterfly of shuffles with
+// no shared state; K7 keeps each (query, lane group) list in shared
+// memory, owned by one thread. All of it runs on CUDA cores in f32.
 //
 // Ties: the order is (score descending, row ascending) everywhere, which
 // is what the reference's k rounds of max + lowest-column argmax give for
@@ -55,13 +55,10 @@ constexpr int GSTRIDE = QB * LANE_GROUPS;  // K7: one rung of the lists
 enum Metric { METRIC_COSINE = 0, METRIC_EUCLIDEAN = 1, METRIC_DOT = 2 };
 
 // Selection of a block: K1/K2/K4 keep each query's running top-k in
-// registers (lane j holds entry j, k <= 32), in shared memory (k <=
-// SHARED_LIST_MAX) or in the block's rows of the output (any k); K3 keeps
-// the top-W of each lane group. K7 keeps each (query, lane group)'s top W
-// in shared memory (LANE_TOPW).
-enum Select {
-  LIST_REGS = 0, LIST_SHARED = 1, LIST_GLOBAL = 2, LANE_GROUP_TOPW = 3, LANE_TOPW = 4
-};
+// shared memory (k <= SHARED_LIST_MAX) or in the block's rows of the
+// output (any k); K3 keeps the top-W of each lane group. K7 keeps each
+// (query, lane group)'s top W in shared memory (LANE_TOPW).
+enum Select { LIST_SHARED = 1, LIST_GLOBAL = 2, LANE_GROUP_TOPW = 3, LANE_TOPW = 4 };
 
 // 16-byte loads of row elements, unpacked to f32 (exact for every type).
 template <typename T>
@@ -247,13 +244,6 @@ __global__ void __launch_bounds__(THREADS, 2)
     my_qsq[i] = (!L1 && bq < b) ? qsq[bq] : 0.0f;
   }
 
-  float rs[8];  // LIST_REGS: lane j holds entry j of query i's list
-  int rr[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    rs[i] = -CUDART_INF_F;
-    rr[i] = 0x7fffffff;
-  }
   // LIST_SHARED / LIST_GLOBAL: query ql's list, in shared memory or in
   // its own row of the output
   auto list_s = [&](int ql) {
@@ -438,45 +428,10 @@ __global__ void __launch_bounds__(THREADS, 2)
             lane_update(ls + o, gr + o, winners, s, static_cast<int>(rows[jj]));
         }
       }
-    } else if (SEL == LIST_REGS) {
+    } else {
       // merge the chunk into each query's running top-k; only rows that
       // beat the current k-th entry are inserted (chunk rows all exceed
-      // the listed rows, so a tie with the k-th never enters). Insertion
-      // at p: lanes above p take their lower neighbour's entry.
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if (q0 + warp * 8 + i >= b) continue;  // warp-uniform
-        float kth_s = __shfl_sync(0xffffffffu, rs[i], k - 1);
-        int kth_r = __shfl_sync(0xffffffffu, rr[i], k - 1);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float s = acc[i][jj];
-          const int row = static_cast<int>(rows[jj]);
-          unsigned mask =
-              __ballot_sync(0xffffffffu, precedes(s, row, kth_s, kth_r));
-          while (mask) {
-            int src = __ffs(mask) - 1;
-            mask &= mask - 1;
-            float cs = __shfl_sync(0xffffffffu, s, src);
-            int cr = __shfl_sync(0xffffffffu, row, src);
-            int p = __popc(__ballot_sync(
-                0xffffffffu, lane < k && precedes(rs[i], rr[i], cs, cr)));
-            float up_s = __shfl_up_sync(0xffffffffu, rs[i], 1);
-            int up_r = __shfl_up_sync(0xffffffffu, rr[i], 1);
-            if (lane == p) {
-              rs[i] = cs;
-              rr[i] = cr;
-            } else if (lane > p) {
-              rs[i] = up_s;
-              rr[i] = up_r;
-            }
-          }
-          kth_s = __shfl_sync(0xffffffffu, rs[i], k - 1);
-          kth_r = __shfl_sync(0xffffffffu, rr[i], k - 1);
-        }
-      }
-    } else {
-      // as LIST_REGS, with the lists in shared or device memory
+      // the listed rows, so a tie with the k-th never enters)
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int ql = warp * 8 + i;
@@ -505,17 +460,6 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
   }
 
-  if (SEL == LIST_REGS) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int bq = q0 + warp * 8 + i;
-      if (bq < b && lane < k) {
-        size_t o = (static_cast<size_t>(bq) * n_tiles + tile) * k + lane;
-        out_s[o] = rs[i];
-        out_i[o] = rr[i];
-      }
-    }
-  }
   if (SEL == LIST_SHARED) {
     for (int i = 0; i < 8; ++i) {
       const int ql = warp * 8 + i;

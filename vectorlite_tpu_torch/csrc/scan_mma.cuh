@@ -7,8 +7,8 @@
 // bf16 rows (scan_topk_exact_tf32, scan_topk_exact_bf16) and K2
 // (scan_topk_exact_s8) at k <= 32; csrc/wide.cu the same three at 32 < k
 // <= 256 (scan_topk_wide_tf32, _bf16, _s8). The CUDA-core body of
-// scan_kernel.cuh keeps K1 and K2 at k > 256, K4, and K3 and K7 over f32
-// rows.
+// scan_kernel.cuh keeps K1 and K2 at k > 256, K4 at k > 32 (csrc/l1.cu
+// serves k <= 32), and K3 and K7 over f32 rows.
 //
 // Bounds at the headline shape (2^20 x 384 rows, B = 256). bf16 rows: one
 // bf16 pass is 2 B N D = 206 GFLOP, 0.21 ms at 989 TFLOP/s, and the rows'
@@ -1261,31 +1261,6 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
     else if constexpr (MODE != FIRST)
       flush(tile);
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // Tiles a block walks with F_WALK: the fewest that keep every block's run

@@ -29,8 +29,12 @@ reference's names and contracts so the two packages read side by side:
   ``scan_block_topw``).
 * ``pallas_search_block_topk_rescored`` — K3 selection over a scan copy,
   then an exact f32 re-score of the pool from the f32 rows, in torch.
-* ``pallas_search_topk_l1`` — exact Manhattan top-k: kernel K4
-  (``scan_topk_l1``), K1's selection over ``1 / (1 + sum |q - v|)``.
+* ``pallas_search_topk_l1`` — exact Manhattan top-k: kernel K4, each
+  tile's top k of ``1 / (1 + sum |q - v|)``. Up to k = 32 (tiles of a
+  multiple of 256 rows) it runs on an FADD stream fed by TMA with lists in
+  registers (``csrc/l1.cu``: ``scan_topk_l1_fadd`` over f32 rows,
+  ``scan_topk_l1_fadd_bf16`` over bf16 rows), beyond it on the CUDA-core
+  body (``csrc/scan.cu`` ``scan_topk_l1``), by ``exact_route``.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain-torch version beside it (``tile_topk_plain``,
@@ -102,6 +106,14 @@ SCAN_BLOCK_TOPW_BF16 = _build.Kernel(
 SCAN_TOPK_L1 = _build.Kernel(
     "scan", "scan_topk_l1",
     [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_L1_FADD = _build.Kernel(
+    "l1", "scan_topk_l1_fadd",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_L1_FADD_BF16 = _build.Kernel(
+    "l1", "scan_topk_l1_fadd_bf16",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 )
 SCAN_TOPK_EXACT_TF32 = _build.Kernel(
     "exact", "scan_topk_exact_tf32",
@@ -249,14 +261,39 @@ WIDE_MAX_K = 256
 WIDE_MAX_TILE = 1 << 15
 
 
+#: the longest per-tile list K4's FADD stream keeps (one entry a lane), and
+#: the rows of its chunks, which its tiles must be a multiple of
+L1_MAX_K = 32
+L1_CHUNK = 256
+_L1_FADD = {torch.float32: SCAN_TOPK_L1_FADD, torch.bfloat16: SCAN_TOPK_L1_FADD_BF16}
+
+
+def l1_query_operand(queries, dtype):
+    """K4's query image for rows of ``dtype``: [ceil(B / 64), slices, 64,
+    S] f32, each block of 64 queries slice by slice (S = 32 dimensions a
+    slice over f32 rows, 64 over bf16 rows: 128 bytes of a row), zero past
+    B and D, contiguous."""
+    ds = 32 if dtype == torch.float32 else 64
+    b, d = queries.shape
+    slices = -(-d // ds)
+    blocks = -(-b // 64)
+    img = torch.zeros((blocks * 64, slices * ds), dtype=torch.float32, device=queries.device)
+    img[:b, :d] = queries
+    return img.view(blocks, 64, slices, ds).transpose(1, 2).contiguous()
+
+
 def exact_route(dtype, k, metric=SimilarityMetric.COSINE, tile_n=DEFAULT_TILE_N):
     """The per-tile top-k kernel for rows of ``dtype``, lists of ``k``,
-    ``metric`` and tiles of ``tile_n`` rows: manhattan K4 (CUDA-core body,
-    f32/bf16 rows); up to ``MMA_MAX_K`` the tensor-core body's TOPK mode
-    (f32 rows: 3xTF32, bf16 rows, int8 rows: K2); up to ``WIDE_MAX_K`` (and
-    tiles up to ``WIDE_MAX_TILE``) its wide mode; beyond them the CUDA-core
-    K1 (f32/bf16) or K2."""
+    ``metric`` and tiles of ``tile_n`` rows: manhattan K4, up to
+    ``L1_MAX_K`` (tiles of a multiple of ``L1_CHUNK`` rows) on the FADD
+    stream (f32/bf16 rows), else on the CUDA-core body; up to
+    ``MMA_MAX_K`` the tensor-core body's TOPK mode (f32 rows: 3xTF32, bf16
+    rows, int8 rows: K2); up to ``WIDE_MAX_K`` (and tiles up to
+    ``WIDE_MAX_TILE``) its wide mode; beyond them the CUDA-core K1
+    (f32/bf16) or K2."""
     if metric is SimilarityMetric.MANHATTAN:
+        if k <= L1_MAX_K and tile_n % L1_CHUNK == 0:
+            return _L1_FADD.get(dtype, SCAN_TOPK_L1)
         return SCAN_TOPK_L1
     if k <= MMA_MAX_K:
         return {torch.float32: SCAN_TOPK_EXACT_TF32, torch.bfloat16: SCAN_TOPK_EXACT_BF16,
@@ -294,6 +331,15 @@ def tile_topk_cuda(
     out_i = torch.empty((b, n // tile_n, k_tile), dtype=torch.int32, device=dev)
     kernel = exact_route(values.dtype, k_tile, metric, tile_n)
     metric_code = _METRIC_CODE.get(metric)
+    if kernel in (SCAN_TOPK_L1_FADD, SCAN_TOPK_L1_FADD_BF16):
+        q_op = l1_query_operand(queries.to(torch.float32), values.dtype)
+        with torch.cuda.device(dev):
+            kernel.launch(
+                q_op.data_ptr(), values.data_ptr(), valid.data_ptr(),
+                out_s.data_ptr(), out_i.data_ptr(),
+                n, d, b, k_tile, tile_n, _stream(dev),
+            )
+        return out_s, out_i
     if kernel in (SCAN_TOPK_EXACT_S8, SCAN_TOPK_WIDE_S8):
         q_op, q_scale = scan_mma.query_operand_int8(queries)
         with torch.cuda.device(dev):
