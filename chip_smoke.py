@@ -7,8 +7,8 @@ Phases (any failure raises and the exit code is not 0):
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every native source under vectorlite_tpu_torch/csrc (scan.cu,
    lanes.cu, exact.cu, wide.cu, l1.cu, pq.cu, ivf.cu with nvcc,
-   host_rescore.cpp with g++; one compiler per source, all started
-   together); the wide mode's shared-memory plans.
+   host_rescore.cpp and vlc_emit.cpp with g++; one compiler per source,
+   all started together); the wide mode's shared-memory plans.
 2. Kernels against their plain-torch versions on the card: K1 and K2 on
    the route scan.exact_route names (k <= 32: the tensor-core body's
    per-query top-k, scan_topk_exact_tf32 over f32 rows, _bf16 over bf16
@@ -147,7 +147,32 @@ Phases (any failure raises and the exit code is not 0):
    tiles 8192 and 16384) beside K3 on the same body at the same shape.
    Launch counts are zeroed just before and read just after; K7, K8 and
    K3's bf16 and f32 routes must have launched.
-7. A `kernels` JSON line, the card line, and last
+7. The collection surface and persistence through the SDK, after the
+   phase-6 arrays are freed, on phase 3's rows, each with a text and
+   {"bucket": i % 16, "tag": ...} (MockEmbeddingFunction(384)):
+   (a) 64 threads issue 2,048 single search_text_in_collection calls, k
+   10, on a collection built with the precision guard on (whichever kernel
+   it picks) and on one built with VECTORLITE_SPEED_GUARD=0 (K3 over the
+   int8 scan copy), coalesced and then with VECTORLITE_COALESCE=0:
+   requests/s, p50/p99 a request, the coalescer's batch-size histogram and
+   the launches; every result held against a direct search_batch of the
+   same queries (ids equal beyond 1e-5 near-ties, scores within 1e-5).
+   (b) delete_where on one bucket, compact, list_vectors pages with and
+   without a where, update_metadata on 1,000 ids, get_vectors on 1,000 ids,
+   update_text, each timed; then a filtered batch of 256 (K1 with the mask)
+   against an f64 numpy scan over the matching rows. (c) The BM25 sidecar
+   (built on 2^18 rows when a 2^16-text build projects past 60 s) and 256
+   search_hybrid calls. (d) save_to_file through the native emitter (its
+   count must move) and load_from_file into a fresh card client (run on
+   2^18 rows when a 2^16-row save and load project past 80% of the free
+   disk or 60 s): the batch of 256, the default call and a where filter,
+   bit-identical before and after, the f64 truth exactly. (e) A WAL
+   manager and an autosave directory: 10,000 rows in batches, deletes and
+   metadata updates, one snapshot, more writes, the client dropped without
+   close; a fresh card client restores and replays to the live state.
+   Launch counts are zeroed just before each counted run and read just
+   after; the kernels line adds them to phases 3-6's.
+8. A `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 The native sources build into vectorlite_tpu_torch/csrc/build/
@@ -1894,6 +1919,408 @@ def headline_path(merge, decompose, scan, build, SM, dev, args, card) -> dict:
     return launches
 
 
+P7_THREADS = 64  # concurrent SDK callers in phase 7 (a)
+P7_REQUESTS = 2048  # single-text searches a serving run
+P7_PROBE_ROWS = 1 << 16  # the sizing runs of (c) and (d)
+P7_CUT_ROWS = 1 << 18  # (c) and (d) when the projection passes the budget
+P7_BUDGET_S = 60.0
+P7_DURABLE_ROWS = 10_000
+P7_WORDS = ("amber", "birch", "cobalt", "delta", "ember", "fjord", "granite", "harbor",
+            "indigo", "juniper", "kelp", "lumen", "marble", "nectar", "onyx", "pepper",
+            "quartz")
+P7_TAGS = ("news", "docs", "code", "chat", "mail")
+
+
+def p7_texts(n: int) -> list:
+    return [f"record {i} {P7_WORDS[i % 17]} {P7_WORDS[(i // 17) % 17]}" for i in range(n)]
+
+
+def p7_metas(n: int) -> list:
+    return [{"bucket": i % 16, "tag": P7_TAGS[i % 5]} for i in range(n)]
+
+
+def p7_collection(vl, dev, name, rows, texts, metas, profile=None):
+    """A client holding one collection of ``rows`` with texts and metadata;
+    returns (client, seconds the add took)."""
+    config = vl.VectorLiteConfig.profile(profile) if profile else None
+    client = vl.VectorLiteClient(vl.MockEmbeddingFunction(D), config=config, device=dev)
+    client.create_collection(name, vl.IndexType.FLAT)
+    t0 = time.perf_counter()
+    client.add_vectors_to_collection(name, rows, texts, metas)
+    return client, time.perf_counter() - t0
+
+
+def launch_counts(build) -> dict:
+    return {kk.symbol: kk.launches for kk in build.KERNELS if kk.launches}
+
+
+def hold_against_direct(label, got, index, q64, metric) -> None:
+    """Rows of SearchResults against a direct search_batch of the same
+    queries (k + 1 columns, batches of B): ids equal except among scores
+    within 1e-5 of each other, scores within rtol/atol 1e-5."""
+    want = []
+    for lo in range(0, len(q64), B):
+        want += index.search_batch(q64[lo:lo + B], K + 1, metric)
+    ps, pi = scores_of(want), ids_of(want)
+    ks, ki = scores_of(got), ids_of(got)
+    bad = ids_match(ps, pi, ks, ki)
+    err = float(np.max(np.abs(ks - ps[:, :K])))
+    log(f"    {label}: vs direct search_batch ({len(q64)} queries): id mismatches beyond "
+        f"ties {bad}, max score diff {err:.3g}")
+    if bad or not np.allclose(ks, ps[:, :K], rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{label} disagrees with the direct path")
+
+
+def serve(client, name, q_texts, build, coalesce_stats, label, card) -> tuple:
+    """P7_THREADS threads issue single search_text_in_collection calls, k
+    K, over q_texts; returns (rows in q_texts order, launches). Counts
+    are zeroed just before and read just after."""
+    n = len(q_texts)
+    out, lat = [None] * n, np.zeros(n)
+
+    def worker(w):
+        for i in range(w, n, P7_THREADS):
+            t0 = time.perf_counter()
+            out[i] = client.search_text_in_collection(name, q_texts[i], K)
+            lat[i] = time.perf_counter() - t0
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    before = coalesce_stats.snapshot()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=P7_THREADS) as pool:
+        for f in [pool.submit(worker, w) for w in range(P7_THREADS)]:
+            f.result()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = launch_counts(build)
+    after = coalesce_stats.snapshot()
+    hist = {key: after.get("hist", {}).get(key, 0) - before.get("hist", {}).get(key, 0)
+            for key in after.get("hist", {})}
+    batches = after.get("batches", 0) - before.get("batches", 0)
+    log(f"    {label}: {n / wall:.1f} requests/s, per request p50 "
+        f"{np.percentile(lat, 50) * 1e3:.3f} ms p99 {np.percentile(lat, 99) * 1e3:.3f} ms "
+        f"({n} requests, {P7_THREADS} threads, {wall:.2f} s); dispatches {batches}, "
+        f"batch-size histogram {dict((k, v) for k, v in hist.items() if v)}; launches "
+        f"{moved} [{card}]")
+    return out, moved
+
+
+def collection_path(vl, build, dev, rows, card: str, seed: int) -> dict:
+    """Phase 7: the collection surface and persistence through the SDK on
+    phase 3's rows; returns the launches of its counted runs."""
+    import shutil
+    import tempfile
+
+    from vectorlite_tpu_torch.native import VLC
+    from vectorlite_tpu_torch.observability import coalesce_stats
+    from vectorlite_tpu_torch.persist.vlc import load_collection_from_file
+    from vectorlite_tpu_torch.store.autosave import AutosaveDaemon, restore_into
+    from vectorlite_tpu_torch.store.wal import WalManager, recover_into
+    from vectorlite_tpu_torch.text.bm25 import BM25Index
+
+    SM = vl.SimilarityMetric
+    started = time.perf_counter()
+    n = len(rows)
+    rng = np.random.default_rng([seed, 11])
+    texts, metas = p7_texts(n), p7_metas(n)
+    emb = vl.MockEmbeddingFunction(D)
+    q_texts = [f"request {i}" for i in range(P7_REQUESTS)]
+    q64 = emb.embed_batch_arrays(q_texts)
+    total = {}
+
+    def count(moved):
+        for sym, c in moved.items():
+            total[sym] = total.get(sym, 0) + c
+
+    # (a) coalesced serving, guard on, then with VECTORLITE_SPEED_GUARD=0
+    log(f"  (a) coalesced serving: {P7_THREADS} threads, {P7_REQUESTS} single-text "
+        f"searches, k {K}")
+    clients = {}
+    for guard in ("1", "0"):
+        os.environ["VECTORLITE_SPEED_GUARD"] = guard
+        client, add_s = p7_collection(vl, dev, "main", rows, texts, metas)
+        t0 = time.perf_counter()
+        client.search_vectors_in_collection("main", q64[:1], K)  # device build
+        torch.cuda.synchronize()
+        log(f"    guard {guard}: add_vectors with texts and metadata {add_s:.2f} s, "
+            f"device build {time.perf_counter() - t0:.2f} s")
+        clients[guard] = client
+    os.environ["VECTORLITE_SPEED_GUARD"] = "0"
+    for mode in ("coalesced", "VECTORLITE_COALESCE=0"):
+        if mode != "coalesced":
+            os.environ["VECTORLITE_COALESCE"] = "0"
+        try:
+            for guard, client in clients.items():
+                label = f"{mode}, guard {'on' if guard == '1' else 'off'}"
+                got, moved = serve(client, "main", q_texts, build, coalesce_stats, label, card)
+                count(moved)
+                want = K3_INT8 if guard == "0" else None
+                if want and not moved.get(want):
+                    raise AssertionError(f"{label}: {want} never launched ({moved})")
+                if not set(moved) & {K1_TF32, K3_INT8}:
+                    raise AssertionError(f"{label}: neither K1 nor K3 launched ({moved})")
+                with client.get_collection("main").index_read() as index:
+                    hold_against_direct(label, got, index, q64, SM.COSINE)
+        finally:
+            os.environ.pop("VECTORLITE_COALESCE", None)
+    clients.pop("1").delete_collection("main")
+    client = clients.pop("0")
+    coll = client.get_collection("main")
+
+    # (b) bulk mutations, then a filtered batch held against f64 numpy
+    log("  (b) bulk mutations")
+    ids = np.arange(n)
+    alive = np.ones(n, bool)
+
+    def step(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"    {label}: {(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
+        return out
+
+    removed = step("delete_where bucket 5",
+                   lambda: client.delete_where_in_collection("main", {"bucket": 5}))
+    alive[ids % 16 == 5] = False
+    if removed != n // 16:
+        raise AssertionError(f"delete_where removed {removed}, not {n // 16}")
+    step("compact", lambda: client.compact_collection("main"))
+    step("first search after the compaction (the device copy rebuilt)",
+         lambda: client.search_vectors_in_collection("main", q64[:1], K))
+    page, total_live = step("list_vectors offset 1000 limit 100",
+                            lambda: client.list_vectors_in_collection("main", 1000, 100))
+    if [v.id for v in page] != list(ids[alive][1000:1100]) or total_live != alive.sum():
+        raise AssertionError("list_vectors page differs from the surviving ids")
+    page, total_b3 = step("list_vectors where bucket 3, offset 500 limit 100",
+                          lambda: client.list_vectors_in_collection(
+                              "main", 500, 100, {"bucket": 3}))
+    if [v.id for v in page] != list(ids[ids % 16 == 3][500:600]) or total_b3 != n // 16:
+        raise AssertionError("list_vectors where page differs")
+    moved_ids = [int(i) for i in ids[ids % 16 == 7][:1000]]
+
+    def update_all():
+        for vid in moved_ids:
+            client.update_metadata_in_collection("main", vid, {"bucket": 3, "tag": "moved"})
+    step("update_metadata x 1000", update_all)
+    pick = [int(i) for i in rng.choice(n, 1000, replace=False)]
+    got = step("get_vectors x 1000", lambda: client.get_vectors_from_collection("main", pick))
+    if [v.id for v in got] != [i for i in pick if alive[i]]:
+        raise AssertionError("get_vectors returned other ids")
+    for v in got[:50]:
+        if not np.array_equal(np.asarray(v.values), rows[v.id].astype(np.float64)):
+            raise AssertionError(f"get_vectors values of {v.id} differ")
+    step("update_text", lambda: client.update_text_in_collection(
+        "main", 12, "rewritten record amber", {"bucket": 3, "tag": "rewritten"}))
+    where = {"bucket": 3}
+    build.reset_launch_counts()
+    filt = step(f"filtered batch of {B} (K1 with the mask; the mask built anew after "
+                "the metadata updates)",
+                lambda: client.search_vectors_in_collection("main", q64[:B], K, where=where))
+    moved = launch_counts(build)
+    count(moved)
+    if not moved.get(K1_TF32):
+        raise AssertionError(f"the filtered batch did not launch {K1_TF32} ({moved})")
+    sel = ids[(ids % 16 == 3) & (ids != 12)]
+    truth_ids = np.concatenate([sel, moved_ids, [12]])
+    mat = np.concatenate([rows[sel], rows[moved_ids]]).astype(np.float64)
+    mat = np.concatenate([mat, np.asarray([emb.generate_embedding("rewritten record amber")])])
+    q = q64[:B]
+    s = (q @ mat.T) / (np.linalg.norm(q, axis=1)[:, None] * np.linalg.norm(mat, axis=1)[None])
+    order = np.argsort(-s, axis=1, kind="stable")[:, :K + 1]
+    ps, pi = np.take_along_axis(s, order, 1), truth_ids[order]
+    bad = ids_match(ps, pi, scores_of(filt), ids_of(filt))
+    err = float(np.max(np.abs(scores_of(filt) - ps[:, :K])))
+    log(f"    filtered batch vs f64 numpy over the {len(truth_ids)} matching rows: "
+        f"id mismatches beyond ties {bad}, max score err {err:.3g} (launches {moved}) [{card}]")
+    if bad or err > 1e-5:
+        raise AssertionError("the filtered batch disagrees with float64 truth")
+
+    # (c) hybrid search; the sidecar's build projected from 2^16 texts
+    t0 = time.perf_counter()
+    probe = BM25Index()
+    for i, text in enumerate(texts[:P7_PROBE_ROWS]):
+        probe.add(i, text)
+    projected = (time.perf_counter() - t0) * n / P7_PROBE_ROWS
+    del probe
+    h_client, h_name = client, "main"
+    if projected > P7_BUDGET_S:
+        m = P7_CUT_ROWS
+        h_client, _ = p7_collection(vl, dev, "hybrid", rows[:m], texts[:m], metas[:m])
+        h_name = "hybrid"
+    h_rows = h_client.get_collection_info(h_name).count
+    log(f"  (c) hybrid search on {h_rows} rows (sidecar build projected from "
+        f"{P7_PROBE_ROWS} texts: {projected:.1f} s at {n} rows; cut to {P7_CUT_ROWS} rows "
+        f"past {P7_BUDGET_S:.0f} s)")
+    h_texts = [f"{P7_WORDS[i % 17]} {P7_WORDS[(i * 5 + 3) % 17]}" for i in range(B)]
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = h_client.search_hybrid_in_collection(h_name, h_texts[0], K)
+    build_s = time.perf_counter() - t0
+    lat = []
+    hybrid = []
+    for text in h_texts:
+        t0 = time.perf_counter()
+        hybrid.append(h_client.search_hybrid_in_collection(h_name, text, K))
+        lat.append(time.perf_counter() - t0)
+    moved = launch_counts(build)
+    count(moved)
+    log(f"    sidecar build (the first call, one search included) {build_s:.2f} s; "
+        f"{B} search_hybrid calls p50 {np.percentile(lat, 50) * 1e3:.3f} ms p99 "
+        f"{np.percentile(lat, 99) * 1e3:.3f} ms; launches {moved} [{card}]")
+    for text, row in zip([h_texts[0], *h_texts], [first, *hybrid]):
+        sc = [h.score for h in row]
+        if len(row) != K or sc != sorted(sc, reverse=True) or max(sc) > 2 / 61:
+            raise AssertionError(f"hybrid results for {text!r} are malformed: {sc}")
+    lexical = h_client.search_hybrid_in_collection(h_name, h_texts[1], K, alpha=0.0)
+    words = set(h_texts[1].split())
+    if not lexical or any(not words & set(h.text.split()) for h in lexical):
+        raise AssertionError("a BM25-only hybrid hit holds none of the query's words")
+    if h_client is not client:
+        h_client.delete_collection(h_name)
+
+    # (d) save and load through the native codec; sized from a 2^16-row save
+    tmp = tempfile.mkdtemp(prefix="vl_phase7_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        p_client, _ = p7_collection(vl, dev, "probe", rows[:P7_PROBE_ROWS],
+                                    texts[:P7_PROBE_ROWS], metas[:P7_PROBE_ROWS])
+        path = os.path.join(tmp, "probe.vlc")
+        t0 = time.perf_counter()
+        p_client.get_collection("probe").save_to_file(path)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_collection_from_file(path, **p_client.flat_index_kwargs())
+        t_load = time.perf_counter() - t0
+        p_size = os.path.getsize(path)
+        os.remove(path)
+        p_client.delete_collection("probe")
+        scale = coll.get_info().count / P7_PROBE_ROWS
+        proj_bytes, proj_s = p_size * scale, (t_save + t_load) * scale
+        s_client, s_name = client, "main"
+        if proj_bytes > 0.8 * free or proj_s > P7_BUDGET_S:
+            m = P7_CUT_ROWS
+            s_client, _ = p7_collection(vl, dev, "saved", rows[:m], texts[:m], metas[:m])
+            s_name = "saved"
+        else:
+            client.compact_collection("main")  # the loaded file has no tombstones
+        s_coll = s_client.get_collection(s_name)
+        log(f"  (d) save and load of {s_coll.get_info().count} rows; free disk {free / 1e9:.1f} "
+            f"GB; a {P7_PROBE_ROWS}-row save {p_size / 1e6:.1f} MB in {t_save:.2f} s, load "
+            f"{t_load:.2f} s, projected {proj_bytes / 1e9:.2f} GB and {proj_s:.1f} s at "
+            f"{coll.get_info().count} rows (cut to {P7_CUT_ROWS} rows past 80% of the free "
+            f"disk or {P7_BUDGET_S:.0f} s)")
+        q = q64[:B]
+        before = [s_client.search_vectors_in_collection(s_name, q, K),
+                  s_client.search_vectors_in_collection(s_name, q, K, where={"tag": "docs"})]
+        path = os.path.join(tmp, "saved.vlc")
+        calls = VLC.calls
+        t0 = time.perf_counter()
+        s_coll.save_to_file(path)
+        save_s = time.perf_counter() - t0
+        if VLC.calls == calls:
+            raise AssertionError("the native .vlc emitter did not serve the save")
+        size = os.path.getsize(path)
+        fresh = vl.VectorLiteClient(emb, device=dev)
+        t0 = time.perf_counter()
+        fresh.add_collection(vl.Collection.load_from_file(path, **fresh.flat_index_kwargs()))
+        load_s = time.perf_counter() - t0
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        after = [fresh.search_vectors_in_collection(s_name, q, K)]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        after.append(fresh.search_vectors_in_collection(s_name, q, K, where={"tag": "docs"}))
+        moved = launch_counts(build)
+        count(moved)
+        log(f"    save {save_s:.2f} s ({size / 1e9:.3f} GB, {VLC.calls - calls} native emitter "
+            f"calls); load {load_s:.2f} s; first search after the load (the upload "
+            f"included) {first_s:.2f} s; launches {moved} [{card}]")
+        for label, x, y in zip(("default call", "where tag docs"), before, after):
+            if [[(h.id, h.score) for h in r] for r in x] != [[(h.id, h.score) for h in r]
+                                                             for r in y]:
+                raise AssertionError(f"{label}: results after the load are not bit-identical")
+        with s_coll.index_read() as a, fresh.get_collection(s_name).index_read() as b:
+            ja, jb = a.index_to_json()["data"], b.index_to_json()["data"]
+            same = (np.array_equal(ja.ids, jb.ids) and ja.texts == jb.texts
+                    and ja.metas == jb.metas
+                    and np.array_equal(ja.values[ja.slots], jb.values[jb.slots]))
+        if not same:
+            raise AssertionError("the loaded collection's rows differ from the saved ones")
+        log(f"    {B} queries (default call and where) bit-identical after the load; the f64 "
+            f"truth, ids, texts and metadata round-trip exactly")
+        fresh.delete_collection(s_name)
+        if s_client is not client:
+            s_client.delete_collection(s_name)
+        os.remove(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    client.delete_collection("main")
+    del coll, client
+
+    # (e) durability: WAL + autosave, a crash without close, restore + replay
+    tmp = tempfile.mkdtemp(prefix="vl_phase7_")
+    try:
+        wal_dir, snap_dir = os.path.join(tmp, "wal"), os.path.join(tmp, "snapshots")
+        d_client = vl.VectorLiteClient(emb, device=dev)
+        d_client.set_collection_observer(WalManager(wal_dir, snapshot_dir=snap_dir))
+        daemon = AutosaveDaemon(d_client, snap_dir, interval_s=3600.0)  # ticks by flush()
+        d_client.create_collection("durable", vl.IndexType.FLAT)
+        d_rows = rng.standard_normal((P7_DURABLE_ROWS + 2000, D)).astype(np.float32)
+        d_texts = p7_texts(len(d_rows))
+        d_metas = p7_metas(len(d_rows))
+        t0 = time.perf_counter()
+        for lo in range(0, P7_DURABLE_ROWS, 1000):
+            d_client.add_vectors_to_collection("durable", d_rows[lo:lo + 1000],
+                                               d_texts[lo:lo + 1000], d_metas[lo:lo + 1000])
+        add_s = time.perf_counter() - t0
+        for vid in range(0, 2000, 10):
+            d_client.delete_from_collection("durable", vid)
+        for vid in range(1, 1000, 10):
+            d_client.update_metadata_in_collection("durable", vid, {"bucket": 99})
+        t0 = time.perf_counter()
+        daemon.flush()
+        snap_s = time.perf_counter() - t0
+        for lo in range(P7_DURABLE_ROWS, len(d_rows), 1000):
+            d_client.add_vectors_to_collection("durable", d_rows[lo:lo + 1000],
+                                               d_texts[lo:lo + 1000], d_metas[lo:lo + 1000])
+        d_client.delete_where_in_collection("durable", {"bucket": 7})
+        for vid in [v for v in range(2001, 2200) if v % 16 != 7][:50]:
+            d_client.update_text_in_collection("durable", vid, f"rewritten {vid}", {"v": vid})
+        d_client.delete_from_collection("durable", 10_500)
+        want = d_client.search_vectors_in_collection("durable", q64[:B], K)
+        want_state = d_client.list_vectors_in_collection("durable", 0, 1 << 20, None, True)
+        del d_client, daemon  # the crash: no close, no final flush
+        fresh = vl.VectorLiteClient(emb, device=dev)
+        t0 = time.perf_counter()
+        restored = restore_into(fresh, snap_dir, **fresh.flat_index_kwargs())
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replayed = recover_into(fresh, wal_dir)
+        replay_s = time.perf_counter() - t0
+        got = fresh.search_vectors_in_collection("durable", q64[:B], K)
+        got_state = fresh.list_vectors_in_collection("durable", 0, 1 << 20, None, True)
+        key = lambda v: v.id  # noqa: E731
+        same = [(v.id, v.text, v.metadata, v.values) for v in sorted(want_state[0], key=key)] \
+            == [(v.id, v.text, v.metadata, v.values) for v in sorted(got_state[0], key=key)]
+        bad = ids_match(scores_of(want), ids_of(want), scores_of(got), ids_of(got))
+        err = float(np.max(np.abs(scores_of(got) - scores_of(want))))
+        log(f"  (e) durability: {P7_DURABLE_ROWS} rows added in batches of 1000 "
+            f"({add_s:.2f} s), deletes and metadata updates, one autosave snapshot "
+            f"({snap_s:.2f} s), 2000 more rows, a delete_where, 50 update_text, a delete; "
+            f"dropped without close; restore {restored} {restore_s:.2f} s, replay of "
+            f"{replayed} ops {replay_s:.3f} s; {got_state[1]} rows, state equal {same}, "
+            f"{B} queries: id mismatches beyond ties {bad}, max score diff {err:.3g} [{card}]")
+        if not same or got_state[1] != want_state[1] or bad or err > 1e-5:
+            raise AssertionError("the restored and replayed collection differs from the live one")
+        fresh.delete_collection("durable")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 7: {time.perf_counter() - started:.1f} s; launches {total}; host peak "
+        f"RSS {peak_rss_gb():.2f} GB")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
@@ -1968,7 +2395,7 @@ def main() -> int:
         vl, _build, pq, native.RESCORE, dev, rows, queries, exact_ids, card,
         args.batches, rng))
     log(f"  host peak RSS after phase 4: {peak_rss_gb():.2f} GB")
-    del rows, queries, exact_ids
+    del queries, exact_ids  # phase 7 serves the rows again
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1981,6 +2408,14 @@ def main() -> int:
     six = headline_path(merge, decompose, scan, _build, vl.SimilarityMetric, dev, args, card)
     for sym in ("scan_merge_topw", "scan_fold_probe", K3_BF16, K3_F32):
         launches[sym] = six[sym]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[7] the collection surface and persistence through the SDK (N={args.rows}, D={D}, "
+        f"k={K}) [{card}]")
+    for sym, c in collection_path(vl, _build, dev, rows, card, args.seed).items():
+        launches[sym] = launches.get(sym, 0) + c
+    del rows
     log(f"  smoke run {time.perf_counter() - started:.1f} s, builds included; host "
         f"peak RSS {peak_rss_gb():.2f} GB")
 

@@ -65,3 +65,17 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         FlatIndex(8, device="cuda")
     assert FlatIndex(8, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.name)
+def test_sources_name_no_hnsw_index(path):
+    """HNSW is not ported: no source imports or names ``HNSWIndex`` (the
+    JAX package's persistence and WAL replay import it; the port's copies
+    refuse HNSW with HNSWNotPorted instead)."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            assert (node.module or "").split(".")[-1] != "hnsw", path
+            assert "HNSWIndex" not in [a.name for a in node.names], path
+        elif isinstance(node, ast.Name):
+            assert node.id != "HNSWIndex", path

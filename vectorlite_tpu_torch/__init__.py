@@ -11,8 +11,10 @@ search path (the scan kernels K1-K4), the ``pq`` profile (the ADC rank
 kernel K5, with the native f64 re-score) and the IVF rung (the partition
 probe K6); beside them, outside the SDK, the tournament-merge engine (K7)
 and the scan-decomposition probe (K8), on a tensor-core body over bf16
-rows. See ROADMAP.md for what is still to come. Entry points run on the
-CUDA card unless given ``device="cpu"``.
+rows. Around them: the collection surface (search coalescing, bulk
+mutations, listing, BM25 hybrid search) and persistence (``.vlc`` files,
+the write-ahead log, autosave). See ROADMAP.md for what is still to come.
+Entry points run on the CUDA card unless given ``device="cpu"``.
 """
 
 from .core.types import DEFAULT_VECTOR_DIMENSION, SearchResult, Vector

@@ -197,3 +197,14 @@ class InternalError(VectorLiteError):
 
     def __init__(self, detail: str):
         super().__init__(f"Internal server error: {detail}")
+
+
+class HNSWNotPorted(VectorLiteError):
+    """An HNSW index was asked for (a create, a ``.vlc`` payload or a
+    write-ahead log header); this package serves Flat indexes only."""
+
+    def __init__(self, where: str = "indexes"):
+        super().__init__(
+            f"HNSW {where} are not available in vectorlite_tpu_torch yet; "
+            "use a Flat collection"
+        )

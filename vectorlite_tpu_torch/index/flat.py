@@ -38,15 +38,16 @@ Here:
   more than half the corpus fall through to the brute kernels. Serves on
   CUDA, and on the CPU only under ``VECTORLITE_IVF_FORCE``.
 * **Delete** — validity-mask clear (the reference's ``retain``
-  semantics: deleting an absent id succeeds, reference: src/index/flat.rs:93-96).
+  semantics: deleting an absent id succeeds, reference: src/index/flat.rs:93-96);
+  ``delete_where`` clears every row a metadata clause matches at once.
+* **Truth on disk** — ``VECTORLITE_HOST_TRUTH_DIR`` puts the f64 truth
+  matrix in an unlinked memory-mapped file there instead of RAM.
 
 Returned scores are exact (f64 host math — the native streaming
 re-score of ``native.py``, or numpy — or f32 device re-scoring);
 selection is exact on the host path and on ``approx=False``.
 
-Not yet ported: the device mesh, the pipelined ``search_batch_stream``,
-the disk-backed truth matrix, and ``delete_where`` / ``list_vectors`` /
-``update_metadata``.
+Not yet ported: the device mesh and the pipelined ``search_batch_stream``.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ import torch
 from ..config import resolve_device
 from ..core.metrics import SimilarityMetric, disable_tf32, quantize_rows_int8
 from ..core.types import SearchResult, Vector
-from ..errors import DimensionMismatch, DuplicateVectorId
+from ..errors import DimensionMismatch, DuplicateVectorId, VectorNotFound
 from ..kernels import ivf, pq, scan
 from ..kernels.topk import (
     next_pow2,
@@ -396,7 +397,10 @@ class FlatIndex:
 
         cap = max(_MIN_CAPACITY, next_pow2(max(1, len(data))))
         self._capacity = cap
-        self._values64 = np.zeros((cap, self.dim), dtype=np.float64)
+        # truth-matrix placement is pinned for the index's lifetime (a
+        # growth realloc must not switch RAM <-> disk mid-life)
+        self._truth_dir = os.environ.get("VECTORLITE_HOST_TRUTH_DIR")
+        self._values64 = self._alloc_values(cap)
         self._ids = np.zeros(cap, dtype=np.uint64)
         self._valid = np.zeros(cap, dtype=bool)
         self._texts: list[Optional[str]] = [None] * cap
@@ -474,6 +478,37 @@ class FlatIndex:
     def device(self) -> torch.device:
         return self._device
 
+    def _alloc_values(self, cap: int) -> np.ndarray:
+        """The f64 truth matrix: RAM by default, a disk-backed memmap when
+        VECTORLITE_HOST_TRUTH_DIR is set. The memmap mode moves the
+        8·N·D-byte truth onto disk: re-score gathers and persistence
+        stream through the page cache, so host RAM bounds the working set,
+        not the corpus. The backing file is unlinked right after mapping
+        (the kernel keeps it alive until the mapping dies), so neither a
+        crash nor GC can leak disk space."""
+        directory = self._truth_dir
+        if not directory:
+            return np.zeros((cap, self.dim), dtype=np.float64)
+        import tempfile
+
+        os.makedirs(directory, exist_ok=True)
+        fd, path = tempfile.mkstemp(suffix=".truth", dir=directory)
+        try:
+            # reserve real blocks up front: a sparse file would admit any
+            # size and then SIGBUS on the first page write past free
+            # space; fallocate turns a full disk into an OSError here
+            try:
+                os.posix_fallocate(fd, 0, cap * self.dim * 8)
+            except AttributeError:  # non-POSIX: keep the sparse file
+                pass
+            mm = np.memmap(
+                path, dtype=np.float64, mode="w+", shape=(cap, self.dim)
+            )
+        finally:
+            os.close(fd)
+            os.unlink(path)
+        return mm
+
     # ------------------------------------------------------------------ API
 
     def add(self, vector: Vector) -> None:
@@ -548,6 +583,27 @@ class FlatIndex:
         if self._size > 1024 and self._count < self._size // 2:
             self._compact()
 
+    def delete_where(self, where) -> int:
+        """Delete every live vector whose metadata matches ``where``: one
+        mask evaluation and one vectorized clear. ``{}`` is an explicit
+        match-all; a malformed clause raises InvalidFilter. Returns the
+        count deleted."""
+        mask, count, _ = self._where_mask(where)
+        if count == 0:
+            return 0
+        slots = np.flatnonzero(mask)
+        for s in slots:
+            self._id_to_slot.pop(int(self._ids[s]), None)
+            self._texts[s] = None
+            self._metas[s] = None
+        self._valid[slots] = False
+        self._count -= int(count)
+        self._epoch += 1
+        self._mask_dirty = True
+        if self._size > 1024 and self._count < self._size // 2:
+            self._compact()
+        return int(count)
+
     def compact(self) -> int:
         """Explicit tombstone reclamation. Returns slots reclaimed."""
         dead = self._size - self._count
@@ -561,7 +617,7 @@ class FlatIndex:
         buffer (not in-place moves) keeps FlatRowsView snapshots valid."""
         live = np.nonzero(self._valid[: self._size])[0]
         n = len(live)
-        new_vals = np.zeros((self._capacity, self.dim), dtype=np.float64)
+        new_vals = self._alloc_values(self._capacity)
         slab = max(1, (1 << 27) // (8 * self.dim))
         for lo in range(0, n, slab):
             idx = live[lo : lo + slab]
@@ -770,6 +826,50 @@ class FlatIndex:
             metadata=self._metas[slot],
         )
 
+    def update_metadata(self, id: int, metadata) -> None:
+        """Replace a vector's metadata in place (``None`` clears). The
+        embedding and text are untouched, so no device state changes; only
+        the filter-mask cache epoch moves."""
+        slot = self._id_to_slot.get(int(id))
+        if slot is None:
+            raise VectorNotFound(int(id))
+        self._metas[slot] = metadata
+        self._epoch += 1
+
+    def list_vectors(
+        self,
+        offset: int = 0,
+        limit: int = 100,
+        where: Optional[dict] = None,
+        include_values: bool = False,
+    ) -> tuple[list[Vector], int]:
+        """A page of stored vectors in insertion (slot) order, optionally
+        restricted by a ``where`` clause: (page, total matching).
+        ``include_values=False`` leaves ``values`` empty."""
+        offset = max(0, int(offset))
+        limit = max(0, int(limit))
+        if where is not None:
+            mask, total, _ = self._where_mask(where)
+            slots = np.flatnonzero(mask)
+        else:
+            slots = np.flatnonzero(self._valid[: self._size])
+            total = int(len(slots))
+        page = slots[offset : offset + limit]
+        out = [
+            Vector(
+                id=int(self._ids[s]),
+                values=(
+                    [float(x) for x in self._values64[s]]
+                    if include_values
+                    else []
+                ),
+                text=self._texts[s] or "",
+                metadata=self._metas[s],
+            )
+            for s in page
+        ]
+        return out, total
+
     @property
     def dimension(self) -> int:
         return self.dim
@@ -802,11 +902,13 @@ class FlatIndex:
 
         Entry layout: [struct_epoch, evaluated_upto, mask, count, dev]."""
         from ..core.filter import canonicalize, compile_where
+        from ..observability import filter_stats
 
         where, key = canonicalize(where)
         ent = self._where_masks.get(key)
         if ent is not None and ent[0] == self._epoch:
             if ent[1] == self._size and len(ent[2]) == self._capacity:
+                filter_stats.record("hit")
                 return ent[2], ent[3], key
             # append-only extension; copy-on-extend so a concurrent reader
             # of the old mask never sees a tear
@@ -817,11 +919,13 @@ class FlatIndex:
             count = self._eval_mask_range(pred, mask, upto, self._size)
             count += int(np.count_nonzero(mask[:upto]))
             self._where_masks.put(key, [self._epoch, self._size, mask, count, None])
+            filter_stats.record("extend", self._size - upto)
             return mask, count, key
         pred = compile_where(where)
         mask = np.zeros(self._capacity, dtype=bool)
         count = self._eval_mask_range(pred, mask, 0, self._size)
         self._where_masks.put(key, [self._epoch, self._size, mask, count, None])
+        filter_stats.record("build", self._size)
         return mask, count, key
 
     def _eval_mask_range(self, pred, mask, lo: int, hi: int) -> int:
@@ -1361,7 +1465,7 @@ class FlatIndex:
                 new_cap *= 2
         growth = new_cap - self._capacity
         n = self._size
-        new_vals = np.zeros((new_cap, self.dim), dtype=np.float64)
+        new_vals = self._alloc_values(new_cap)
         new_vals[:n] = self._values64[:n]
         self._values64 = new_vals
         new_ids = np.zeros(new_cap, np.uint64)

@@ -1,12 +1,14 @@
-"""Exact float64 re-score of a candidate pool on the host, in native code.
+"""Host code in native libraries: the f64 re-score and the .vlc codec.
 
-Binding of ``csrc/host_rescore.cpp`` (the port's copy of the JAX
-package's ``flat_rescore_f64``), built with ``g++`` at first use by
-``kernels/_build.py`` and loaded with ctypes. ``FlatIndex._exact_rescore``
-calls ``flat_rescore_f64`` and keeps its numpy version as the plain twin,
-which serves when ``VECTORLITE_NO_NATIVE=1`` or when the library fails to
-build (a warning says so once). ``RESCORE.calls`` counts the calls that
-the native code served.
+Bindings of ``csrc/host_rescore.cpp`` (the port's copy of the JAX
+package's ``flat_rescore_f64``) and ``csrc/vlc_emit.cpp`` (its copy of
+``native/vlc_emit.cpp``), each built with ``g++`` at first use by
+``kernels/_build.py`` and loaded with ctypes. Each keeps a Python twin
+that serves when ``VECTORLITE_NO_NATIVE=1`` or when the library fails to
+build (a warning says so once): ``FlatIndex._exact_rescore``'s numpy
+re-score and ``persist/vlc.py``'s Python emitter and ``json`` parser.
+``RESCORE.calls`` and ``VLC.calls`` count the calls the native code
+served.
 """
 
 from __future__ import annotations
@@ -101,3 +103,91 @@ class NativeRescore:
 
 
 RESCORE = NativeRescore()
+
+
+_P = ctypes.POINTER
+
+
+def _bind_vlc(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Signatures of the codec's C entries, as the JAX package's
+    ``_bind_vlc`` declares them; ``vlc_emit_keyed_arrays`` renders only
+    HNSW payloads and stays unbound."""
+    c = ctypes
+    lib.vlc_fmt_f64.restype = c.c_int32
+    lib.vlc_fmt_f64.argtypes = [c.c_double, c.c_char_p]
+    lib.vlc_emit_f64_elems.restype = c.c_int64
+    lib.vlc_emit_f64_elems.argtypes = [
+        _P(c.c_double), c.c_int64, c.c_int32, c.c_int32, c.c_char_p, c.c_int64,
+    ]
+    lib.vlc_emit_i64_elems.restype = c.c_int64
+    lib.vlc_emit_i64_elems.argtypes = [
+        _P(c.c_int64), c.c_int64, c.c_int32, c.c_int32, c.c_char_p, c.c_int64,
+    ]
+    lib.vlc_emit_rows.restype = c.c_int64
+    lib.vlc_emit_rows.argtypes = [
+        _P(c.c_uint64),  # ids
+        _P(c.c_double),  # vals [n, d]
+        c.c_int64,  # n_rows
+        c.c_int64,  # d
+        c.c_char_p,  # texts (raw utf-8, concatenated)
+        _P(c.c_int64),  # text_offs [n+1]
+        c.c_char_p,  # metas (pre-rendered fragments, concatenated)
+        _P(c.c_int64),  # meta_offs [n+1]
+        c.c_int32,  # elem_indent
+        c.c_int32,  # last_no_comma
+        c.c_char_p,  # out
+        c.c_int64,  # out_cap
+    ]
+    lib.vlc_parse_doc.restype = c.c_int32
+    lib.vlc_parse_doc.argtypes = [
+        c.c_char_p,  # doc
+        c.c_int64,  # len
+        c.c_char_p,  # nonce
+        c.c_void_p,  # skel buffer
+        c.c_int64,  # skel cap
+        _P(c.c_double),  # dvals
+        c.c_int64,  # dcap
+        _P(c.c_int64),  # ivals
+        c.c_int64,  # icap
+        _P(c.c_int64),  # lens
+        c.c_int64,  # lens cap
+        _P(c.c_int64),  # out_counts[4]
+    ]
+    return lib
+
+
+class NativeVLC:
+    """The compiled ``.vlc`` codec and the count of the calls it served."""
+
+    def __init__(self):
+        self.calls = 0
+        self._lib = None
+        self._failed = False
+        self._lock = threading.Lock()
+
+    def library(self) -> Optional[ctypes.CDLL]:
+        """The bound library, or None when the native code is disabled
+        (``VECTORLITE_NO_NATIVE=1``) or did not build."""
+        if os.environ.get("VECTORLITE_NO_NATIVE") == "1":
+            return None
+        with self._lock:
+            if self._lib is None and not self._failed:
+                try:
+                    self._lib = _bind_vlc(_build.load("vlc_emit"))
+                except (RuntimeError, OSError) as exc:
+                    self._failed = True
+                    logger.warning(
+                        "native .vlc codec unavailable, Python serves: %s", exc
+                    )
+            return self._lib
+
+    def call(self, symbol: str, *args):
+        """Call one C entry of the codec (``library()`` must have given a
+        library) and count it."""
+        out = getattr(self._lib, symbol)(*args)
+        with self._lock:  # autosave saves beside foreground ones
+            self.calls += 1
+        return out
+
+
+VLC = NativeVLC()

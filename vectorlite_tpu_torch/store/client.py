@@ -5,7 +5,9 @@ a map of named collections plus a shared embedding function. Collection
 dimension always comes from the embedder (reference: src/client.rs:88).
 
 Flat collections only so far: HNSW comes with its own port, and one CUDA
-device serves every collection until the multi-device port.
+device serves every collection until the multi-device port. A collection
+observer (``set_collection_observer``, e.g. ``store.wal.WalManager``) hears
+of every registration and deletion.
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ from ..embed.base import EmbeddingFunction
 from ..errors import (
     CollectionAlreadyExists,
     CollectionNotFound,
+    HNSWNotPorted,
     InvalidIndexType,
-    VectorLiteError,
 )
 from ..index.flat import FlatIndex
 from .collection import Collection, CollectionInfo
@@ -64,6 +66,19 @@ class VectorLiteClient:
         self._device = resolve_device(
             device if device is not None else self._config.device
         )
+        self._observer = None  # see set_collection_observer
+
+    def set_collection_observer(self, observer) -> None:
+        """Register a lifecycle observer (e.g. ``wal.WalManager``):
+        ``collection_registered(collection)`` fires after every
+        registration (create, load, restore, add_collection) and
+        ``collection_deleted(name)`` after removal. One observer slot;
+        collections already registered are announced at once. None
+        detaches."""
+        self._observer = observer
+        if observer is not None:
+            for collection in self._collections.values():
+                observer.collection_registered(collection)
 
     @property
     def device(self) -> torch.device:
@@ -99,14 +114,13 @@ class VectorLiteClient:
         if name in self._collections:
             raise CollectionAlreadyExists(name)
         if index_type is not IndexType.FLAT:
-            raise VectorLiteError(
-                "HNSW indexes are not available in vectorlite_tpu_torch yet; "
-                "create a Flat collection"
-            )
+            raise HNSWNotPorted()
         index = FlatIndex(
             self._embedding_function.dimension, **self.flat_index_kwargs()
         )
-        self._collections[name] = Collection(name, index)
+        self._collections[name] = collection = Collection(name, index)
+        if self._observer is not None:
+            self._observer.collection_registered(collection)
 
     def get_collection(self, name: str) -> Optional[Collection]:
         return self._collections.get(name)
@@ -115,8 +129,12 @@ class VectorLiteClient:
         return list(self._collections.keys())
 
     def delete_collection(self, name: str) -> None:
-        if self._collections.pop(name, None) is None:
+        collection = self._collections.pop(name, None)
+        if collection is None:
             raise CollectionNotFound(name)
+        collection.close()
+        if self._observer is not None:
+            self._observer.collection_deleted(name)
 
     def has_collection(self, name: str) -> bool:
         return name in self._collections
@@ -159,12 +177,13 @@ class VectorLiteClient:
         k: int,
         similarity_metric: Optional[SimilarityMetric] = None,
         where: Optional[dict] = None,
+        ef: Optional[int] = None,
         min_score: Optional[float] = None,
     ) -> list[SearchResult]:
         """Search by one raw query vector (extension)."""
         return self.search_vectors_in_collection(
             collection_name, [query], k, similarity_metric, where=where,
-            min_score=min_score,
+            ef=ef, min_score=min_score,
         )[0]
 
     def search_vectors_in_collection(
@@ -174,6 +193,7 @@ class VectorLiteClient:
         k: int,
         similarity_metric: Optional[SimilarityMetric] = None,
         where: Optional[dict] = None,
+        ef: Optional[int] = None,
         min_score: Optional[float] = None,
     ) -> list[list[SearchResult]]:
         """Batched search by raw query vectors (extension). Flat defaults
@@ -181,7 +201,7 @@ class VectorLiteClient:
         collection = self._require(collection_name)
         metric = similarity_metric or collection.detected_metric()
         return collection.search_vectors(
-            queries, k, metric, where=where, min_score=min_score
+            queries, k, metric, where=where, ef=ef, min_score=min_score
         )
 
     def search_text_in_collection(
@@ -191,13 +211,14 @@ class VectorLiteClient:
         k: int,
         similarity_metric: Optional[SimilarityMetric] = None,
         where: Optional[dict] = None,
+        ef: Optional[int] = None,
         min_score: Optional[float] = None,
     ) -> list[SearchResult]:
         collection = self._require(collection_name)
         metric = similarity_metric or collection.detected_metric()
         return collection.search_text(
             query_text, k, metric, self._embedding_function, where=where,
-            min_score=min_score,
+            ef=ef, min_score=min_score,
         )
 
     def search_texts_in_collection(
@@ -207,6 +228,7 @@ class VectorLiteClient:
         k: int,
         similarity_metric: Optional[SimilarityMetric] = None,
         where: Optional[dict] = None,
+        ef: Optional[int] = None,
         min_score: Optional[float] = None,
     ) -> list[list[SearchResult]]:
         """Batched text search (extension)."""
@@ -214,11 +236,82 @@ class VectorLiteClient:
         metric = similarity_metric or collection.detected_metric()
         return collection.search_texts(
             query_texts, k, metric, self._embedding_function, where=where,
-            min_score=min_score,
+            ef=ef, min_score=min_score,
+        )
+
+    def search_hybrid_in_collection(
+        self,
+        collection_name: str,
+        query_text: str,
+        k: int,
+        similarity_metric: Optional[SimilarityMetric] = None,
+        where: Optional[dict] = None,
+        ef: Optional[int] = None,
+        min_score: Optional[float] = None,
+        alpha: float = 0.5,
+        pool: Optional[int] = None,
+    ) -> list[SearchResult]:
+        """Hybrid dense + BM25 search with reciprocal-rank fusion
+        (extension; see Collection.search_hybrid). ``alpha`` weights the
+        dense leg in [0, 1]."""
+        collection = self._require(collection_name)
+        metric = similarity_metric or collection.detected_metric()
+        return collection.search_hybrid(
+            query_text, k, metric, self._embedding_function, where=where,
+            ef=ef, min_score=min_score, alpha=alpha, pool=pool,
         )
 
     def delete_from_collection(self, collection_name: str, id: int) -> None:
         self._require(collection_name).delete(id)
+
+    def delete_where_in_collection(
+        self, collection_name: str, where: dict
+    ) -> int:
+        """Bulk delete by metadata filter (extension). Returns the number
+        of vectors removed."""
+        return self._require(collection_name).delete_where(where)
+
+    def update_text_in_collection(
+        self, collection_name: str, id: int, text: str, metadata=None
+    ) -> None:
+        """Re-embed and replace a vector under the same id (extension; PUT
+        semantics: metadata is replaced too, omit it to clear)."""
+        self._require(collection_name).update_text(
+            id, text, self._embedding_function, metadata
+        )
+
+    def update_metadata_in_collection(
+        self, collection_name: str, id: int, metadata
+    ) -> None:
+        """Replace one vector's metadata (extension)."""
+        self._require(collection_name).update_metadata(id, metadata)
+
+    def get_vectors_from_collection(
+        self,
+        collection_name: str,
+        ids,
+        where: Optional[dict] = None,
+        include_values: bool = True,
+    ):
+        """Bulk get by explicit ids (extension): the vectors found, in the
+        requested order; missing ids are skipped."""
+        return self._require(collection_name).get_vectors(
+            ids, where, include_values
+        )
+
+    def list_vectors_in_collection(
+        self,
+        collection_name: str,
+        offset: int = 0,
+        limit: int = 100,
+        where: Optional[dict] = None,
+        include_values: bool = False,
+    ):
+        """Paged vector listing, optionally where-filtered (extension).
+        Returns (vectors, total_matching)."""
+        return self._require(collection_name).list_vectors(
+            offset, limit, where, include_values
+        )
 
     def compact_collection(self, collection_name: str) -> int:
         """Reclaim tombstoned slots (extension)."""
@@ -238,6 +331,8 @@ class VectorLiteClient:
         if name in self._collections:
             raise CollectionAlreadyExists(name)
         self._collections[name] = collection
+        if self._observer is not None:
+            self._observer.collection_registered(collection)
 
     def _require(self, name: str) -> Collection:
         collection = self._collections.get(name)
