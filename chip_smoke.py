@@ -172,7 +172,29 @@ Phases (any failure raises and the exit code is not 0):
    close; a fresh card client restores and replays to the live state.
    Launch counts are zeroed just before each counted run and read just
    after; the kernels line adds them to phases 3-6's.
-8. A `kernels` JSON line, the card line, and last
+8. HTTP on the card, after phase 7, on its guard-on collection (kept) and
+   a guard-off one of the same rows: the port's server (standard library,
+   bound to 127.0.0.1:0, served from a thread over that card client).
+   (a) 64 connections, from a process of their own, send 2,048 single
+   POST /search/text, k 10, to each
+   (K1, K3 over the int8 scan copy): requests/s, p50/p99 a request beside
+   phase 7 (a)'s SDK figures, the coalescer's histogram; every result
+   held against a direct search_batch. (b) POST /search/vectors, batches
+   of 256: k 10, k 100 (K1 wide), a where (K1 with the mask), manhattan
+   (K4); p50 each, held against the SDK's answer to the same call. (c)
+   65,536 fresh rows over POST /vectors in bodies of 4,096: rows/s and
+   request MB/s; each comes back first for itself. (d) GET /snapshot of
+   a 2^16-row collection streamed to disk and POSTed back under a new
+   name: bytes and seconds each way; a batch of 256 bit-identical on both.
+   (e) /stats and /metrics count (a)'s requests; POST /debug/trace while 8
+   connections search: the trace names a port kernel; a second server with
+   an API key: 401 without it, 200 with it, CORS headers on both. (f)
+   python -m vectorlite_tpu_torch.cli --mock-embeddings on the card with a
+   WAL and an autosave directory: 10,000 add_texts rows, deletes, metadata
+   updates, kill -9, restart to /health: every acknowledged write back, the
+   searches equal. Launch counts are zeroed just before each counted run
+   and read just after; K1, K3 and K4 must launch from HTTP requests.
+9. A `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 The native sources build into vectorlite_tpu_torch/csrc/build/
@@ -992,11 +1014,12 @@ def time_merge_kernel(merge, SM, dev, rng, n: int, errs: dict) -> dict:
     """Phase 2i: K7 at the headline shape (2^20 x 384 bf16 rows, B 256,
     cosine, tile 16384) for W 2 and 3, held against the plain version and
     timed beside it and a bf16 torch.mm + per-lane-group torch.topk; the
-    W 2 line is the kernel line's."""
+    W 2 line is the kernel line's. Then its route over f32 rows (the
+    CUDA-core body) at W 2, beside a TF32-off f32 torch.mm + the same
+    top-k, priced at the f32 FMA rate as K3 over f32 rows is."""
     v = torch.from_numpy(rng.standard_normal((n, D), dtype=np.float32)).to(dev)
     sq = (v * v).sum(-1)
     vb = v.to(torch.bfloat16)
-    del v
     valid = torch.ones(n, dtype=torch.bool, device=dev)
     q = torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32)).to(dev)
     qb = q.to(torch.bfloat16)
@@ -1025,6 +1048,27 @@ def time_merge_kernel(merge, SM, dev, rng, n: int, errs: dict) -> dict:
             f"{out[w]['bound_ms']:.4f} ms ({out[w]['bound_by']}, bf16 rate)  "
             f"{design_work(n)}")
     del vb
+
+    def kern32():
+        return merge.merge_topw_cuda(v, sq, valid, q, metric=SM.COSINE, winners=2,
+                                     tile_n=merge.DEFAULT_TILE_N)
+
+    def plain32():
+        return merge.merge_topw_plain(v, sq, valid, q, metric=SM.COSINE, winners=2)
+
+    err = compare_lanes("scan_merge_topw over f32 rows at the headline shape, W 2", kern32(),
+                        merge.merge_topw_plain(v, sq, valid, q, metric=SM.COSINE, winners=3), 2)
+    errs["scan_merge_topw"] = max(errs["scan_merge_topw"], err)
+    ms, plain_ms = interleaved_ms(kern32, plain32, reps=5, plain_reps=2)
+    lib_ms = cuda_time_ms(
+        lambda: torch.topk(torch.mm(q, v.T).view(B, n // 128, 128), 2, dim=1), 5)
+    t = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+         **bound(n * D * 4 + n * 4 + n + B * D * 4 + 2 * B * 128 * 8, 2.0 * B * n * D, "f32")}
+    log(f"  scan_merge_topw over f32 rows (W 2, tile {merge.DEFAULT_TILE_N}, the CUDA-core "
+        f"body) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library (TF32 off: "
+        f"{not torch.backends.cuda.matmul.allow_tf32}) {lib_ms:.4f} ms  bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}, f32 rate)")
+    del v
     torch.cuda.empty_cache()
     return out[2]
 
@@ -1973,8 +2017,8 @@ def hold_against_direct(label, got, index, q64, metric) -> None:
 
 def serve(client, name, q_texts, build, coalesce_stats, label, card) -> tuple:
     """P7_THREADS threads issue single search_text_in_collection calls, k
-    K, over q_texts; returns (rows in q_texts order, launches). Counts
-    are zeroed just before and read just after."""
+    K, over q_texts; returns (rows in q_texts order, launches, figures).
+    Counts are zeroed just before and read just after."""
     n = len(q_texts)
     out, lat = [None] * n, np.zeros(n)
 
@@ -1999,17 +2043,21 @@ def serve(client, name, q_texts, build, coalesce_stats, label, card) -> tuple:
     hist = {key: after.get("hist", {}).get(key, 0) - before.get("hist", {}).get(key, 0)
             for key in after.get("hist", {})}
     batches = after.get("batches", 0) - before.get("batches", 0)
-    log(f"    {label}: {n / wall:.1f} requests/s, per request p50 "
-        f"{np.percentile(lat, 50) * 1e3:.3f} ms p99 {np.percentile(lat, 99) * 1e3:.3f} ms "
+    figures = {"rps": n / wall, "p50_ms": np.percentile(lat, 50) * 1e3,
+               "p99_ms": np.percentile(lat, 99) * 1e3}
+    log(f"    {label}: {figures['rps']:.1f} requests/s, per request p50 "
+        f"{figures['p50_ms']:.3f} ms p99 {figures['p99_ms']:.3f} ms "
         f"({n} requests, {P7_THREADS} threads, {wall:.2f} s); dispatches {batches}, "
         f"batch-size histogram {dict((k, v) for k, v in hist.items() if v)}; launches "
         f"{moved} [{card}]")
-    return out, moved
+    return out, moved, figures
 
 
-def collection_path(vl, build, dev, rows, card: str, seed: int) -> dict:
+def collection_path(vl, build, dev, rows, card: str, seed: int) -> tuple:
     """Phase 7: the collection surface and persistence through the SDK on
-    phase 3's rows; returns the launches of its counted runs."""
+    phase 3's rows; returns the launches of its counted runs, the client
+    of (a)'s guard-on collection ("main", kept for phase 8) and (a)'s
+    coalesced figures by guard."""
     import shutil
     import tempfile
 
@@ -2048,13 +2096,17 @@ def collection_path(vl, build, dev, rows, card: str, seed: int) -> dict:
             f"device build {time.perf_counter() - t0:.2f} s")
         clients[guard] = client
     os.environ["VECTORLITE_SPEED_GUARD"] = "0"
+    sdk = {}
     for mode in ("coalesced", "VECTORLITE_COALESCE=0"):
         if mode != "coalesced":
             os.environ["VECTORLITE_COALESCE"] = "0"
         try:
             for guard, client in clients.items():
                 label = f"{mode}, guard {'on' if guard == '1' else 'off'}"
-                got, moved = serve(client, "main", q_texts, build, coalesce_stats, label, card)
+                got, moved, figures = serve(client, "main", q_texts, build, coalesce_stats,
+                                            label, card)
+                if mode == "coalesced":
+                    sdk[guard] = figures
                 count(moved)
                 want = K3_INT8 if guard == "0" else None
                 if want and not moved.get(want):
@@ -2065,7 +2117,7 @@ def collection_path(vl, build, dev, rows, card: str, seed: int) -> dict:
                     hold_against_direct(label, got, index, q64, SM.COSINE)
         finally:
             os.environ.pop("VECTORLITE_COALESCE", None)
-    clients.pop("1").delete_collection("main")
+    kept = clients.pop("1")
     client = clients.pop("0")
     coll = client.get_collection("main")
 
@@ -2318,6 +2370,473 @@ def collection_path(vl, build, dev, rows, card: str, seed: int) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"  phase 7: {time.perf_counter() - started:.1f} s; launches {total}; host peak "
         f"RSS {peak_rss_gb():.2f} GB")
+    return total, kept, sdk
+
+
+P8_THREADS = 64  # concurrent HTTP callers in phase 8 (a)
+P8_REQUESTS = 2048  # single-text searches a collection in (a)
+P8_BATCH_REPS = 5  # timed batch searches a kind in (b)
+P8_BULK_ROWS = 1 << 16  # fresh rows added over HTTP in (c)
+P8_BULK_BODY = 4096  # rows a request in (c)
+P8_SNAPSHOT_ROWS = 1 << 16  # the collection (d) downloads and uploads
+P8_TRACE_THREADS = 8  # searching threads while (e) traces
+P8_TRACE_S = 2.0
+P8_DURABLE_ROWS = 10_000  # rows (f) writes before the kill -9
+P8_START_TIMEOUT_S = 300.0
+
+
+class Http:
+    """One keep-alive connection to the phase-8 server."""
+
+    def __init__(self, port: int, headers=None):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        self.headers = {"Content-Type": "application/json", **(headers or {})}
+
+    def call(self, method: str, path: str, body=None, want=200):
+        """(status, headers, parsed JSON or text); raises unless ``want``."""
+        if body is not None and not isinstance(body, (bytes, str)):
+            body = json.dumps(body)
+        self.conn.request(method, path, body=body, headers=self.headers)
+        resp = self.conn.getresponse()
+        raw = resp.read()
+        ctype = resp.getheader("Content-Type", "")
+        data = json.loads(raw) if ctype.startswith("application/json") else raw.decode()
+        if want is not None and resp.status != want:
+            raise AssertionError(f"{method} {path}: {resp.status} {raw[:300]!r}")
+        return resp.status, resp, data
+
+    def close(self):
+        self.conn.close()
+
+
+def results_of(vl, rows) -> list:
+    return [[vl.SearchResult(**h) for h in row] for row in rows]
+
+
+#: the callers of phase 8 (a), a process of their own as a user's clients
+#: are (in the server's process they would share its interpreter lock):
+#: threads on keep-alive connections; reads {"port", "path", "queries",
+#: "k", "threads"} on stdin and prints one JSON line: each request's
+#: seconds and results in query order, the errors, and the wall time from
+#: the first request to the last answer
+HTTP_CALLERS = r"""
+import http.client, json, sys, threading, time
+job = json.loads(sys.stdin.read())
+n, step = len(job["queries"]), job["threads"]
+lat, out, errors = [0.0] * n, [None] * n, []
+start = threading.Barrier(step + 1)
+
+def worker(w):
+    conn = http.client.HTTPConnection("127.0.0.1", job["port"], timeout=600)
+    start.wait()
+    try:
+        for i in range(w, n, step):
+            body = json.dumps({"query": job["queries"][i], "k": job["k"]})
+            t0 = time.perf_counter()
+            conn.request("POST", job["path"], body, {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            raw = resp.read()
+            lat[i] = time.perf_counter() - t0
+            if resp.status != 200:
+                errors.append(f"{resp.status} {raw[:200]!r}")
+            else:
+                out[i] = json.loads(raw)["results"]
+    finally:
+        conn.close()
+
+threads = [threading.Thread(target=worker, args=(w,)) for w in range(step)]
+for t in threads:
+    t.start()
+start.wait()
+t0 = time.perf_counter()
+for t in threads:
+    t.join()
+print(json.dumps({"wall": time.perf_counter() - t0, "lat": lat, "out": out, "errors": errors}))
+"""
+
+
+def http_serve(vl, port, name, q_texts, build, coalesce_stats, label, card) -> tuple:
+    """P8_THREADS callers in a process of their own (HTTP_CALLERS), each
+    on its own keep-alive connection, send single POST
+    /collections/{name}/search/text requests, k K; returns (rows in
+    q_texts order, launches, figures). Counts are zeroed just before and
+    read just after."""
+    n = len(q_texts)
+    job = {"port": port, "path": f"/collections/{name}/search/text", "queries": q_texts,
+           "k": K, "threads": P8_THREADS}
+    before = coalesce_stats.snapshot()
+    build.reset_launch_counts()
+    done = subprocess.run([sys.executable, "-c", HTTP_CALLERS], input=json.dumps(job),
+                          capture_output=True, text=True, timeout=900)
+    torch.cuda.synchronize()
+    moved = launch_counts(build)
+    after = coalesce_stats.snapshot()
+    if done.returncode:
+        raise AssertionError(f"{label}: the callers failed:\n{done.stderr[-3000:]}")
+    got = json.loads(done.stdout.strip().splitlines()[-1])
+    if got["errors"]:
+        raise AssertionError(f"{label}: {len(got['errors'])} requests failed: {got['errors'][:3]}")
+    wall, lat = got["wall"], np.asarray(got["lat"])
+    hist = {key: after.get("hist", {}).get(key, 0) - before.get("hist", {}).get(key, 0)
+            for key in after.get("hist", {})}
+    batches = after.get("batches", 0) - before.get("batches", 0)
+    figures = {"rps": n / wall, "p50_ms": np.percentile(lat, 50) * 1e3,
+               "p99_ms": np.percentile(lat, 99) * 1e3}
+    log(f"    {label}: {figures['rps']:.1f} requests/s, per request p50 "
+        f"{figures['p50_ms']:.3f} ms p99 {figures['p99_ms']:.3f} ms ({n} requests, "
+        f"{P8_THREADS} connections from another process, {wall:.2f} s); dispatches "
+        f"{batches}, batch-size histogram {dict((k, v) for k, v in hist.items() if v)}; "
+        f"launches {moved} [{card}]")
+    return results_of(vl, got["out"]), moved, figures
+
+
+def hold_rows(label, got, want) -> None:
+    """HTTP rows against the SDK's rows of the same call: ids equal beyond
+    1e-5 near-ties (the SDK's k + 1 columns cover a swap at the k-th
+    place), scores within rtol/atol 1e-5."""
+    k = len(got[0])
+    ps, pi = scores_of(want), ids_of(want)
+    ks, ki = scores_of(got), ids_of(got)
+    bad = ids_match(ps, pi, ks, ki)
+    err = float(np.max(np.abs(ks - ps[:, :k])))
+    log(f"    {label}: vs the SDK ({len(got)} queries, k {k}): id mismatches beyond ties "
+        f"{bad}, max score diff {err:.3g}")
+    if bad or not np.allclose(ks, ps[:, :k], rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{label}: the HTTP answer disagrees with the SDK's")
+
+
+def start_cli(args, log_path, env) -> tuple:
+    """``python -m vectorlite_tpu_torch.cli`` from the checkout, on the
+    card, until GET /health answers; returns (process, seconds)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    logf = open(log_path, "ab")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vectorlite_tpu_torch.cli", "--mock-embeddings", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=logf, stderr=subprocess.STDOUT,
+        env=env)
+    logf.close()
+    port = args[args.index("--port") + 1]
+    while True:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5) as r:
+                if r.status == 200:
+                    return proc, time.perf_counter() - t0
+        except OSError:
+            pass
+        if proc.poll() is not None or time.perf_counter() - t0 > P8_START_TIMEOUT_S:
+            proc.kill()
+            proc.wait()
+            with open(log_path, "rb") as f:
+                tail = f.read()[-4000:].decode("utf-8", "replace")
+            raise AssertionError(f"the CLI did not come up (exit {proc.returncode}):\n{tail}")
+        time.sleep(0.2)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_path(vl, build, dev, client, rows, card: str, seed: int, sdk: dict) -> dict:
+    """Phase 8: the HTTP serving surface on the card. The port's server,
+    bound to 127.0.0.1:0 in a thread over ``client`` (phase 7's guard-on
+    collection "main", K1) and a guard-off collection "speed" (K3) of
+    the same rows, is driven over real HTTP; then the CLI, as a
+    subprocess on the card, is killed and restarted. Returns the launches
+    of its counted runs."""
+    import shutil
+    import signal
+    import tempfile
+
+    from vectorlite_tpu_torch.api.server import bind, create_app
+    from vectorlite_tpu_torch.observability import coalesce_stats
+    from vectorlite_tpu_torch.remote import RemoteClient
+
+    SM = vl.SimilarityMetric
+    started = time.perf_counter()
+    n = len(rows)
+    rng = np.random.default_rng([seed, 12])
+    emb = vl.MockEmbeddingFunction(D)
+    total = {}
+
+    def count(moved):
+        for sym, c in moved.items():
+            total[sym] = total.get(sym, 0) + c
+
+    t0 = time.perf_counter()
+    os.environ["VECTORLITE_SPEED_GUARD"] = "0"
+    client.create_collection("speed", vl.IndexType.FLAT)
+    client.add_vectors_to_collection("speed", rows, p7_texts(n), p7_metas(n))
+    client.search_vectors_in_collection("speed", emb.embed_batch_arrays(["warm"]), K)
+    os.environ["VECTORLITE_SPEED_GUARD"] = "1"  # "main" keeps K1 through any rebuild
+    torch.cuda.synchronize()
+    server = bind(create_app(client), "127.0.0.1", 0).start()
+    port = server.port
+    log(f"  server on 127.0.0.1:{port} (standard library, one thread a connection) over "
+        f"\"main\" (guard on) and \"speed\" (guard off, built in {time.perf_counter() - t0:.2f} "
+        f"s), {n} rows each")
+    tmp = tempfile.mkdtemp(prefix="vl_phase8_")
+    http = Http(port)
+    try:
+        # (a) single-text searches over HTTP, beside phase 7 (a)'s SDK figures
+        log(f"  (a) {P8_THREADS} connections, {P8_REQUESTS} single POST /search/text, k {K}")
+        q_texts = [f"http request {i}" for i in range(P8_REQUESTS)]
+        q64 = emb.embed_batch_arrays(q_texts)
+        # guard on: whichever kernel the guard picked at the build (K1 on a
+        # random corpus of 2^20 rows); guard off: K3 over the int8 copy
+        for name, guard, want_sym in (("main", "1", None), ("speed", "0", K3_INT8)):
+            label = f"HTTP, guard {'on' if guard == '1' else 'off'}"
+            got, moved, fig = http_serve(vl, port, name, q_texts, build, coalesce_stats,
+                                         label, card)
+            count(moved)
+            ref = sdk.get(guard)
+            if ref:
+                log(f"    beside phase 7 (a)'s SDK, same guard, same run: {ref['rps']:.1f} "
+                    f"requests/s, p50 {ref['p50_ms']:.3f} ms, p99 {ref['p99_ms']:.3f} ms")
+            if want_sym and not moved.get(want_sym):
+                raise AssertionError(f"{label}: {want_sym} never launched ({moved})")
+            if not set(moved) & {K1_TF32, K3_INT8}:
+                raise AssertionError(f"{label}: neither K1 nor K3 launched ({moved})")
+            with client.get_collection(name).index_read() as index:
+                hold_against_direct(label, got, index, q64, SM.COSINE)
+
+        # (b) batches of B over POST /search/vectors, each against the SDK
+        log(f"  (b) POST /collections/main/search/vectors, batches of {B}")
+        q = rng.standard_normal((B, D)).round(7)
+        body_q = q.tolist()
+        build.reset_launch_counts()
+        for label, k, extra, metric in (
+                ("k 10", K, {}, None),
+                (f"k {K_WIDE}", K_WIDE, {}, None),
+                ("k 10, where tag docs", K, {"where": {"tag": "docs"}}, None),
+                ("k 10, manhattan", K, {"similarity_metric": "manhattan"}, SM.MANHATTAN)):
+            lat = []
+            body = json.dumps({"vectors": body_q, "k": k, **extra})  # the caller's encoding
+            for _ in range(P8_BATCH_REPS):
+                t0 = time.perf_counter()
+                _, _, out = http.call("POST", "/collections/main/search/vectors", body)
+                lat.append(time.perf_counter() - t0)
+            got = results_of(vl, out["results"])
+            t0 = time.perf_counter()
+            want = client.search_vectors_in_collection(
+                "main", q, k + 1, metric, where=extra.get("where"))
+            sdk_ms = (time.perf_counter() - t0) * 1e3
+            log(f"    {label}: p50 {np.percentile(lat, 50) * 1e3:.3f} ms over "
+                f"{P8_BATCH_REPS} requests, {len(body) / 1e6:.2f} MB in, the answer's parse "
+                f"included (the SDK call at k + 1: {sdk_ms:.3f} ms) [{card}]")
+            hold_rows(f"HTTP batch, {label}", got, want)
+        moved = launch_counts(build)
+        count(moved)
+        log(f"    launches {moved}")
+        for sym in (K1_TF32, K1_WIDE, K4_F32):
+            if not moved.get(sym):
+                raise AssertionError(f"(b): {sym} never launched ({moved})")
+
+        # (c) bulk add of fresh rows over POST /collections/main/vectors
+        fresh = rng.standard_normal((P8_BULK_ROWS, D)).astype(np.float32)
+        bodies = [json.dumps({"vectors": [
+            {"values": row, "text": f"bulk {lo + i}", "metadata": {"bulk": True}}
+            for i, row in enumerate(fresh[lo:lo + P8_BULK_BODY].tolist())]})
+            for lo in range(0, P8_BULK_ROWS, P8_BULK_BODY)]
+        nbytes = sum(len(b) for b in bodies)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        new_ids = []
+        for body in bodies:
+            new_ids += http.call("POST", "/collections/main/vectors", body)[2]["ids"]
+        add_s = time.perf_counter() - t0
+        if new_ids != list(range(n, n + P8_BULK_ROWS)):
+            raise AssertionError("the bulk add returned other ids")
+        t0 = time.perf_counter()
+        first = []
+        for lo in range(0, P8_BULK_ROWS, P8_BULK_BODY):
+            first += [r[0].id for r in client.search_vectors_in_collection(
+                "main", fresh[lo:lo + P8_BULK_BODY].astype(np.float64), 1)]
+        check_s = time.perf_counter() - t0
+        moved = launch_counts(build)
+        count(moved)
+        missed = int(np.sum(np.asarray(first) != np.asarray(new_ids)))
+        log(f"  (c) {P8_BULK_ROWS} rows in {len(bodies)} bodies of {P8_BULK_BODY} "
+            f"({nbytes / len(bodies) / 1e6:.1f} MB each, cap 256 MiB): {add_s:.2f} s, "
+            f"{P8_BULK_ROWS / add_s:.0f} rows/s, {nbytes / add_s / 1e6:.1f} request MB/s; each "
+            f"row searched for itself through the SDK ({check_s:.2f} s): {missed} not first; "
+            f"launches {moved} [{card}]")
+        if missed:
+            raise AssertionError(f"{missed} bulk-added rows do not come back first for themselves")
+
+        # (d) the snapshot round trip of a 2^16-row collection
+        m = P8_SNAPSHOT_ROWS
+        client.create_collection("snap", vl.IndexType.FLAT)
+        client.add_vectors_to_collection("snap", rows[:m], p7_texts(m), p7_metas(m))
+        rc = RemoteClient(f"http://127.0.0.1:{port}", timeout=600)
+        path = os.path.join(tmp, "snap.vlc")
+        t0 = time.perf_counter()
+        size = rc.download_snapshot("snap", path)
+        down_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = rc.restore_snapshot("snap2", path)
+        up_s = time.perf_counter() - t0
+        os.remove(path)
+        answers = [http.call("POST", f"/collections/{name}/search/vectors",
+                             {"vectors": body_q, "k": K})[2] for name in ("snap", "snap2")]
+        log(f"  (d) GET /collections/snap/snapshot of {m} rows: {size / 1e6:.1f} MB streamed to "
+            f"disk in {down_s:.2f} s; POST /collections/snap2/snapshot of it in {up_s:.2f} s "
+            f"({restored} rows, the load included); batch of {B}, k {K}, bit-identical on both: "
+            f"{answers[0] == answers[1]} [{card}]")
+        if restored != m or answers[0] != answers[1]:
+            raise AssertionError("the restored snapshot does not answer as the original")
+        client.delete_collection("snap")
+        client.delete_collection("snap2")
+
+        # (e) /stats, /metrics, a device trace under load, an API key
+        stats = http.call("GET", "/stats")[2]
+        route = "POST /collections/{name}/search/text"
+        metrics = http.call("GET", "/metrics")[2]
+        line = f'vectorlite_requests_total{{route="{route}"}} {2 * P8_REQUESTS}'
+        log(f"  (e) /stats {route}: {stats[route]['count']} requests, {stats[route]['errors']} "
+            f"errors, p50 {stats[route]['p50_ms']} ms; /metrics carries {line!r}: "
+            f"{line in metrics.splitlines()}")
+        if stats[route]["count"] != 2 * P8_REQUESTS or line not in metrics.splitlines():
+            raise AssertionError("/stats or /metrics miscounts (a)'s requests")
+        os.environ["VECTORLITE_JAX_PROFILE_DIR"] = os.path.join(tmp, "trace")
+        stop = False
+
+        def searching():
+            conn = Http(port)
+            try:
+                while not stop:
+                    conn.call("POST", "/collections/main/search/vectors",
+                              {"vectors": body_q[:16], "k": K})
+            finally:
+                conn.close()
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        build.reset_launch_counts()
+        with ThreadPoolExecutor(max_workers=P8_TRACE_THREADS) as pool:
+            futures = [pool.submit(searching) for _ in range(P8_TRACE_THREADS)]
+            time.sleep(0.5)
+            t0 = time.perf_counter()
+            try:
+                trace_dir = http.call("POST", f"/debug/trace?seconds={P8_TRACE_S}")[2]["trace_dir"]
+            finally:
+                stop = True
+            trace_s = time.perf_counter() - t0
+            for f in futures:
+                f.result()
+        del os.environ["VECTORLITE_JAX_PROFILE_DIR"]
+        moved = launch_counts(build)
+        count(moved)
+        (trace,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        ours = build.device_kernel_names()
+        named = {}
+        for ev in events:
+            for kern in ours:
+                if kern in ev.get("name", "") and ev.get("ph") == "X":
+                    named[kern] = named.get(kern, 0) + 1
+        log(f"    POST /debug/trace?seconds={P8_TRACE_S} under {P8_TRACE_THREADS} searching "
+            f"connections: {trace_s:.2f} s, {os.path.getsize(trace) / 1e6:.1f} MB, "
+            f"{len(events)} events; the port's kernels in it {named}; launches in the window "
+            f"{moved} [{card}]")
+        if not named or not moved.get(K1_TF32):
+            raise AssertionError("the device trace names none of the port's kernels")
+        keyed = bind(create_app(client, api_key="phase-8-key"), "127.0.0.1", 0).start()
+        try:
+            bare = Http(keyed.port)
+            status, resp, _ = bare.call("GET", "/collections", want=401)
+            cors = resp.getheader("Access-Control-Allow-Origin")
+            bare.close()
+            keyed_conn = Http(keyed.port, {"Authorization": "Bearer phase-8-key"})
+            status2, resp2, names = keyed_conn.call("GET", "/collections")
+            keyed_conn.close()
+            log(f"    a server with an API key: {status} without it (CORS {cors!r}), "
+                f"{status2} with it (CORS {resp2.getheader('Access-Control-Allow-Origin')!r}), "
+                f"{names}")
+            if cors != "*" or resp2.getheader("Access-Control-Allow-Origin") != "*":
+                raise AssertionError("an answer of the keyed server lacks the CORS headers")
+        finally:
+            keyed.close()
+    finally:
+        http.close()
+        server.close()
+    client.delete_collection("speed")
+
+    # (f) the CLI on the card: writes, kill -9, restart, every write back
+    try:
+        wal, snaps = os.path.join(tmp, "wal"), os.path.join(tmp, "snaps")
+        cli_port = free_port()
+        args = ["--port", str(cli_port), "--wal-dir", wal, "--autosave-dir", snaps,
+                "--autosave-interval", "3600"]
+        if dev.type != "cuda":  # a rehearsal on the CPU; on the card the default is the card
+            args += ["--device", str(dev)]
+        env = dict(os.environ)
+        env.pop("VECTORLITE_SPEED_GUARD", None)
+        log_path = os.path.join(tmp, "cli.log")
+        proc, start_s = start_cli(args, log_path, env)
+        try:
+            rc = RemoteClient(f"http://127.0.0.1:{cli_port}", timeout=600)
+            rc.create_collection("durable", "flat")
+            d_texts, d_metas = p7_texts(P8_DURABLE_ROWS), p7_metas(P8_DURABLE_ROWS)
+            t0 = time.perf_counter()
+            for lo in range(0, P8_DURABLE_ROWS, 1000):
+                rc.add_texts("durable", d_texts[lo:lo + 1000], d_metas[lo:lo + 1000])
+            add_s = time.perf_counter() - t0
+            for vid in range(0, 2000, 10):
+                rc.delete_vector("durable", vid)
+            for vid in range(1, 1000, 10):
+                rc.update_metadata("durable", vid, {"bucket": 99})
+            deleted = rc.delete_where("durable", {"bucket": 7})
+            probes = [f"record {i} amber" for i in range(64)]
+
+            def state():
+                out, total_rows, off = [], None, 0
+                while total_rows is None or off < total_rows:
+                    page, total_rows = rc.list_vectors("durable", off, 1000, include_values=True)
+                    out += page
+                    off += 1000
+                return sorted(((v.id, v.text, v.metadata, v.values) for v in out),
+                              key=lambda t: t[0])
+
+            want_state, want = state(), rc.search_texts("durable", probes, k=K)
+        finally:
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+        proc, restart_s = start_cli(args, log_path, env)
+        try:
+            rc = RemoteClient(f"http://127.0.0.1:{cli_port}", timeout=600)
+            got_state, got = state(), rc.search_texts("durable", probes, k=K)
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                code = proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise
+        bad = ids_match(scores_of(want), ids_of(want), scores_of(got), ids_of(got))
+        err = float(np.max(np.abs(scores_of(got) - scores_of(want))))
+        same_results = not bad and err <= 1e-5
+        log(f"  (f) the CLI on the card (first start {start_s:.2f} s to /health): "
+            f"{P8_DURABLE_ROWS} rows by add_texts in batches of 1000 ({add_s:.2f} s), 200 "
+            f"deletes, 100 metadata updates, a delete_where ({deleted}); kill -9; restart to "
+            f"/health {restart_s:.2f} s (restore + WAL replay included); {len(got_state)} rows, "
+            f"state equal {got_state == want_state}, {len(probes)} searches: id mismatches "
+            f"beyond ties {bad}, max score diff {err:.3g}; SIGTERM exit {code} [{card}]")
+        if got_state != want_state or not same_results or code != 0:
+            raise AssertionError("the restarted CLI lost or changed acknowledged writes")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 8: {time.perf_counter() - started:.1f} s; launches {total}; host peak "
+        f"RSS {peak_rss_gb():.2f} GB")
     return total
 
 
@@ -2413,9 +2932,15 @@ def main() -> int:
 
     log(f"[7] the collection surface and persistence through the SDK (N={args.rows}, D={D}, "
         f"k={K}) [{card}]")
-    for sym, c in collection_path(vl, _build, dev, rows, card, args.seed).items():
+    seven, client, sdk = collection_path(vl, _build, dev, rows, card, args.seed)
+    for sym, c in seven.items():
         launches[sym] = launches.get(sym, 0) + c
-    del rows
+    gc.collect()
+
+    log(f"[8] HTTP on the card (N={args.rows}, D={D}, k={K}) [{card}]")
+    for sym, c in http_path(vl, _build, dev, client, rows, card, args.seed, sdk).items():
+        launches[sym] = launches.get(sym, 0) + c
+    del rows, client
     log(f"  smoke run {time.perf_counter() - started:.1f} s, builds included; host "
         f"peak RSS {peak_rss_gb():.2f} GB")
 

@@ -1,11 +1,13 @@
 """One phase of chip_smoke.py alone, from the checkout at TREE, on one CUDA
-card: phase 3 (the SDK main path at 2^20 x 384, batches of 256) or phase
-6 (the merge-engine probe), with chip_smoke.py's own functions, checks and
-log lines. Run it in turns from two checkouts (say a `git archive` of a
+card: phase 3 (the SDK main path at 2^20 x 384, batches of 256), phase
+6 (the merge-engine probe) or phase 8 (HTTP on the card, over a guard-on
+collection of 2^20 rows with texts and metadata built here in phase 7's
+place, beside one coalesced SDK serving run of it), with chip_smoke.py's
+own functions, checks and log lines. Run it in turns from two checkouts (say a `git archive` of a
 parent commit and of its change) to compare their host-side latencies,
 which vary more between runs than device times do.
 
-    python3 scripts/smoke_phase.py TREE [--phase 3|6] [--skip-load NAME]
+    python3 scripts/smoke_phase.py TREE [--phase 3|6|8] [--skip-load NAME]
         [--extra-lib PATH]
 
 --skip-load leaves one native library out of the libraries loaded before
@@ -28,7 +30,7 @@ from types import SimpleNamespace
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tree")
-    ap.add_argument("--phase", type=int, choices=(3, 6), default=3)
+    ap.add_argument("--phase", type=int, choices=(3, 6, 8), default=3)
     ap.add_argument("--skip-load", default="")
     ap.add_argument("--extra-lib", default="")
     args = ap.parse_args()
@@ -61,9 +63,22 @@ def main() -> int:
         rows = rng.standard_normal((1 << 20, cs.D), dtype=np.float32)
         queries = rng.standard_normal((cs.B, cs.D), dtype=np.float32).astype(np.float64)
         cs.main_path(vl, _build, native.RESCORE, dev, rows, queries, card, 20)
-    else:
+    elif args.phase == 6:
         cs.headline_path(merge, decompose, scan, _build, vl.SimilarityMetric, dev,
                          SimpleNamespace(rows=1 << 20, seed=0), card)
+    else:
+        from vectorlite_tpu_torch.observability import coalesce_stats
+
+        rng = np.random.default_rng(0)
+        n = 1 << 20
+        rows = rng.standard_normal((n, cs.D), dtype=np.float32)
+        os.environ["VECTORLITE_SPEED_GUARD"] = "1"
+        client, _ = cs.p7_collection(vl, dev, "main", rows, cs.p7_texts(n), cs.p7_metas(n))
+        q_texts = [f"request {i}" for i in range(cs.P7_REQUESTS)]
+        client.search_text_in_collection("main", q_texts[0], cs.K)  # the device build
+        _, _, figures = cs.serve(client, "main", q_texts, _build, coalesce_stats,
+                                 "SDK, coalesced, guard on", card)
+        cs.http_path(vl, _build, dev, client, rows, card, 0, {"1": figures})
     print(f"phase {args.phase} ok", flush=True)
     return 0
 

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX and nothing of the JAX package, and no
-silent CPU fallback for its entry points."""
+"""The port stands alone: no JAX, nothing of the JAX package and no
+aiohttp (its server is on the standard library), and no silent CPU
+fallback for its entry points."""
 
 import ast
 import json
@@ -15,6 +16,8 @@ PACKAGE = ROOT / "vectorlite_tpu_torch"
 
 
 def port_sources():
+    """Every module of the package (api/server.py, api/_http.py, cli.py,
+    remote.py and tools.py among them) and the scripts that drive it."""
     return sorted(PACKAGE.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "probe_k6_read_once.py",
         ROOT / "scripts" / "probe_lanes_staging.py"]
@@ -29,8 +32,8 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules "
-        "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'vectorlite_tpu.')) "
-        "or m == 'vectorlite_tpu')))\n"
+        "if m in ('jax', 'aiohttp') or m.startswith(('jax.', 'jaxlib', "
+        "'vectorlite_tpu.', 'aiohttp.')) or m == 'vectorlite_tpu')))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -51,7 +54,7 @@ def test_sources_import_no_jax(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "vectorlite_tpu"), (path, name)
+            assert root not in ("jax", "jaxlib", "vectorlite_tpu", "aiohttp"), (path, name)
 
 
 def test_entry_points_need_cuda_without_device(monkeypatch):
@@ -79,3 +82,46 @@ def test_sources_name_no_hnsw_index(path):
             assert "HNSWIndex" not in [a.name for a in node.names], path
         elif isinstance(node, ast.Name):
             assert node.id != "HNSWIndex", path
+
+
+def test_server_serves_with_aiohttp_unimportable():
+    """The server, CLI, remote client and tools import and serve a
+    request where aiohttp cannot be imported (as on a machine that has
+    only the standard library, torch and numpy)."""
+    code = (
+        "import json, sys, urllib.request\n"
+        "sys.modules['aiohttp'] = None\n"
+        "import vectorlite_tpu_torch as vl\n"
+        "from vectorlite_tpu_torch import cli, remote, tools\n"
+        "from vectorlite_tpu_torch.api import server\n"
+        "client = vl.VectorLiteClient(vl.MockEmbeddingFunction(8), device='cpu')\n"
+        "srv = server.bind(server.create_app(client)).start()\n"
+        "rc = remote.RemoteClient(srv.url)\n"
+        "rc.create_collection('c', 'flat')\n"
+        "rc.add_texts('c', ['alpha', 'beta'])\n"
+        "hit = rc.search_text('c', 'beta', k=1)[0]\n"
+        "health = json.loads(urllib.request.urlopen(srv.url + '/health').read())\n"
+        "srv.close()\n"
+        "print(json.dumps([health, hit.id, 'aiohttp' in sys.modules and "
+        "sys.modules['aiohttp'] is not None]))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    health, hit, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert health == {"status": "healthy", "service": "vectorlite"}
+    assert hit == 1 and loaded is False
+
+
+def test_cli_needs_cuda_without_device(monkeypatch):
+    """With no card reported and no --device, the CLI fails with
+    resolve_device's error before it builds anything; it never serves
+    from the CPU in the card's place."""
+    from vectorlite_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        cli.main(["--mock-embeddings", "--port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        cli.main(["--mock-embeddings", "--port", "0", "--device", "cuda"])

@@ -12,9 +12,11 @@ kernel K5, with the native f64 re-score) and the IVF rung (the partition
 probe K6); beside them, outside the SDK, the tournament-merge engine (K7)
 and the scan-decomposition probe (K8), on a tensor-core body over bf16
 rows. Around them: the collection surface (search coalescing, bulk
-mutations, listing, BM25 hybrid search) and persistence (``.vlc`` files,
-the write-ahead log, autosave). See ROADMAP.md for what is still to come.
-Entry points run on the CUDA card unless given ``device="cpu"``.
+mutations, listing, BM25 hybrid search), persistence (``.vlc`` files,
+the write-ahead log, autosave) and the HTTP serving surface on the
+standard library (``api.server``, ``cli``, ``remote.RemoteClient``,
+``tools``). See ROADMAP.md for what is still to come. Entry points run
+on the CUDA card unless given ``device="cpu"`` (``--device cpu``).
 """
 
 from .core.types import DEFAULT_VECTOR_DIMENSION, SearchResult, Vector
@@ -34,6 +36,16 @@ from .store.collection import Collection, CollectionInfo
 from .config import VectorLiteConfig
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # the HTTP client loads on first use (urllib), as in the JAX package
+    if name in ("RemoteClient", "RemoteError", "RemoteConnectionError"):
+        from . import remote
+
+        return getattr(remote, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "DEFAULT_VECTOR_DIMENSION",
@@ -56,4 +68,7 @@ __all__ = [
     "IndexType",
     "Settings",
     "VectorLiteConfig",
+    "RemoteClient",
+    "RemoteError",
+    "RemoteConnectionError",
 ]

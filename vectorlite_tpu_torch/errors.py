@@ -201,7 +201,10 @@ class InternalError(VectorLiteError):
 
 class HNSWNotPorted(VectorLiteError):
     """An HNSW index was asked for (a create, a ``.vlc`` payload or a
-    write-ahead log header); this package serves Flat indexes only."""
+    write-ahead log header); this package serves Flat indexes only. Over
+    HTTP it is a 501: the server does not implement the request."""
+
+    status_code = 501
 
     def __init__(self, where: str = "indexes"):
         super().__init__(

@@ -176,6 +176,16 @@ def reset_launch_counts() -> None:
         kernel.launches = 0
 
 
+def device_kernel_names() -> set[str]:
+    """The ``__global__`` functions of every ``csrc`` source: the names
+    a profiler trace gives the package's kernels on the card."""
+    import re
+
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)")
+    return {name for path in (*CSRC.glob("*.cu"), *CSRC.glob("*.cuh"))
+            for name in pattern.findall(path.read_text())}
+
+
 def ptxas_report(name: str) -> list[str]:
     """ptxas's register, shared-memory and spill lines for the kernels of
     ``csrc/<name>``, each after the line naming its entry, from this

@@ -3,16 +3,22 @@
 Copies of the JAX package's recorders (``vectorlite_tpu/observability.py``):
 per-route latency percentiles, the search coalescer's batch counters, the
 metadata-filter cache counters and their Prometheus rendering. The spans
-are ``torch.profiler`` ranges. Device trace capture comes with the serving
-surface.
+are ``torch.profiler`` ranges, and ``capture_device_trace`` (the
+``/debug/trace`` route) records the whole process with ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
+import tempfile
 import threading
+import time
 
 import torch
+
+logger = logging.getLogger("vectorlite_tpu_torch.observability")
 
 
 class LatencyRecorder:
@@ -308,3 +314,40 @@ def profile_span(name: str):
     profiler the range costs a flag check."""
     with torch.profiler.record_function(name):
         yield
+
+
+_trace_lock = threading.Lock()
+_trace_active = False
+
+
+def capture_device_trace(seconds: float = 2.0) -> str:
+    """Record the process with ``torch.profiler`` for ``seconds`` (CPU
+    activity, and CUDA activity where a card is present) and write a
+    Chrome trace (``trace_<ns>_<pid>.json``) into
+    ``$VECTORLITE_JAX_PROFILE_DIR`` (the JAX package's variable; default
+    ``<tmp>/vectorlite_trace``); returns that directory. One capture at a
+    time. The device side is recorded for the whole process, so kernels
+    launched by other threads (other requests) appear with their names;
+    host-side ranges may show only the capturing thread's."""
+    global _trace_active
+    trace_dir = os.environ.get("VECTORLITE_JAX_PROFILE_DIR") or os.path.join(
+        tempfile.gettempdir(), "vectorlite_trace")
+    with _trace_lock:
+        if _trace_active:
+            raise RuntimeError("a trace capture is already running")
+        _trace_active = True
+    try:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        with torch.profiler.profile(activities=activities) as prof:
+            time.sleep(seconds)
+        path = os.path.join(
+            trace_dir, f"trace_{time.time_ns()}_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+    finally:
+        with _trace_lock:
+            _trace_active = False
+    logger.info("device trace written to %s", path)
+    return trace_dir
