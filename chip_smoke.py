@@ -7,8 +7,9 @@ Phases (any failure raises and the exit code is not 0):
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every native source under vectorlite_tpu_torch/csrc (scan.cu,
    lanes.cu, exact.cu, wide.cu, l1.cu, pq.cu, ivf.cu with nvcc,
-   host_rescore.cpp and vlc_emit.cpp with g++; one compiler per source,
-   all started together); the wide mode's shared-memory plans.
+   host_rescore.cpp, vlc_emit.cpp and hnsw_builder.cpp with g++; one
+   compiler per source, all started together); the wide mode's
+   shared-memory plans.
 2. Kernels against their plain-torch versions on the card: K1 and K2 on
    the route scan.exact_route names (k <= 32: the tensor-core body's
    per-query top-k, scan_topk_exact_tf32 over f32 rows, _bf16 over bf16
@@ -150,7 +151,7 @@ Phases (any failure raises and the exit code is not 0):
 7. The collection surface and persistence through the SDK, after the
    phase-6 arrays are freed, on phase 3's rows, each with a text and
    {"bucket": i % 16, "tag": ...} (MockEmbeddingFunction(384)):
-   (a) 64 threads issue 2,048 single search_text_in_collection calls, k
+   (a) 64 threads issue 1,024 single search_text_in_collection calls, k
    10, on a collection built with the precision guard on (whichever kernel
    it picks) and on one built with VECTORLITE_SPEED_GUARD=0 (K3 over the
    int8 scan copy), coalesced and then with VECTORLITE_COALESCE=0:
@@ -161,10 +162,10 @@ Phases (any failure raises and the exit code is not 0):
    without a where, update_metadata on 1,000 ids, get_vectors on 1,000 ids,
    update_text, each timed; then a filtered batch of 256 (K1 with the mask)
    against an f64 numpy scan over the matching rows. (c) The BM25 sidecar
-   (built on 2^18 rows when a 2^16-text build projects past 60 s) and 256
+   (built on 2^17 rows when a 2^16-text build projects past 60 s) and 256
    search_hybrid calls. (d) save_to_file through the native emitter (its
    count must move) and load_from_file into a fresh card client (run on
-   2^18 rows when a 2^16-row save and load project past 80% of the free
+   2^17 rows when a 2^16-row save and load project past 80% of the free
    disk or 60 s): the batch of 256, the default call and a where filter,
    bit-identical before and after, the f64 truth exactly. (e) A WAL
    manager and an autosave directory: 10,000 rows in batches, deletes and
@@ -175,16 +176,16 @@ Phases (any failure raises and the exit code is not 0):
 8. HTTP on the card, after phase 7, on its guard-on collection (kept) and
    a guard-off one of the same rows: the port's server (standard library,
    bound to 127.0.0.1:0, served from a thread over that card client).
-   (a) 64 connections, from a process of their own, send 2,048 single
+   (a) 64 connections, from a process of their own, send 1,024 single
    POST /search/text, k 10, to each
    (K1, K3 over the int8 scan copy): requests/s, p50/p99 a request beside
    phase 7 (a)'s SDK figures, the coalescer's histogram; every result
    held against a direct search_batch. (b) POST /search/vectors, batches
    of 256: k 10, k 100 (K1 wide), a where (K1 with the mask), manhattan
    (K4); p50 each, held against the SDK's answer to the same call. (c)
-   65,536 fresh rows over POST /vectors in bodies of 4,096: rows/s and
+   32,768 fresh rows over POST /vectors in bodies of 4,096: rows/s and
    request MB/s; each comes back first for itself. (d) GET /snapshot of
-   a 2^16-row collection streamed to disk and POSTed back under a new
+   a 2^15-row collection streamed to disk and POSTed back under a new
    name: bytes and seconds each way; a batch of 256 bit-identical on both.
    (e) /stats and /metrics count (a)'s requests; POST /debug/trace while 8
    connections search: the trace names a port kernel; a second server with
@@ -194,7 +195,44 @@ Phases (any failure raises and the exit code is not 0):
    updates, kill -9, restart to /health: every acknowledged write back, the
    searches equal. Launch counts are zeroed just before each counted run
    and read just after; K1, K3 and K4 must launch from HTTP requests.
-9. A `kernels` JSON line, the card line, and last
+9. The MiniLM embedder and HNSW on the card, after phase 8's arrays are
+   freed. (a) MiniLM at its full published width (384 hidden, 6 layers,
+   12 heads, 1,536 intermediate, 30,522 vocab) from random_init(seed=0):
+   texts/s and p50 a batch of embed_batch_arrays at batches 1, 32 and 256
+   of texts of 8, 40 and 100 words (the 16-, 64- and 128-token buckets),
+   every embedding within 1e-4 of the same parameters' CPU forward; a
+   synthetic model directory (config.json, a pytorch_model.bin of those
+   parameters, a WordPiece tokenizer.json giving the texts' words the
+   random-init tokenizer's ids) loaded by from_pretrained embeds within
+   1e-5 of random_init. (b) VectorLiteClient(MiniLMEmbedder): add_texts in
+   batches of 256, 2^17 texts into each of two Flat collections (the
+   kernels' 2^17-row floor; one searched with the precision guard on, K1
+   on these embeddings, one built with it off, K3 over the int8 scan copy)
+   and 2^16 into an HNSW one (cosine, M 16): texts/s; 512 single
+   search_text calls (p50/p99) and search_texts in batches of 256 (p50) on
+   each, every result held against a search_batch of the embeddings
+   computed apart (Flat: ids beyond 1e-5 near-ties, scores within 1e-5;
+   HNSW: the same native search); K1 and K3 must launch. (c) HNSW at a deployment's size: 1,000,000 x 384 rows of
+   bench/bulk_1m.py:41 make_embeddings's geometry (256 clusters, spread
+   0.35, unit norm, seed 0); a 2^18-row bulk build (VECTORLITE_BULK_BUILD=
+   always) projects the 1M build, which then engages the bulk build by
+   itself through add_batch_arrays (auto, past VECTORLITE_BULK_AUTO_ROWS
+   on the card) unless it projects past 300 s, when (c) keeps the 2^18
+   rows (logged); build seconds, inserts/s, the scan / link / upper /
+   refine split (VECTORLITE_BULK_PROFILE) and K1 wide launches (> 0);
+   recall@10 against f64 truth on 1,000 queries (bench/bulk_1m.py's
+   recall_at recipe) at ef 64 and 128 (>= 0.95 at 128); the native search
+   at batches 1 and 256, p50 and QPS; the device beam (use_device=True)
+   on a batch of 256, p50 and overlap with the native search >= 0.9; a
+   classic threaded build of the first 65,536 rows, inserts/s. (d) A
+   2^16-row HNSW collection saved to .vlc and loaded into a fresh card
+   client (same ids and scores); WAL + autosave over an HNSW collection
+   (one build thread), dropped without close, restored and replayed into
+   a fresh card client (state and searches equal); over HTTP, POST
+   /collections with index_type "hnsw", POST /text and POST /search/text
+   with ef, held against the SDK. Launch counts are zeroed just before
+   each counted run and read just after; the kernels line adds them.
+10. A `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 The native sources build into vectorlite_tpu_torch/csrc/build/
@@ -1964,9 +2002,9 @@ def headline_path(merge, decompose, scan, build, SM, dev, args, card) -> dict:
 
 
 P7_THREADS = 64  # concurrent SDK callers in phase 7 (a)
-P7_REQUESTS = 2048  # single-text searches a serving run
+P7_REQUESTS = 1024  # single-text searches a serving run
 P7_PROBE_ROWS = 1 << 16  # the sizing runs of (c) and (d)
-P7_CUT_ROWS = 1 << 18  # (c) and (d) when the projection passes the budget
+P7_CUT_ROWS = 1 << 17  # (c) and (d) when the projection passes the budget
 P7_BUDGET_S = 60.0
 P7_DURABLE_ROWS = 10_000
 P7_WORDS = ("amber", "birch", "cobalt", "delta", "ember", "fjord", "granite", "harbor",
@@ -2374,11 +2412,11 @@ def collection_path(vl, build, dev, rows, card: str, seed: int) -> tuple:
 
 
 P8_THREADS = 64  # concurrent HTTP callers in phase 8 (a)
-P8_REQUESTS = 2048  # single-text searches a collection in (a)
+P8_REQUESTS = 1024  # single-text searches a collection in (a)
 P8_BATCH_REPS = 5  # timed batch searches a kind in (b)
-P8_BULK_ROWS = 1 << 16  # fresh rows added over HTTP in (c)
+P8_BULK_ROWS = 1 << 15  # fresh rows added over HTTP in (c)
 P8_BULK_BODY = 4096  # rows a request in (c)
-P8_SNAPSHOT_ROWS = 1 << 16  # the collection (d) downloads and uploads
+P8_SNAPSHOT_ROWS = 1 << 15  # the collection (d) downloads and uploads
 P8_TRACE_THREADS = 8  # searching threads while (e) traces
 P8_TRACE_S = 2.0
 P8_DURABLE_ROWS = 10_000  # rows (f) writes before the kill -9
@@ -2840,17 +2878,544 @@ def http_path(vl, build, dev, client, rows, card: str, seed: int, sdk: dict) -> 
     return total
 
 
+P9_LENGTHS = (8, 40, 100)  # words a text: MiniLM's 16-, 64- and 128-token buckets
+P9_BATCHES = (1, 32, 256)  # texts an embed_batch_arrays call
+P9_EMBED_REPS = 10
+P9_VOCAB = 4096  # distinct words of the phase's texts
+P9_FLAT_TEXTS = 1 << 17  # the Flat text collection: at the kernels' 2^17-row floor
+P9_HNSW_TEXTS = 1 << 16
+P9_SINGLE = 512  # single search_text calls a collection in (b)
+P9_HNSW_ROWS = 1_000_000  # (c): bench/bulk_1m.py's N
+P9_HNSW_PROBE = 1 << 18  # (c)'s sizing build, and its size when the 1M build projects too long
+P9_HNSW_BUDGET_S = 300.0
+#: the 1M build's non-scan parts (link, upper, refine) grew x5.6-8.0 over
+#: the 2^18 probe's for x3.81 the rows (PERF.md, PR 13): up to rows^1.56
+P9_REST_GROWTH = 1.6
+#: the bulk scan's horizons (batch_end) at which (c) holds K1's wide mode
+#: against its plain version: the first insert batch, a middle one and the
+#: last, all below the 2^20-row capacity
+P9_SCAN_HORIZONS = (4096, 409_600, 1_000_000)
+P9_BEAM_REPS = 10
+#: (c)'s second time rule: the smoke must end within 1,200 s, so the 1M
+#: build runs only if the smoke's clock at the choice, plus its
+#: projection, plus P9_AFTER_BUILD_S for the rest of phase 9 stays within
+#: P9_SMOKE_DEADLINE_S (a slow host then keeps (c) at the probe's rows)
+P9_SMOKE_DEADLINE_S = 1150.0
+P9_AFTER_BUILD_S = 100.0
+#: the smoke's start (perf_counter), set by main; None when a phase runs alone
+SMOKE_STARTED = None
+P9_QUERIES = 1000
+P9_SINGLE_QUERIES = 200  # batch-1 native searches an ef
+P9_CLASSIC_ROWS = 1 << 16
+P9_SNAPSHOT_ROWS = 1 << 16
+P9_DURABLE_ROWS = 10_000
+P9_HTTP_TEXTS = 256
+
+
+def p9_words() -> list:
+    return [f"{P7_WORDS[i % 17]}{i}" for i in range(P9_VOCAB)]
+
+
+def p9_texts(rng, words, n: int, n_words: int) -> list:
+    picks = rng.integers(0, len(words), (n, n_words))
+    return [" ".join(words[j] for j in row) for row in picks]
+
+
+def p9_embeddings(n: int, d: int, n_clusters: int = 256, spread: float = 0.35,
+                  seed: int = 0) -> np.ndarray:
+    """bench/bulk_1m.py:41 make_embeddings: unit rows around 256 unit
+    centers, spread 0.35 (a copy: the smoke imports nothing of bench/)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clusters, d))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    assign = rng.integers(0, n_clusters, n)
+    data = centers[assign] + spread * rng.normal(size=(n, d)) / np.sqrt(d)
+    data /= np.linalg.norm(data, axis=1, keepdims=True)
+    return data.astype(np.float32)
+
+
+def p9_queries(data: np.ndarray, nq: int, seed: int = 11) -> np.ndarray:
+    """bench/bulk_1m.py's recall_at queries: stored rows plus N(0, 0.05^2 / D)."""
+    rng = np.random.default_rng(seed)
+    qidx = rng.integers(0, len(data), nq)
+    return data[qidx] + 0.05 * rng.normal(size=(nq, data.shape[1])).astype(np.float32) / np.sqrt(
+        data.shape[1])
+
+
+def cosine_truth(data: np.ndarray, q: np.ndarray, dev, k: int = K) -> np.ndarray:
+    """f64 cosine top-k ids on the card, ties to the lowest row."""
+    qd = torch.from_numpy(q.astype(np.float64)).to(dev)
+    qd = qd / qd.norm(dim=1, keepdim=True)
+    best_s, best_i = None, None
+    for lo in range(0, len(data), 1 << 18):
+        v = torch.from_numpy(data[lo:lo + (1 << 18)]).to(dev).double()
+        s = (qd @ v.T) / v.norm(dim=1)[None, :]
+        s, i = torch.sort(s, dim=1, descending=True, stable=True)
+        s, i = s[:, :k], i[:, :k] + lo
+        if best_s is not None:
+            s, pos = torch.sort(torch.cat([best_s, s], 1), dim=1, descending=True, stable=True)
+            i = torch.gather(torch.cat([best_i, i], 1), 1, pos)
+            s, i = s[:, :k], i[:, :k]
+        best_s, best_i = s, i
+    return best_i.cpu().numpy()
+
+
+def hold_same(label, got, want) -> None:
+    """Rows of SearchResults from two routes to the same search: ids equal
+    beyond 1e-5 near-ties, scores within rtol/atol 1e-5."""
+    bad = ids_match(scores_of(want), ids_of(want), scores_of(got), ids_of(got))
+    err = float(np.max(np.abs(scores_of(got) - scores_of(want))))
+    log(f"    {label}: {len(got)} queries, id mismatches beyond ties {bad}, max score diff "
+        f"{err:.3g}")
+    if bad or not np.allclose(scores_of(got), scores_of(want), rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{label}: the two routes disagree")
+
+
+def native_search_times(index, q, ef, metric) -> tuple:
+    """The native search at batch 1 (P9_SINGLE_QUERIES queries, one at a
+    time) and batch 256 (every query): (batch-1 ms list, batch-256 ms
+    list, rows of the batched calls)."""
+    singles = []
+    for qi in q[:P9_SINGLE_QUERIES]:
+        t0 = time.perf_counter()
+        index.search(qi, K, metric, ef=ef, use_device=False)
+        singles.append((time.perf_counter() - t0) * 1e3)
+    batched, rows = [], []
+    for lo in range(0, len(q), B):
+        t0 = time.perf_counter()
+        rows += index.search_batch(q[lo:lo + B], K, metric, ef=ef, use_device=False)
+        batched.append((time.perf_counter() - t0) * 1e3)
+    return np.asarray(singles), np.asarray(batched[:len(q) // B]), rows
+
+
+def check_bulk_scan(scan, bulk_build, SM, dev, data, card: str) -> float:
+    """K1's wide mode at the bulk build's scan shape (k SCAN_K, tiles of
+    _scan_tile(cap), QUERY_CHUNK queries over the capacity-sized buffer,
+    rows at and past the horizon invalid) against its plain version, at
+    each of P9_SCAN_HORIZONS; raises on disagreement, returns the largest
+    score difference. The queries are the rows just below the horizon, as
+    in the build."""
+    n, d = data.shape
+    cap = 1 << (n - 1).bit_length()
+    tile, k, b = bulk_build._scan_tile(cap), bulk_build.SCAN_K, bulk_build.QUERY_CHUNK
+    sym = scan.exact_route(torch.float32, k, SM.COSINE, tile).symbol
+    if sym != K1_WIDE:
+        raise AssertionError(f"the bulk scan routes to {sym}, not {K1_WIDE}")
+    values = torch.zeros(cap, d, device=dev)
+    values[:n] = torch.from_numpy(data).to(dev)
+    sq = (values * values).sum(-1)
+    worst = 0.0
+    for end in P9_SCAN_HORIZONS:
+        valid = torch.arange(cap, device=dev) < end
+        q = values[end - b:end].clone()
+
+        def kern():
+            return scan.pallas_search_topk(values, sq, valid, q, metric=SM.COSINE, k=k,
+                                           tile_n=tile)
+
+        def plain():
+            return merged(scan, scan.tile_topk_plain(
+                values, None, sq, valid, q, metric=SM.COSINE, k_tile=k + 1, tile_n=tile),
+                b, k + 1)
+        out = kern()
+        torch.cuda.synchronize()
+        label = f"{sym} bulk scan k {k} tile {tile} B {b} {cap}x{d} horizon {end}"
+        worst = max(worst, compare(label, out, plain()))
+        k_ms, p_ms = interleaved_ms(kern, plain, 5, 2)
+        log(f"    {label}: {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
+    del values, sq
+    torch.cuda.empty_cache()
+    return worst
+
+
+def text_hnsw_path(vl, build, dev, card: str, seed: int) -> dict:
+    """Phase 9: the MiniLM embedder at full width and HNSW on the card.
+    (a) the encoder's texts/s and its embeddings against its CPU forward
+    and a reloaded model directory; (b) text collections (Flat and HNSW)
+    end to end; (c) HNSW at a deployment's size (the bulk build on K1's
+    wide mode, recall, the native search and the device beam, a classic
+    build); (d) HNSW's .vlc, WAL + autosave and HTTP round trips. Returns
+    the launches of its counted runs and K1 wide's largest difference
+    from its plain version at the bulk scan's shape."""
+    import shutil
+    import tempfile
+
+    from vectorlite_tpu_torch.api.server import bind, create_app
+    from vectorlite_tpu_torch.embed import minilm
+    from vectorlite_tpu_torch.index import bulk_build
+    from vectorlite_tpu_torch.kernels import scan
+    from vectorlite_tpu_torch.native import VLC
+    from vectorlite_tpu_torch.store.autosave import AutosaveDaemon, restore_into
+    from vectorlite_tpu_torch.store.wal import WalManager, recover_into
+
+    # writers of synthetic model directories, kept with the tests
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from _minilm_fixtures import hash_vocab, save_model_dir
+
+    SM = vl.SimilarityMetric
+    started = time.perf_counter()
+    rng = np.random.default_rng([seed, 13])
+    total = {}
+
+    def count(moved):
+        for sym, c in moved.items():
+            total[sym] = total.get(sym, 0) + c
+
+    # (a) MiniLM at full width, random_init(seed=0) on the card
+    config = dict(minilm._MINILM_CONFIG)
+    enc = vl.MiniLMEmbedder.random_init(seed=0, device=dev)
+    cpu = vl.MiniLMEmbedder.random_init(seed=0, device="cpu")
+    words = p9_words()
+    log(f"  (a) MiniLM {config} on {enc.device}, random_init(seed=0); texts of "
+        f"{P9_LENGTHS} words, batches {P9_BATCHES}")
+    worst = 0.0
+    by_len = {}
+    for n_words in P9_LENGTHS:
+        texts = p9_texts(rng, words, max(P9_BATCHES), n_words)
+        by_len[n_words] = texts
+        ids, _ = minilm.tokenize_batch(enc._tokenizer, texts, 512)
+        want = cpu.embed_batch_arrays(texts)
+        for b in P9_BATCHES:
+            enc.embed_batch_arrays(texts[:b])  # warm
+            times = []
+            for _ in range(P9_EMBED_REPS):
+                t0 = time.perf_counter()
+                got = enc.embed_batch_arrays(texts[:b])
+                times.append((time.perf_counter() - t0) * 1e3)
+            err = float(np.max(np.abs(got - want[:b])))
+            worst = max(worst, err)
+            p50 = float(np.percentile(times, 50))
+            log(f"    {n_words} words ({ids.shape[1]}-token bucket), batch {b}: p50 "
+                f"{p50:.3f} ms a batch, {b / p50 * 1e3:.1f} texts/s; max abs diff vs the CPU "
+                f"forward {err:.3g} [{card}]")
+    if worst > 1e-4:
+        raise AssertionError(f"MiniLM on the card is {worst:.3g} from its CPU forward")
+    tmp = tempfile.mkdtemp(prefix="vl_phase9_")
+    try:
+        vocab = hash_vocab(enc._tokenizer, words)
+        model_dir = save_model_dir(os.path.join(tmp, "model"), minilm._random_params(config, 0),
+                                   config, vocab)
+        t0 = time.perf_counter()
+        loaded = vl.MiniLMEmbedder.from_pretrained(str(model_dir), device=dev)
+        load_s = time.perf_counter() - t0
+        texts = by_len[P9_LENGTHS[0]]
+        err = float(np.max(np.abs(loaded.embed_batch_arrays(texts) - enc.embed_batch_arrays(texts))))
+        log(f"    from_pretrained of a synthetic directory (config.json, pytorch_model.bin of "
+            f"random_init's parameters, a WordPiece tokenizer.json of {len(vocab)} tokens) in "
+            f"{load_s:.2f} s: max abs diff vs random_init {err:.3g} ({len(texts)} texts)")
+        if err > 1e-5:
+            raise AssertionError("the reloaded model directory embeds differently")
+        del loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (b) text collections end to end through VectorLiteClient(MiniLMEmbedder)
+    client = vl.VectorLiteClient(enc, device=dev)
+    client.create_collection("flat", vl.IndexType.FLAT)
+    client.create_collection("flat_speed", vl.IndexType.FLAT)
+    client.create_collection("hnsw", vl.IndexType.HNSW, SM.COSINE)
+    texts = p9_texts(rng, words, P9_FLAT_TEXTS, P9_LENGTHS[0])
+    log(f"  (b) add_texts in batches of {B}: {P9_FLAT_TEXTS} texts into two Flat collections "
+        f"(searched with the precision guard on, and off: K3), the first {P9_HNSW_TEXTS} into "
+        f"an HNSW one (cosine, M 16), {P9_LENGTHS[0]} words a text")
+    for name, n in (("flat", P9_FLAT_TEXTS), ("flat_speed", P9_FLAT_TEXTS),
+                    ("hnsw", P9_HNSW_TEXTS)):
+        t0 = time.perf_counter()
+        for lo in range(0, n, B):
+            client.add_texts_to_collection(name, texts[lo:lo + B])
+        add_s = time.perf_counter() - t0
+        log(f"    {name}: {n} texts in {add_s:.2f} s, {n / add_s:.1f} texts/s [{card}]")
+    q_texts = p9_texts(rng, words, P9_SINGLE, P9_LENGTHS[0])
+    q_single = np.concatenate([enc.embed_batch_arrays([t]) for t in q_texts]).astype(np.float64)
+    guard = os.environ.get("VECTORLITE_SPEED_GUARD")
+    for name in ("flat", "flat_speed", "hnsw"):
+        index = client.get_collection(name)._index
+        # the guard decides at the device copy's build: the first search
+        os.environ["VECTORLITE_SPEED_GUARD"] = "0" if name == "flat_speed" else "1"
+        client.search_text_in_collection(name, q_texts[0], K)
+        build.reset_launch_counts()
+        got, lat = [], []
+        for t in q_texts:
+            t0 = time.perf_counter()
+            got.append(client.search_text_in_collection(name, t, K))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        moved = launch_counts(build)
+        count(moved)
+        log(f"    {name}: {P9_SINGLE} single search_text, k {K}: p50 "
+            f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms; launches "
+            f"{moved} [{card}]")
+        if name != "hnsw":
+            hold_against_direct(f"single, {name}", got, index, q_single, SM.COSINE)
+        else:
+            hold_same("single, hnsw, vs search_batch of the embeddings computed apart", got,
+                      index.search_batch(q_single, K, SM.COSINE))
+        build.reset_launch_counts()
+        lat, got = [], []
+        for lo in range(0, P9_SINGLE, B):
+            t0 = time.perf_counter()
+            got.append(client.search_texts_in_collection(name, q_texts[lo:lo + B], K))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        moved = launch_counts(build)
+        count(moved)
+        log(f"    {name}: search_texts, batches of {B}, k {K}: p50 {np.percentile(lat, 50):.3f} "
+            f"ms ({len(lat)} batches); launches {moved} [{card}]")
+        for lo, rows in zip(range(0, P9_SINGLE, B), got):
+            q = enc.embed_batch_arrays(q_texts[lo:lo + B]).astype(np.float64)
+            if name != "hnsw":
+                hold_against_direct(f"batch at {lo}, {name}", rows, index, q, SM.COSINE)
+            else:
+                hold_same(f"batch at {lo}, hnsw", rows, index.search_batch(q, K, SM.COSINE))
+    if guard is None:
+        os.environ.pop("VECTORLITE_SPEED_GUARD")
+    else:
+        os.environ["VECTORLITE_SPEED_GUARD"] = guard
+    if not any(total.get(sym) for sym in K1_SYMBOLS) or not total.get(K3_INT8):
+        raise AssertionError(f"text search over the Flat collections launched {total}: "
+                             f"K1 and K3 must both serve")
+    del client, texts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) HNSW at a deployment's size
+    t0 = time.perf_counter()
+    data = p9_embeddings(P9_HNSW_ROWS, D, seed=0)
+    log(f"  (c) {P9_HNSW_ROWS} x {D} rows of bench/bulk_1m.py's geometry (256 clusters, spread "
+        f"0.35, unit norm, seed 0) made in {time.perf_counter() - t0:.2f} s")
+    scan_err = check_bulk_scan(scan, bulk_build, SM, dev, data, card)
+    os.environ["VECTORLITE_BULK_PROFILE"] = "1"
+
+    def bulk(n: int, force: bool):
+        if force:
+            os.environ["VECTORLITE_BULK_BUILD"] = "always"
+        index = vl.HNSWIndex(D, SM.COSINE, store_f64=False, device=dev)
+        if index._nb is None:
+            raise AssertionError("the native HNSW builder did not serve")
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        index.add_batch_arrays(np.arange(n, dtype=np.uint64), data[:n])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        moved = launch_counts(build)
+        os.environ.pop("VECTORLITE_BULK_BUILD", None)
+        split = getattr(index, "_bulk_split", None)
+        log(f"    bulk build of {n} rows ({'VECTORLITE_BULK_BUILD=always' if force else 'auto'}"
+            f"): {secs:.2f} s, {n / secs:.1f} inserts/s; split "
+            f"{ {k: round(v, 2) for k, v in (split or {}).items()} }; launches {moved} [{card}]")
+        if split is None or not moved.get(K1_WIDE):
+            raise AssertionError(f"the {n}-row build did not take the bulk path on K1's wide mode")
+        return index, secs, split, moved
+
+    index, secs, split, moved = bulk(P9_HNSW_PROBE, True)
+    grow = P9_HNSW_ROWS / P9_HNSW_PROBE
+    # the scan covers every capacity row for every query; the rest (link,
+    # upper, refine) grows faster than the rows: x grow ** P9_REST_GROWTH
+    cap = 1 << (P9_HNSW_ROWS - 1).bit_length()
+    rest = grow ** P9_REST_GROWTH
+    projected = split["scan"] * grow * cap / P9_HNSW_PROBE + (secs - split["scan"]) * rest
+    clock = 0.0 if SMOKE_STARTED is None else time.perf_counter() - SMOKE_STARTED
+    ends = clock + projected + P9_AFTER_BUILD_S
+    log(f"    the {P9_HNSW_ROWS}-row build projects to {projected:.1f} s (scan x "
+        f"{grow * cap / P9_HNSW_PROBE:.2f}, the rest x {rest:.2f}; budget {P9_HNSW_BUDGET_S} s); "
+        f"with it the smoke would end near {ends:.1f} s (clock {clock:.1f} s, "
+        f"{P9_AFTER_BUILD_S} s for the rest of phase 9; deadline {P9_SMOKE_DEADLINE_S} s)")
+    if projected <= P9_HNSW_BUDGET_S and ends <= P9_SMOKE_DEADLINE_S:
+        log(f"    (c) runs at {P9_HNSW_ROWS} rows, the build engaging by itself (auto, past "
+            f"VECTORLITE_BULK_AUTO_ROWS on the card)")
+        del index
+        gc.collect()
+        index, secs, split, moved = bulk(P9_HNSW_ROWS, False)
+        n = P9_HNSW_ROWS
+    else:
+        log(f"    past the budget or the deadline: (c) runs at {P9_HNSW_PROBE} rows, on the "
+            f"sizing build")
+        n = P9_HNSW_PROBE
+    count(moved)
+    os.environ.pop("VECTORLITE_BULK_PROFILE", None)
+    rows = data[:n]
+    q = p9_queries(rows, P9_QUERIES)
+    truth = cosine_truth(rows, q, dev)
+    native = {}
+    for ef in (64, 128):
+        singles, batched, res = native_search_times(index, q, ef, SM.COSINE)
+        rec = recall(ids_of(res), truth)
+        native[ef] = res
+        log(f"    native search, k {K}, ef {ef}: recall@{K} {rec:.4f} vs f64 truth "
+            f"({P9_QUERIES} queries); batch 1 p50 {np.percentile(singles, 50):.4f} ms "
+            f"({1e3 / np.percentile(singles, 50):.1f} QPS, one thread); batch {B} p50 "
+            f"{np.percentile(batched, 50):.3f} ms ({B * 1e3 / np.percentile(batched, 50):.1f} "
+            f"QPS) [{card}]")
+        if ef == 128 and rec < 0.95:
+            raise AssertionError(f"recall@{K} {rec:.4f} < 0.95 at ef 128")
+    t0 = time.perf_counter()
+    index.search_batch(q[:B], K, SM.COSINE, ef=128, use_device=True)
+    first = time.perf_counter() - t0
+    beam_t = []
+    for _ in range(P9_BEAM_REPS):
+        t0 = time.perf_counter()
+        beam = index.search_batch(q[:B], K, SM.COSINE, ef=128, use_device=True)
+        beam_t.append((time.perf_counter() - t0) * 1e3)
+    overlap = float(np.mean([len({h.id for h in a} & {h.id for h in b}) / K
+                             for a, b in zip(beam, native[128][:B])]))
+    log(f"    device beam (use_device=True), batch {B}, ef 128: first call {first:.2f} s (the "
+        f"device copy's upload), then p50 {np.percentile(beam_t, 50):.3f} ms over "
+        f"{P9_BEAM_REPS} calls (min {min(beam_t):.3f}, max {max(beam_t):.3f}); overlap with the "
+        f"native search {overlap:.4f}; recall@{K} {recall(ids_of(beam), truth[:B]):.4f} [{card}]")
+    if overlap < 0.9:
+        raise AssertionError(f"device beam overlap {overlap:.4f} < 0.9")
+    del index
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["VECTORLITE_BULK_BUILD"] = "never"
+    classic = vl.HNSWIndex(D, SM.COSINE, store_f64=False, device=dev)
+    t0 = time.perf_counter()
+    classic.add_batch_arrays(np.arange(P9_CLASSIC_ROWS, dtype=np.uint64), data[:P9_CLASSIC_ROWS])
+    secs = time.perf_counter() - t0
+    os.environ.pop("VECTORLITE_BULK_BUILD")
+    log(f"    classic threaded build of the first {P9_CLASSIC_ROWS} rows "
+        f"({os.cpu_count()} host threads): {secs:.2f} s, {P9_CLASSIC_ROWS / secs:.1f} inserts/s "
+        f"[{card}]")
+    del classic
+
+    # (d) HNSW through the rest of the surface
+    emb = vl.MockEmbeddingFunction(D)
+    tmp = tempfile.mkdtemp(prefix="vl_phase9_")
+    try:
+        s_client = vl.VectorLiteClient(emb, device=dev)
+        s_client.create_collection("snap", vl.IndexType.HNSW, SM.COSINE)
+        s_rows = data[:P9_SNAPSHOT_ROWS]
+        s_client.add_vectors_to_collection("snap", s_rows, p7_texts(len(s_rows)),
+                                           p7_metas(len(s_rows)))
+        q64 = q[:B].astype(np.float64)
+        want = s_client.search_vectors_in_collection("snap", q64, K)
+        path = os.path.join(tmp, "snap.vlc")
+        calls = VLC.calls
+        t0 = time.perf_counter()
+        s_client.get_collection("snap").save_to_file(path)
+        save_s = time.perf_counter() - t0
+        fresh = vl.VectorLiteClient(emb, device=dev)
+        t0 = time.perf_counter()
+        fresh.add_collection(vl.Collection.load_from_file(path, **fresh.flat_index_kwargs()))
+        load_s = time.perf_counter() - t0
+        got = fresh.search_vectors_in_collection("snap", q64, K)
+        same = ids_of(got).tolist() == ids_of(want).tolist() and (
+            scores_of(got).tolist() == scores_of(want).tolist())
+        log(f"  (d) .vlc: a {len(s_rows)}-row HNSW collection saved in {save_s:.2f} s "
+            f"({os.path.getsize(path)} bytes, native emitter calls {VLC.calls - calls}), loaded "
+            f"into a fresh card client in {load_s:.2f} s: {B} searches, same ids and scores "
+            f"{same} [{card}]")
+        if not same or VLC.calls == calls:
+            raise AssertionError("the HNSW .vlc round trip changed the results")
+        del s_client, fresh
+
+        # WAL + autosave: one build thread, so replay rebuilds the live graph
+        os.environ["VECTORLITE_BUILD_THREADS"] = "1"
+        wal_dir, snap_dir = os.path.join(tmp, "wal"), os.path.join(tmp, "snapshots")
+        d_client = vl.VectorLiteClient(emb, device=dev)
+        d_client.set_collection_observer(WalManager(wal_dir, snapshot_dir=snap_dir))
+        daemon = AutosaveDaemon(d_client, snap_dir, interval_s=3600.0)  # ticks by flush()
+        d_client.create_collection("durable", vl.IndexType.HNSW, SM.COSINE)
+        d_rows = data[P9_SNAPSHOT_ROWS:P9_SNAPSHOT_ROWS + P9_DURABLE_ROWS + 2000]
+        d_texts, d_metas = p7_texts(len(d_rows)), p7_metas(len(d_rows))
+        t0 = time.perf_counter()
+        for lo in range(0, P9_DURABLE_ROWS, 1000):
+            d_client.add_vectors_to_collection("durable", d_rows[lo:lo + 1000],
+                                               d_texts[lo:lo + 1000], d_metas[lo:lo + 1000])
+        add_s = time.perf_counter() - t0
+        for vid in range(1, 1000, 10):
+            d_client.update_metadata_in_collection("durable", vid, {"bucket": 99})
+        t0 = time.perf_counter()
+        daemon.flush()  # no tombstones yet: the snapshot carries the graph
+        snap_s = time.perf_counter() - t0
+        for lo in range(P9_DURABLE_ROWS, len(d_rows), 1000):
+            d_client.add_vectors_to_collection("durable", d_rows[lo:lo + 1000],
+                                               d_texts[lo:lo + 1000], d_metas[lo:lo + 1000])
+        for vid in range(0, 2000, 10):
+            d_client.delete_from_collection("durable", vid)
+        d_client.delete_where_in_collection("durable", {"bucket": 7})
+        for vid in [v for v in range(2001, 2200) if v % 16 != 7][:50]:
+            d_client.update_text_in_collection("durable", vid, f"rewritten {vid}", {"v": vid})
+        want = d_client.search_vectors_in_collection("durable", q64, K, ef=64)
+        want_state = d_client.list_vectors_in_collection("durable", 0, 1 << 20, None, True)
+        del d_client, daemon  # the crash: no close, no final flush
+        fresh = vl.VectorLiteClient(emb, device=dev)
+        t0 = time.perf_counter()
+        restored = restore_into(fresh, snap_dir, **fresh.flat_index_kwargs())
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replayed = recover_into(fresh, wal_dir)
+        replay_s = time.perf_counter() - t0
+        got = fresh.search_vectors_in_collection("durable", q64, K, ef=64)
+        got_state = fresh.list_vectors_in_collection("durable", 0, 1 << 20, None, True)
+        key = lambda v: v.id  # noqa: E731
+        same = [(v.id, v.text, v.metadata, v.values) for v in sorted(want_state[0], key=key)] \
+            == [(v.id, v.text, v.metadata, v.values) for v in sorted(got_state[0], key=key)]
+        log(f"    WAL + autosave over HNSW: {P9_DURABLE_ROWS} rows in batches of 1000 "
+            f"({add_s:.2f} s), 100 metadata updates, one snapshot ({snap_s:.2f} s), 2000 more "
+            f"rows, 200 deletes, a delete_where, 50 update_text; dropped without close; restore "
+            f"{restored} {restore_s:.2f} s, replay of {replayed} ops {replay_s:.2f} s; "
+            f"{got_state[1]} rows, state equal {same} [{card}]")
+        if not same or got_state[1] != want_state[1]:
+            raise AssertionError("the restored and replayed HNSW collection differs")
+        hold_same("replayed HNSW vs live, ef 64", got, want)
+        os.environ.pop("VECTORLITE_BUILD_THREADS")
+        del fresh
+
+        # HTTP: an HNSW collection over the port's server, MiniLM embedding
+        h_client = vl.VectorLiteClient(enc, device=dev)
+        server = bind(create_app(h_client), "127.0.0.1", 0).start()
+        http = Http(server.port)
+        try:
+            http.call("POST", "/collections", {"name": "h", "index_type": "hnsw"}, want=400)
+            http.call("POST", "/collections",
+                      {"name": "h", "index_type": "hnsw", "metric": "cosine"})
+            h_texts = p9_texts(rng, words, P9_HTTP_TEXTS, P9_LENGTHS[1])
+            t0 = time.perf_counter()
+            for t in h_texts:
+                http.call("POST", "/collections/h/text", {"text": t})
+            add_s = time.perf_counter() - t0
+            got, lat = [], []
+            for t in h_texts[:64]:
+                t0 = time.perf_counter()
+                _, _, body = http.call("POST", "/collections/h/search/text",
+                                       {"query": t, "k": K, "ef": 64})
+                lat.append((time.perf_counter() - t0) * 1e3)
+                got.append(body["results"])
+            want = [h_client.search_text_in_collection("h", t, K, ef=64) for t in h_texts[:64]]
+            log(f"    HTTP: POST /collections (hnsw, cosine; without a metric 400), "
+                f"{P9_HTTP_TEXTS} POST /text of {P9_LENGTHS[1]} words "
+                f"({P9_HTTP_TEXTS / add_s:.1f} texts/s), 64 POST /search/text with ef 64: p50 "
+                f"{np.percentile(lat, 50):.3f} ms [{card}]")
+            hold_same("HTTP /search/text vs the SDK", results_of(vl, got), want)
+            if [row[0].id for row in want] != list(range(64)):
+                raise AssertionError("an HNSW text did not find itself first over HTTP")
+        finally:
+            http.close()
+            server.close()
+        del h_client
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del data, enc, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 9: {time.perf_counter() - started:.1f} s; launches {total}; host peak RSS "
+        f"{peak_rss_gb():.2f} GB")
+    return total, scan_err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)
     ap.add_argument("--ivf-rows", type=int, default=2_000_000)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batches", type=int, default=20)
+    ap.add_argument("--batches", type=int, default=12)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    started = time.perf_counter()
+    global SMOKE_STARTED
+    started = SMOKE_STARTED = time.perf_counter()
     import vectorlite_tpu_torch as vl
     from vectorlite_tpu_torch import native
     from vectorlite_tpu_torch.core import metrics as metrics_mod
@@ -2941,6 +3506,14 @@ def main() -> int:
     for sym, c in http_path(vl, _build, dev, client, rows, card, args.seed, sdk).items():
         launches[sym] = launches.get(sym, 0) + c
     del rows, client
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[9] the MiniLM embedder and HNSW on the card [{card}]")
+    p9_launches, scan_err = text_hnsw_path(vl, _build, dev, card, args.seed)
+    for sym, c in p9_launches.items():
+        launches[sym] = launches.get(sym, 0) + c
+    errs[K1_WIDE] = max(errs[K1_WIDE], scan_err)
     log(f"  smoke run {time.perf_counter() - started:.1f} s, builds included; host "
         f"peak RSS {peak_rss_gb():.2f} GB")
 

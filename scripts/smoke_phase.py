@@ -1,13 +1,14 @@
 """One phase of chip_smoke.py alone, from the checkout at TREE, on one CUDA
 card: phase 3 (the SDK main path at 2^20 x 384, batches of 256), phase
-6 (the merge-engine probe) or phase 8 (HTTP on the card, over a guard-on
+6 (the merge-engine probe), phase 8 (HTTP on the card, over a guard-on
 collection of 2^20 rows with texts and metadata built here in phase 7's
-place, beside one coalesced SDK serving run of it), with chip_smoke.py's
-own functions, checks and log lines. Run it in turns from two checkouts (say a `git archive` of a
+place, beside one coalesced SDK serving run of it) or phase 9 (the MiniLM
+embedder and HNSW), with chip_smoke.py's own functions, checks and log
+lines. Run it in turns from two checkouts (say a `git archive` of a
 parent commit and of its change) to compare their host-side latencies,
 which vary more between runs than device times do.
 
-    python3 scripts/smoke_phase.py TREE [--phase 3|6|8] [--skip-load NAME]
+    python3 scripts/smoke_phase.py TREE [--phase 3|6|8|9] [--skip-load NAME]
         [--extra-lib PATH]
 
 --skip-load leaves one native library out of the libraries loaded before
@@ -30,7 +31,7 @@ from types import SimpleNamespace
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tree")
-    ap.add_argument("--phase", type=int, choices=(3, 6, 8), default=3)
+    ap.add_argument("--phase", type=int, choices=(3, 6, 8, 9), default=3)
     ap.add_argument("--skip-load", default="")
     ap.add_argument("--extra-lib", default="")
     args = ap.parse_args()
@@ -63,6 +64,8 @@ def main() -> int:
         rows = rng.standard_normal((1 << 20, cs.D), dtype=np.float32)
         queries = rng.standard_normal((cs.B, cs.D), dtype=np.float32).astype(np.float64)
         cs.main_path(vl, _build, native.RESCORE, dev, rows, queries, card, 20)
+    elif args.phase == 9:
+        cs.text_hnsw_path(vl, _build, dev, card, 0)
     elif args.phase == 6:
         cs.headline_path(merge, decompose, scan, _build, vl.SimilarityMetric, dev,
                          SimpleNamespace(rows=1 << 20, seed=0), card)

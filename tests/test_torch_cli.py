@@ -5,8 +5,8 @@ Counterpart of the JAX package's CLI: ``--filepath`` preloads a ``.vlc``,
 starts, SIGTERM runs the final autosave flush. Here it runs as a
 subprocess with ``--device cpu`` on a free localhost port; a ``kill -9``
 loses no acknowledged write. Without a card and without ``--device`` it
-fails (tests/test_torch_isolation.py); with model files present it
-refuses to serve the mock embedder in MiniLM's place.
+fails (tests/test_torch_isolation.py); with a model directory it serves
+the MiniLM encoder, and the mock (with a warning) where a file is missing.
 """
 
 from __future__ import annotations
@@ -144,24 +144,80 @@ def test_build_embedder_without_model_files_falls_back_with_warning(tmp_path, ca
     with caplog.at_level(logging.WARNING, logger="vectorlite_tpu_torch.cli"):
         emb = cli.build_embedder(str(tmp_path / "absent"), mock=False)
     assert isinstance(emb, tvl.MockEmbeddingFunction)
-    assert "Could not load embedding model (Tokenizer file not found:" in caplog.text
+    # the JAX CLI's line: the EmbeddingError's text in the parentheses
+    assert ("Could not load embedding model (Embedding generation failed: Tokenizer "
+            "file not found:") in caplog.text
     assert "using mock embedder" in caplog.text
     assert isinstance(cli.build_embedder(None, mock=True), tvl.MockEmbeddingFunction)
 
 
-@pytest.mark.parametrize("name", ["tokenizer.json", "config.json", "model.safetensors"])
-def test_build_embedder_refuses_to_stand_in_for_model_files(tmp_path, name):
-    """Model files present: the unported MiniLM is named in the error; the
-    mock is never served in its place."""
-    (tmp_path / name).write_text("{}")
-    with pytest.raises(RuntimeError, match="MiniLM embedder is not ported") as e:
-        cli.build_embedder(str(tmp_path), mock=False)
-    assert name in str(e.value) and "--mock-embeddings" in str(e.value)
+TINY = {"hidden_size": 32, "num_hidden_layers": 1, "num_attention_heads": 4,
+        "intermediate_size": 64, "vocab_size": 1200, "max_position_embeddings": 32}
+WORDS = ("alpha", "beta", "gamma", "delta")
+
+
+def model_dir(path, weights="pytorch_model.bin"):
+    """A synthetic MiniLM directory whose tokenizer gives WORDS the random-
+    init encoder's ids."""
+    from _minilm_fixtures import hash_vocab, save_model_dir
+    from vectorlite_tpu_torch.embed import minilm
+
+    vocab = hash_vocab(minilm._HashTokenizer(TINY["vocab_size"]), WORDS)
+    return save_model_dir(path, minilm._random_params(TINY, 0), TINY, vocab, weights=weights)
+
+
+@pytest.mark.parametrize("name", ["tokenizer.json", "config.json", "pytorch_model.bin"])
+def test_build_embedder_falls_back_where_a_model_file_is_missing(tmp_path, name, caplog):
+    """The JAX CLI's behaviour: a directory lacking one file serves the
+    mock with a warning naming what is missing."""
+    (model_dir(tmp_path) / name).unlink()
+    with caplog.at_level(logging.WARNING, logger="vectorlite_tpu_torch.cli"):
+        emb = cli.build_embedder(str(tmp_path), mock=False, device="cpu")
+    assert isinstance(emb, tvl.MockEmbeddingFunction)
+    assert "Could not load embedding model" in caplog.text and "not found" in caplog.text
+
+
+@pytest.mark.parametrize("weights", ["pytorch_model.bin", "model.safetensors"])
+def test_build_embedder_loads_minilm_on_the_device(tmp_path, weights):
+    from vectorlite_tpu_torch.embed.minilm import MiniLMEmbedder
+
+    emb = cli.build_embedder(str(model_dir(tmp_path, weights)), mock=False, device="cpu")
+    assert isinstance(emb, MiniLMEmbedder) and emb.device.type == "cpu"
+    want = MiniLMEmbedder.random_init(0, TINY, device="cpu")
+    np.testing.assert_allclose(emb.embed_batch_arrays(["alpha beta", "delta"]),
+                               want.embed_batch_arrays(["alpha beta", "delta"]), atol=1e-6)
+
+
+def test_build_embedder_raises_on_an_unsupported_tokenizer(tmp_path):
+    """A tokenizer.json of a type the port does not implement is an
+    error, never the mock nor another tokenization."""
+    import json
+
+    from vectorlite_tpu_torch.errors import EmbeddingError
+
+    d = model_dir(tmp_path)
+    spec = json.loads((d / "tokenizer.json").read_text())
+    spec["pre_tokenizer"] = {"type": "Metaspace"}
+    (d / "tokenizer.json").write_text(json.dumps(spec))
+    with pytest.raises(EmbeddingError, match="Metaspace"):
+        cli.build_embedder(str(d), mock=False, device="cpu")
 
 
 def test_model_path_env_and_flag(tmp_path, monkeypatch):
-    """--model-path defaults to $VECTORLITE_MODEL_PATH, as in the JAX CLI."""
-    (tmp_path / "tokenizer.json").write_text("{}")
-    monkeypatch.setenv("VECTORLITE_MODEL_PATH", str(tmp_path))
-    with pytest.raises(RuntimeError, match="MiniLM"):
-        cli.main(["--device", "cpu", "--port", "0"])
+    """--model-path defaults to $VECTORLITE_MODEL_PATH, as in the JAX CLI;
+    the server starts with the MiniLM encoder of that directory."""
+    model_dir(tmp_path / "m")
+    monkeypatch.setenv("VECTORLITE_MODEL_PATH", str(tmp_path / "m"))
+    served = {}
+
+    def fake_start_server(client, *args, **kwargs):
+        served["embedder"] = client.embedding_function
+
+    from vectorlite_tpu_torch.api import server
+
+    monkeypatch.setattr(server, "start_server", fake_start_server)
+    assert cli.main(["--device", "cpu", "--port", "0"]) == 0
+    assert type(served["embedder"]).__name__ == "MiniLMEmbedder"
+    assert served["embedder"].dimension == TINY["hidden_size"]
+    cli.main(["--device", "cpu", "--port", "0", "--model-path", str(tmp_path / "none")])
+    assert isinstance(served["embedder"], tvl.MockEmbeddingFunction)

@@ -95,10 +95,26 @@ def test_add_vectors_explicit_ids():
     assert hit.id == 102 and hit.score == pytest.approx(1.0)
 
 
-def test_hnsw_is_refused():
-    t = tv.VectorLiteClient(tv.MockEmbeddingFunction(8), device="cpu")
-    with pytest.raises(VectorLiteError, match="HNSW"):
-        t.create_collection("h", tv.IndexType.HNSW, tv.SimilarityMetric.COSINE)
+def test_hnsw_collections_match_jax():
+    """The HNSW branch: an explicit metric is required, the profile's
+    graph settings reach the index, and texts search as in the JAX
+    client."""
+    t = tv.VectorLiteClient(tv.MockEmbeddingFunction(8), device="cpu",
+                            config=tv.VectorLiteConfig.profile("memory-optimized"))
+    j = jv.VectorLiteClient(jv.MockEmbeddingFunction(8),
+                            config=jv.VectorLiteConfig.profile("memory-optimized"))
+    with pytest.raises(VectorLiteError, match="explicit similarity metric"):
+        t.create_collection("h", tv.IndexType.HNSW)
+    for client, m in ((t, tv), (j, jv)):
+        client.create_collection("h", "HNSW", m.SimilarityMetric.EUCLIDEAN)
+        client.add_texts_to_collection("h", [f"text {i}" for i in range(50)])
+    index = t.get_collection("h")._index
+    assert (index.index_type, index.m, index.m0, index.device.type) == ("HNSW", 8, 16, "cpu")
+    assert t.get_collection("h").detected_metric() is tv.SimilarityMetric.EUCLIDEAN
+    got = t.search_text_in_collection("h", "text 7", 5, ef=0)
+    want = j.search_text_in_collection("h", "text 7", 5, ef=0)
+    assert [(h.id, h.text) for h in got] == [(h.id, h.text) for h in want]
+    assert [h.score for h in got] == pytest.approx([h.score for h in want], abs=1e-5)
 
 
 def test_mesh_is_refused(monkeypatch):

@@ -6,9 +6,8 @@ Counterpart of tests/test_contract.py. The reference ships
 docs/openapi.yaml as the cross-implementation contract (reference:
 docs/openapi.yaml:1-839; k bounds 1..1000 at 624-630). The port serves
 it from docs/ or from its packaged copy,
-vectorlite_tpu_torch/api/openapi.yaml. HNSW is not ported and stays out
-of the scenario: its creates answer HNSWNotPorted's 501, which the
-contract does not list (tests/test_torch_server.py pins it).
+vectorlite_tpu_torch/api/openapi.yaml. The scenario creates and searches
+an HNSW collection too, as the JAX package's does.
 """
 
 from pathlib import Path
@@ -35,6 +34,18 @@ SCENARIO = [
      {"name": "c", "index_type": "flat"}, 409),
     ("POST", "/collections", "/collections",
      {"name": "x", "index_type": "btree"}, 400),
+    # HNSW: the metric is required; a search in another metric is a 400
+    ("POST", "/collections", "/collections",
+     {"name": "h", "index_type": "hnsw"}, 400),
+    ("POST", "/collections", "/collections",
+     {"name": "h", "index_type": "hnsw", "metric": "cosine"}, 200),
+    ("POST", "/collections/{name}/text", "/collections/h/text",
+     {"text": "hello world"}, 200),
+    ("POST", "/collections/{name}/search/text",
+     "/collections/h/search/text", {"query": "hello", "k": 3, "ef": 16}, 200),
+    ("POST", "/collections/{name}/search/text",
+     "/collections/h/search/text",
+     {"query": "hello", "similarity_metric": "euclidean"}, 400),
     ("GET", "/collections/{name}", "/collections/c", None, 200),
     ("GET", "/collections/{name}", "/collections/nope", None, 404),
     # add text: ok, missing field, missing collection

@@ -12,9 +12,9 @@ after masking what is the run's own (temporary paths, timestamps,
 latencies, process-wide counters); ``/stats`` by its route keys and
 counts.
 
-HNSW is not ported. Its requests are kept out of the script and listed in
-``HNSW_REQUESTS``: the JAX app's answer and the port's ``HNSWNotPorted``
-501 are each pinned.
+HNSW collections get a script of their own, once for each metric
+(``hnsw_steps``): create, inserts, searches with ``ef``, filters,
+mutations, compaction, save and load, and the snapshot round trip.
 """
 
 from __future__ import annotations
@@ -39,6 +39,22 @@ DIM = 16
 SCORE_TOL = 1e-5
 COMPARED_HEADERS = ("access-control-allow-origin", "access-control-allow-methods",
                     "access-control-allow-headers", "allow", "content-disposition")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_search_pool_off():
+    """The JAX package's native search pool can read a builder freed right
+    after a batched search (ROADMAP §3): its batched HNSW searches here
+    run on the calling thread."""
+    import os
+
+    before = os.environ.get("VECTORLITE_SEARCH_THREADS")
+    os.environ["VECTORLITE_SEARCH_THREADS"] = "1"
+    yield
+    if before is None:
+        del os.environ["VECTORLITE_SEARCH_THREADS"]
+    else:
+        os.environ["VECTORLITE_SEARCH_THREADS"] = before
 
 
 class _JaxServer:
@@ -594,31 +610,54 @@ def test_auth_parity(tmp_path_factory):
             side.server.close()
 
 
-#: HNSW requests, kept out of the script: (body, the JAX app's status, its
-#: message or None); the port answers each with HNSWNotPorted's 501
-HNSW_REQUESTS = [
-    ({"name": "h", "index_type": "hnsw"}, 400,
-     "HNSW index requires an explicit similarity metric"),
-    ({"name": "h", "index_type": "HNSW", "metric": "euclidean"}, 200, None),
-]
+def hnsw_steps(metric: str) -> list:
+    """An HNSW collection of ``metric`` from create to reload, through
+    every route that reads or writes it."""
+    h = "/collections/h"
+    return [
+        Step("POST", "/collections", {"name": "h", "index_type": "hnsw"}),
+        Step("POST", "/collections", {"name": "h", "index_type": "HNSW", "metric": metric}),
+        Step("POST", f"{h}/texts", {"texts": TEXTS, "metadatas": METAS}),
+        Step("POST", f"{h}/vectors", {"vectors": [
+            {"values": r, "text": t, "metadata": m} for r, t, m in zip(ROWS, TEXTS, METAS)]}),
+        Step("POST", f"{h}/text", {"text": "one more", "metadata": {"n": 99}}),
+        Step("GET", h),
+        Step("POST", f"{h}/search/text", {"query": "doc 3 delta river", "k": 5}),
+        *[Step("POST", f"{h}/search/text", {"query": "amber", "k": 4, "ef": ef})
+          for ef in (0, 8, 65536, -1)],
+        Step("POST", f"{h}/search/text", {"query": "amber", "similarity_metric": metric}),
+        Step("POST", f"{h}/search/text",
+             {"query": "amber", "similarity_metric": "cosine" if metric != "cosine"
+              else "euclidean"}),
+        Step("POST", f"{h}/search/text", {"query": "sea", "k": 5, "where": {"tag": "a"}}),
+        Step("POST", f"{h}/search/text", {"query": "sea", "k": 25, "min_score": 0.1}),
+        Step("POST", f"{h}/search/texts", {"queries": ["amber", "fjord ice"], "k": 3, "ef": 4}),
+        Step("POST", f"{h}/search/vector", {"vector": QUERIES[0], "k": 6}),
+        Step("POST", f"{h}/search/vectors",
+             {"vectors": QUERIES, "k": 8, "where": {"n": {"$lte": 6}}}),
+        Step("POST", f"{h}/search/hybrid", {"query": "river", "k": 5, "alpha": 0.3}),
+        Step("GET", f"{h}/vectors?offset=2&limit=5&include_values=1"),
+        Step("GET", f"{h}/vectors?ids=3,0,99"),
+        Step("PATCH", f"{h}/vectors/1", {"metadata": {"tag": "z"}}),
+        Step("PUT", f"{h}/vectors/2", {"text": "replaced text"}),
+        Step("DELETE", f"{h}/vectors/5"),
+        Step("DELETE", f"{h}/vectors?where=%7B%22tag%22%3A%22b%22%7D"),
+        Step("POST", f"{h}/search/vectors", {"vectors": QUERIES, "k": 6}),
+        Step("POST", f"{h}/compact"),
+        Step("POST", f"{h}/search/vectors", {"vectors": QUERIES, "k": 6, "ef": 16}),
+        Step("POST", f"{h}/save", {"file_path": "<tmp>/h.vlc"}),
+        Step("POST", "/collections/load", {"file_path": "<tmp>/h.vlc",
+                                           "collection_name": "h2"}),
+        Step("GET", "/collections/h2"),
+        Step("POST", "/collections/h2/search/vectors", {"vectors": QUERIES, "k": 6}),
+        Step("GET", f"{h}/snapshot", kind="snapshot"),
+        Step("POST", "/collections/h3/snapshot", lambda side: side.snapshot),
+        Step("POST", "/collections/h3/search/text", {"query": "amber", "k": 4}),
+        Step("GET", "/collections"),
+    ]
 
 
-@pytest.mark.parametrize("body,jax_status,jax_message", HNSW_REQUESTS)
-def test_hnsw_create_is_not_ported(tmp_path_factory, body, jax_status, jax_message):
-    from vectorlite_tpu_torch.errors import HNSWNotPorted
-
-    jax_side, port_side = make_pair(tmp_path_factory)
-    try:
-        step = Step("POST", "/collections", body)
-        a, b = jax_side.send(step), port_side.send(step)
-        assert a.status == jax_status
-        if jax_message:
-            assert jax_message in json.loads(a.body)["message"]
-        assert b.status == 501 == HNSWNotPorted.status_code
-        assert json.loads(b.body) == {"message": HNSWNotPorted().message}
-        assert b.headers["access-control-allow-origin"] == "*"
-        assert json.loads(exchange(port_side.server.port, "GET", "/collections").body) == {
-            "collections": []}
-    finally:
-        jax_side.server.close()
-        port_side.server.close()
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dotproduct", "manhattan"])
+def test_hnsw_route_parity(pair, metric):
+    reset(pair)
+    run_script(pair, hnsw_steps(metric))

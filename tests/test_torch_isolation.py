@@ -58,11 +58,26 @@ def test_sources_import_no_jax(path):
 
 
 def test_entry_points_need_cuda_without_device(monkeypatch):
-    from vectorlite_tpu_torch import FlatIndex, MockEmbeddingFunction, VectorLiteClient
+    from vectorlite_tpu_torch import (
+        FlatIndex,
+        HNSWIndex,
+        MiniLMEmbedder,
+        MockEmbeddingFunction,
+        SimilarityMetric,
+        VectorLiteClient,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         FlatIndex(8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HNSWIndex(8, SimilarityMetric.COSINE)
+    tiny = {"hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2,
+            "intermediate_size": 16, "vocab_size": 1200, "max_position_embeddings": 16}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MiniLMEmbedder.random_init(config=tiny)
+    assert HNSWIndex(8, SimilarityMetric.COSINE, device="cpu").device.type == "cpu"
+    assert MiniLMEmbedder.random_init(config=tiny, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         VectorLiteClient(MockEmbeddingFunction(8))
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -71,17 +86,18 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.name)
-def test_sources_name_no_hnsw_index(path):
-    """HNSW is not ported: no source imports or names ``HNSWIndex`` (the
-    JAX package's persistence and WAL replay import it; the port's copies
-    refuse HNSW with HNSWNotPorted instead)."""
+def test_sources_name_no_hnsw_refusal(path):
+    """HNSW is ported: no source imports, raises or names the refusal
+    ``HNSWNotPorted`` that stood in for it."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.ImportFrom):
-            assert (node.module or "").split(".")[-1] != "hnsw", path
-            assert "HNSWIndex" not in [a.name for a in node.names], path
+            assert "HNSWNotPorted" not in [a.name for a in node.names], path
         elif isinstance(node, ast.Name):
-            assert node.id != "HNSWIndex", path
+            assert node.id != "HNSWNotPorted", path
+        elif isinstance(node, ast.Attribute):
+            assert node.attr != "HNSWNotPorted", path
+    assert "HNSWNotPorted" not in path.read_text(), path
 
 
 def test_server_serves_with_aiohttp_unimportable():

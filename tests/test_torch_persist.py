@@ -2,7 +2,8 @@
 same collection are byte-identical modulo ``created_at`` (through the
 native codec and its Python twin), the golden Flat files load bit-exactly
 and re-save byte-identically, files cross-load in both directions with
-equal search results, HNSW payloads are refused with a typed error,
+equal search results, the golden HNSW files load with the JAX package's
+graph and re-save byte-identically, HNSW saves match the JAX package's,
 malformed documents raise the reference's typed errors, and the
 disk-backed truth matrix behaves as the RAM one (the cases of
 tests/test_golden_vlc.py, test_vlc_native.py, test_persistence.py and
@@ -25,13 +26,29 @@ from vectorlite_tpu.index.flat import FlatIndex as JFlat
 from vectorlite_tpu.persist import vlc as jvlc
 from vectorlite_tpu.store.collection import Collection as JCollection
 from vectorlite_tpu_torch.core.types import Vector
-from vectorlite_tpu_torch.errors import HNSWNotPorted, VectorLiteError
+from vectorlite_tpu_torch.errors import VectorLiteError
 from vectorlite_tpu_torch.native import VLC
 from vectorlite_tpu_torch.persist import vlc
 
 GOLDEN = Path(__file__).parent / "golden"
 FLAT_GOLDENS = ["flat_reference.vlc", "flat_edge_reference.vlc", "flat_empty_reference.vlc"]
 HNSW_GOLDENS = sorted(p.name for p in GOLDEN.glob("hnsw_*.vlc"))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_search_pool_off():
+    """The JAX package's native search pool can read a builder freed right
+    after a batched search (ROADMAP §3): its batched HNSW searches here
+    run on the calling thread."""
+    import os
+
+    before = os.environ.get("VECTORLITE_SEARCH_THREADS")
+    os.environ["VECTORLITE_SEARCH_THREADS"] = "1"
+    yield
+    if before is None:
+        del os.environ["VECTORLITE_SEARCH_THREADS"]
+    else:
+        os.environ["VECTORLITE_SEARCH_THREADS"] = before
 
 
 def norm(text: str) -> str:
@@ -226,12 +243,71 @@ def test_load_forwards_the_clients_index_kwargs(tmp_path):
     assert col.get_info().count == t.get_collection_info("x").count
 
 
+def hnsw_hits(col, metric, q):
+    return [[(h.id, round(h.score, 5)) for h in row]
+            for row in col.search_vectors(q, 3, metric)]
+
+
 @pytest.mark.parametrize("name", HNSW_GOLDENS)
-def test_hnsw_payloads_are_refused(name, emitter):
-    with pytest.raises(HNSWNotPorted, match="HNSW"):
-        vlc.load_collection_from_file(GOLDEN / name, device="cpu")
-    with pytest.raises(HNSWNotPorted):
-        vlc.load_collection_from_bytes((GOLDEN / name).read_bytes(), device="cpu")
+def test_hnsw_payloads_load_as_in_jax(name, emitter, tmp_path):
+    """A golden HNSW file loads (from a file and from bytes) with the JAX
+    package's graph, rows and search results, and re-saves to the bytes
+    the JAX package writes."""
+    path = GOLDEN / name
+    jcol = jvlc.load_collection_from_file(path)
+    for tcol in (vlc.load_collection_from_file(path, device="cpu"),
+                 vlc.load_collection_from_bytes(path.read_bytes(), device="cpu")):
+        assert (tcol.name, tcol.next_id()) == (jcol.name, jcol.next_id())
+        with jcol.index_read() as jix, tcol.index_read() as tix:
+            assert tix.index_type == "HNSW" and tix.device.type == "cpu"
+            want, got = jix.graph_arrays(), tix.graph_arrays()
+            assert (got[1] == want[1]).all() and got[2] == want[2]
+            assert (got[3] == want[3]).all()
+            assert [v.id for v in tix.list_vectors(0, 100, None, True)[0]] == [
+                v.id for v in jix.list_vectors(0, 100, None, True)[0]]
+            metric = tix.metric()
+            q = np.random.default_rng(1).standard_normal((2, tix.dimension))
+        assert hnsw_hits(tcol, metric, q) == hnsw_hits(
+            jcol, jv.SimilarityMetric[metric.name], q)
+    vlc.save_collection_to_file(tcol, tmp_path / "t.vlc")
+    jvlc.save_collection_to_file(jcol, tmp_path / "j.vlc")
+    assert norm((tmp_path / "t.vlc").read_text(encoding="utf-8")) == norm(
+        (tmp_path / "j.vlc").read_text(encoding="utf-8"))
+
+
+@pytest.mark.parametrize("codec", ["native", "python"])
+@pytest.mark.parametrize("metric", ["COSINE", "EUCLIDEAN", "DOT_PRODUCT", "MANHATTAN"])
+def test_hnsw_saves_match_jax_and_cross_load(metric, codec, tmp_path, monkeypatch):
+    """200 rows with texts and metadata (past the keyed emitter's 64),
+    built by both native builders: the two packages save the same bytes
+    (through both codecs, or both Python twins), and each loads the
+    other's file to the same search results."""
+    monkeypatch.delenv("VECTORLITE_NO_NATIVE", raising=False)
+    rng = np.random.default_rng(4)
+    rows = rng.standard_normal((200, 12))
+    texts = [f"t{i}" for i in range(200)]
+    metas = [{"i": i} for i in range(200)]
+    cols = []
+    for mod, make in ((jv, lambda m: JCollection("h", jv.HNSWIndex(12, m, native=True))),
+                      (tv, lambda m: tv.Collection(
+                          "h", tv.HNSWIndex(12, m, native=True, device="cpu")))):
+        col = make(mod.SimilarityMetric[metric])
+        col.add_vectors(rows, texts, metas)
+        cols.append(col)
+    jcol, tcol = cols
+    if codec == "python":
+        monkeypatch.setenv("VECTORLITE_NO_NATIVE", "1")
+    jvlc.save_collection_to_file(jcol, tmp_path / "j.vlc")
+    vlc.save_collection_to_file(tcol, tmp_path / "t.vlc")
+    assert norm((tmp_path / "t.vlc").read_text(encoding="utf-8")) == norm(
+        (tmp_path / "j.vlc").read_text(encoding="utf-8"))
+    monkeypatch.delenv("VECTORLITE_NO_NATIVE", raising=False)
+    q = rng.standard_normal((3, 12))
+    want = hnsw_hits(jcol, jv.SimilarityMetric[metric], q)
+    assert hnsw_hits(vlc.load_collection_from_file(tmp_path / "j.vlc", device="cpu"),
+                     tv.SimilarityMetric[metric], q) == want
+    assert hnsw_hits(jvlc.load_collection_from_file(tmp_path / "t.vlc"),
+                     jv.SimilarityMetric[metric], q) == want
 
 
 def flat_doc() -> str:

@@ -3,7 +3,7 @@ port's server on a real socket, on the CPU.
 
 Counterpart of tests/test_remote.py: the server is bound to an ephemeral
 localhost port and served from a thread, the synchronous stdlib client
-drives it. HNSW is not ported: an HNSW create is a typed 501. The same
+drives it, Flat and HNSW collections alike. The same
 client also drives the JAX package's aiohttp app (the contract is one).
 """
 
@@ -57,9 +57,10 @@ class TestRemoteLifecycle:
     def test_collection_crud(self, rc):
         rc.create_collection("a", "flat")
         rc.create_collection("b", IndexType.FLAT, SimilarityMetric.COSINE)
-        with pytest.raises(RemoteError) as e:
-            rc.create_collection("h", IndexType.HNSW, SimilarityMetric.COSINE)
-        assert e.value.status_code == 501 and "HNSW" in e.value.message
+        rc.create_collection("h", IndexType.HNSW, SimilarityMetric.COSINE)
+        rc.add_texts("h", ["alpha", "beta", "gamma"])
+        assert [h.id for h in rc.search_text("h", "beta", k=1, ef=8)] == [1]
+        rc.delete_collection("h")
         assert sorted(rc.list_collections()) == ["a", "b"]
         assert rc.has_collection("a") and not rc.has_collection("z")
         info = rc.get_collection_info("a")
@@ -176,9 +177,10 @@ class TestRemoteLifecycle:
             rc.create_collection("dup", "flat")
         assert e.value.status_code == 409
         with pytest.raises(RemoteError) as e:
-            rc.create_collection("h2", "hnsw")  # not ported
-        assert e.value.status_code == 501
-        assert not e.value.is_client_error()
+            rc.create_collection("h2", "hnsw")  # no metric
+        assert e.value.status_code == 400
+        assert "explicit similarity metric" in e.value.message
+        assert e.value.is_client_error()
         with pytest.raises(RemoteError) as e:
             rc.search_text("dup", "x", where={"f": {"$bogus": 1}})
         assert e.value.status_code == 400

@@ -6,7 +6,8 @@ tests/persistence_api_test.rs): status codes, JSON body shapes and the
 ``{"message": ...}`` error contract, against the port's standard-library
 server bound to an ephemeral localhost port. ``served`` and
 ``SyncClient`` here are what the port's other HTTP test files drive it
-with. HNSW is not ported: its creates answer HNSWNotPorted's 501.
+with. HNSW collections are created, written and searched as in the JAX
+app (metric required, metric mismatch refused, per-request ``ef``).
 """
 
 import contextlib
@@ -19,7 +20,6 @@ import pytest
 from vectorlite_tpu_torch import VectorLiteClient
 from vectorlite_tpu_torch.api.server import bind, create_app
 from vectorlite_tpu_torch.embed.mock import ConstantEmbeddingFunction
-from vectorlite_tpu_torch.errors import HNSWNotPorted
 
 
 class SyncResponse:
@@ -185,22 +185,29 @@ class TestHealthAndCollections:
 
         http(go)
 
-    @pytest.mark.parametrize("body", [
-        {"name": "h", "index_type": "hnsw"},
-        {"name": "h", "index_type": "HNSW", "metric": "Euclidean"},
+    @pytest.mark.parametrize("body,status", [
+        ({"name": "h", "index_type": "hnsw"}, 400),
+        ({"name": "h", "index_type": "HNSW", "metric": "Euclidean"}, 200),
     ])
-    def test_create_hnsw_is_not_ported_501(self, body):
-        """HNSW is not ported: with or without a metric (the JAX app
-        answers 400 and 200) the create is HNSWNotPorted's 501 with its
-        message and the CORS headers, and no Flat collection stands in."""
+    def test_create_hnsw(self, body, status):
+        """Without a metric the create is the JAX app's 400 and no
+        collection exists; with one, the HNSW collection takes a text and
+        finds it, and its info counts it."""
         def go(tc):
             resp = tc.post("/collections", json=body)
-            assert resp.status == 501 == HNSWNotPorted.status_code
-            assert resp.json() == {"message": HNSWNotPorted().message}
+            assert resp.status == status
             assert resp.headers["Access-Control-Allow-Origin"] == "*"
-            assert tc.get("/collections").json()["collections"] == []
-            resp = tc.post("/collections/h/text", json={"text": "x"})
-            assert resp.status == 404
+            if status == 400:
+                assert "HNSW index requires an explicit similarity metric" in (
+                    resp.json()["message"])
+                assert tc.get("/collections").json()["collections"] == []
+                assert tc.post("/collections/h/text", json={"text": "x"}).status == 404
+                return
+            assert tc.post("/collections/h/text", json={"text": "x"}).status == 200
+            resp = tc.post("/collections/h/search/text", json={"query": "x"})
+            assert resp.status == 200
+            assert [h["id"] for h in resp.json()["results"]] == [0]
+            assert tc.get("/collections/h").json()["info"]["count"] == 1
 
         http(go)
 
@@ -323,6 +330,28 @@ class TestVectorOps:
                 json={"query": "q", "similarity_metric": "bogus"},
             )
             assert resp.status == 400
+
+        http(go)
+
+    def test_search_metric_mismatch_400(self):
+        """An HNSW graph serves only its build metric."""
+        def go(tc):
+            tc.post(
+                "/collections",
+                json={"name": "h", "index_type": "hnsw", "metric": "euclidean"},
+            )
+            tc.post("/collections/h/text", json={"text": "x"})
+            resp = tc.post(
+                "/collections/h/search/text",
+                json={"query": "q", "similarity_metric": "cosine"},
+            )
+            assert resp.status == 400
+            assert "Metric mismatch" in resp.json()["message"]
+            resp = tc.post(
+                "/collections/h/search/text",
+                json={"query": "q", "similarity_metric": "euclidean"},
+            )
+            assert resp.status == 200
 
         http(go)
 
@@ -1060,21 +1089,22 @@ class TestApiKeyAuth:
 
 class TestEfOverride:
     """Per-request HNSW beam width (extension): "ef" in any search
-    body; Flat accepts and ignores it (exact search trivially satisfies
-    any recall request). HNSW is not ported, so both collections here
-    are Flat, "h" created with a metric."""
+    body. 0 = reference-exact beam (min(k, len), reference:
+    src/index/hnsw.rs:437-448); absent = the collection's configured
+    ef_search; Flat accepts and ignores it (exact search trivially
+    satisfies any recall request)."""
 
     def _mk(self, tc):
         return tc.post(
             "/collections",
             json={
                 "name": "h",
-                "index_type": "flat",
+                "index_type": "hnsw",
                 "metric": "cosine",
             },
         )
 
-    def test_ef_accepted_on_flat(self):
+    def test_ef_accepted_on_hnsw_and_flat(self):
         client = make_text_client()
 
         def go(tc):

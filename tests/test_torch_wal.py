@@ -1,7 +1,7 @@
 """The port's write-ahead log against the JAX package's: the same
 mutations write the same log, a crash replays to the live state, a torn
 tail keeps its intact prefix, a log written by either package replays in
-the other to the same state, and an HNSW log is refused (the cases of
+the other to the same state, for Flat and HNSW collections (the cases of
 tests/test_wal.py)."""
 
 import json
@@ -13,7 +13,6 @@ import vectorlite_tpu as jv
 import vectorlite_tpu_torch as tv
 from vectorlite_tpu.store import autosave as jautosave
 from vectorlite_tpu.store import wal as jwal
-from vectorlite_tpu_torch.errors import HNSWNotPorted
 from vectorlite_tpu_torch.store.autosave import AutosaveDaemon, restore_into
 from vectorlite_tpu_torch.store.wal import (
     CollectionWAL,
@@ -24,6 +23,22 @@ from vectorlite_tpu_torch.store.wal import (
 )
 
 DIM = 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_search_pool_off():
+    """The JAX package's native search pool can read a builder freed right
+    after a batched search (ROADMAP §3): its batched HNSW searches here
+    run on the calling thread."""
+    import os
+
+    before = os.environ.get("VECTORLITE_SEARCH_THREADS")
+    os.environ["VECTORLITE_SEARCH_THREADS"] = "1"
+    yield
+    if before is None:
+        del os.environ["VECTORLITE_SEARCH_THREADS"]
+    else:
+        os.environ["VECTORLITE_SEARCH_THREADS"] = before
 
 
 def port_client():
@@ -234,17 +249,68 @@ def test_drop_tombstone_keeps_a_deleted_collection_dead(tmp_path):
     assert not fresh.has_collection("c")
 
 
-def test_hnsw_log_is_refused(tmp_path):
+def hnsw_searches(client, name):
+    """Ids and scores of a batch of raw-vector searches."""
+    q = np.random.default_rng(11).standard_normal((4, DIM))
+    rows = client.search_vectors_in_collection(name, q, 5)
+    return [[(h.id, round(h.score, 5)) for h in row] for row in rows]
+
+
+def test_hnsw_mutations_write_the_same_log(tmp_path):
+    j, t = jax_client(), port_client()
+    with_wal(j, tmp_path / "j", jwal.WalManager)
+    with_wal(t, tmp_path / "t")
+    for client, m in ((j, jv), (t, tv)):
+        client.create_collection("h", m.IndexType.HNSW, m.SimilarityMetric.EUCLIDEAN)
+        churn(client, "h", np.random.default_rng(3))
+    assert (tmp_path / "t" / "h.wal").read_text() == (tmp_path / "j" / "h.wal").read_text()
+    assert read_entries(tmp_path / "t" / "h.wal")[0] == {
+        "s": 1, "op": "create", "index_type": "HNSW", "dim": DIM, "metric": "Euclidean"}
+    assert state(t, "h") == state(j, "h")
+    assert hnsw_searches(t, "h") == hnsw_searches(j, "h")
+    j.delete_collection("h")
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_hnsw_log_replays_in_the_other_package(writer, tmp_path):
+    """An HNSW log (no snapshot: the collection comes from its create
+    header) replays to the live state and the same search results."""
+    src = jax_client() if writer == "jax" else port_client()
+    m = jv if writer == "jax" else tv
+    with_wal(src, tmp_path / "wal", jwal.WalManager if writer == "jax" else WalManager)
+    src.create_collection("h", m.IndexType.HNSW, m.SimilarityMetric.COSINE)
+    churn(src, "h", np.random.default_rng(5))
+    src.add_texts_to_collection("h", ["after the compaction", "and one more"])
+    want, hits = state(src, "h"), hnsw_searches(src, "h")
+    if writer == "jax":
+        dst = port_client()
+        assert recover_into(dst, tmp_path / "wal") == {"h": 11}
+    else:
+        dst = jax_client()
+        jwal.recover_into(dst, tmp_path / "wal")
+    assert dst.get_collection("h")._index.index_type == "HNSW"
+    assert state(dst, "h") == want
+    assert hnsw_searches(dst, "h") == hits
+    for client in (src, dst):
+        client.get_collection("h").close()
+
+
+def test_hnsw_snapshot_restores(tmp_path):
+    """A JAX autosave snapshot of an HNSW collection restores in the
+    port on the device it is given, with its graph."""
     j = jax_client()
-    with_wal(j, tmp_path / "wal", jwal.WalManager)
-    j.create_collection("h", jv.IndexType.HNSW, jv.SimilarityMetric.COSINE)
-    j.add_texts_to_collection("h", ["a", "b"])
-    with pytest.raises(HNSWNotPorted, match="write-ahead logs"):
-        recover_into(port_client(), tmp_path / "wal")
-    # and its snapshot the same way
+    j.create_collection("h", jv.IndexType.HNSW, jv.SimilarityMetric.DOT_PRODUCT)
+    j.add_texts_to_collection("h", [f"doc {i}" for i in range(40)])
     jautosave.AutosaveDaemon(j, tmp_path / "snaps").flush()
-    with pytest.raises(HNSWNotPorted):
-        restore_into(port_client(), tmp_path / "snaps", device="cpu")
+    t = port_client()
+    assert restore_into(t, tmp_path / "snaps", device="cpu") == ["h"]
+    index = t.get_collection("h")._index
+    assert index.device.type == "cpu"
+    want = j.get_collection("h")._index.graph_arrays()
+    got = index.graph_arrays()
+    assert (got[1] == want[1]).all() and got[2] == want[2]
+    assert state(t, "h") == state(j, "h")
+    assert hnsw_searches(t, "h") == hnsw_searches(j, "h")
     j.get_collection("h").close()
 
 

@@ -15,7 +15,9 @@ rows. Around them: the collection surface (search coalescing, bulk
 mutations, listing, BM25 hybrid search), persistence (``.vlc`` files,
 the write-ahead log, autosave) and the HTTP serving surface on the
 standard library (``api.server``, ``cli``, ``remote.RemoteClient``,
-``tools``). See ROADMAP.md for what is still to come. Entry points run
+``tools``); the HNSW index (native host build and search, the device
+beam, the bulk build on K1's wide mode) and the MiniLM embedder on the
+card. See ROADMAP.md for what is still to come. Entry points run
 on the CUDA card unless given ``device="cpu"`` (``--device cpu``).
 """
 
@@ -29,6 +31,7 @@ from .core.metrics import (
 )
 from .errors import InvalidFilter, VectorLiteError
 from .index.flat import FlatIndex
+from .index.hnsw import HNSWIndex
 from .embed.base import EmbeddingFunction
 from .embed.mock import ConstantEmbeddingFunction, MockEmbeddingFunction
 from .store.client import IndexType, Settings, VectorLiteClient
@@ -39,7 +42,12 @@ __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    # the HTTP client loads on first use (urllib), as in the JAX package
+    # the HTTP client and the embedder load on first use, as in the JAX
+    # package
+    if name in ("MiniLMEmbedder", "EmbeddingGenerator"):
+        from .embed.minilm import MiniLMEmbedder
+
+        return MiniLMEmbedder
     if name in ("RemoteClient", "RemoteError", "RemoteConnectionError"):
         from . import remote
 
@@ -59,6 +67,7 @@ __all__ = [
     "VectorLiteError",
     "InvalidFilter",
     "FlatIndex",
+    "HNSWIndex",
     "EmbeddingFunction",
     "MockEmbeddingFunction",
     "ConstantEmbeddingFunction",
@@ -68,6 +77,8 @@ __all__ = [
     "IndexType",
     "Settings",
     "VectorLiteConfig",
+    "MiniLMEmbedder",
+    "EmbeddingGenerator",
     "RemoteClient",
     "RemoteError",
     "RemoteConnectionError",

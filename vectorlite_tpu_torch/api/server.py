@@ -16,8 +16,8 @@ the **write** lock (reference: src/server.rs:212, 235, 336). Each
 connection's thread runs its handler directly under that lock; there is
 no event loop to keep free.
 
-HNSW is not ported: a create with ``index_type: "hnsw"`` answers with
-``HNSWNotPorted``'s message and status, never a Flat collection.
+``index_type: "hnsw"`` creates an HNSW collection (an explicit ``metric``
+is required); a search's ``ef`` reaches its beam.
 """
 
 from __future__ import annotations

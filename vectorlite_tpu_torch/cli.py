@@ -9,11 +9,10 @@ The server runs on the CUDA card; ``--device cpu`` asks for the CPU (the
 tests do). Without a card and without ``--device``, it fails with
 ``config.resolve_device``'s error and never falls back to the CPU.
 
-The MiniLM encoder is not ported yet (ROADMAP.md). ``--mock-embeddings``
-serves the deterministic mock; without it, where no model files exist the
-CLI falls back to the mock with the JAX CLI's warning, as the JAX package
-does when its files are missing, and where model files exist it refuses to
-start rather than serve the mock in their place.
+The embedder is the MiniLM encoder loaded from ``--model-path`` on the
+server's device (``embed/minilm.py``; the encoder never falls back to the
+CPU). Where the model files are missing the CLI serves the deterministic
+mock with the JAX CLI's warning; ``--mock-embeddings`` asks for the mock.
 """
 
 from __future__ import annotations
@@ -22,34 +21,24 @@ import argparse
 import logging
 import os
 import sys
-from pathlib import Path
 
 logger = logging.getLogger("vectorlite_tpu_torch.cli")
 
-DEFAULT_MODEL_PATH = "./models/all-MiniLM-L6-v2"
-_MODEL_FILES = ("tokenizer.json", "config.json", "model.safetensors", "pytorch_model.bin")
 
-
-def build_embedder(model_path: str | None, mock: bool):
+def build_embedder(model_path: str | None, mock: bool, device=None):
+    """The MiniLM encoder of ``model_path`` on ``device`` (None: the CUDA
+    card); the mock where ``mock`` is set or the model files are missing
+    (with the JAX CLI's warning). Any other loading error raises."""
+    from .embed.minilm import MiniLMEmbedder, ModelFilesMissing
     from .embed.mock import MockEmbeddingFunction
 
     if mock:
         return MockEmbeddingFunction()
-    model_dir = Path(model_path or DEFAULT_MODEL_PATH)
-    found = [name for name in _MODEL_FILES if (model_dir / name).exists()]
-    if found:
-        raise RuntimeError(
-            f"model files found in {model_dir} ({', '.join(found)}), but the MiniLM "
-            "embedder is not ported to vectorlite_tpu_torch yet (ROADMAP.md); pass "
-            "--mock-embeddings to serve the deterministic mock embedder"
-        )
-    # the JAX CLI's fallback where its tokenizer file is missing
-    logger.warning(
-        "Could not load embedding model (Tokenizer file not found: %s. Please ensure "
-        "the model is properly downloaded.); using mock embedder",
-        model_dir / "tokenizer.json",
-    )
-    return MockEmbeddingFunction()
+    try:
+        return MiniLMEmbedder.from_pretrained(model_path, device=device)
+    except ModelFilesMissing as e:
+        logger.warning("Could not load embedding model (%s); using mock embedder", e)
+        return MockEmbeddingFunction()
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -131,7 +120,7 @@ def main(argv: list[str] | None = None) -> int:
     device = resolve_device(args.device)
     logger.info("Device: %s", device)
     client = VectorLiteClient(
-        build_embedder(args.model_path, args.mock_embeddings), device=device
+        build_embedder(args.model_path, args.mock_embeddings, device), device=device
     )
 
     if args.filepath:

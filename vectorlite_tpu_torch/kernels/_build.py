@@ -9,6 +9,15 @@ an edited source or header builds anew, an unchanged one loads the library
 already built. ``build_all`` starts one compiler per source,
 all at once. Nothing here runs at import time.
 
+One host source differs: ``hnsw_builder.cpp`` keeps the JAX package's
+flags, ``-march=native`` (its AVX-512 / AVX2 distance loops; without it
+they are scalar) and ``-pthread`` (its build and search thread pools), and
+its key also holds the host's vector-ISA fingerprint, so a checkout moved
+to a host without those extensions builds anew instead of loading a
+library that would fault. ``tsan_harness.cpp`` is a program, not a
+library (tests build it with ``-fsanitize=thread``), and is not built
+here.
+
 ``Kernel`` is one C entry of a CUDA library with the count of its
 launches; every ``Kernel`` made registers itself in ``KERNELS``, the one
 list of the package's kernels across all sources.
@@ -37,6 +46,12 @@ NVCC_FLAGS = (
 GXX_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-fPIC", "-funroll-loops", "-fopenmp-simd",
 )
+#: the host source built for this host's vector ISA, and its extra flags
+#: (see the module docstring)
+NATIVE_ISA_SOURCE = "hnsw_builder"
+NATIVE_ISA_FLAGS = ("-march=native", "-pthread")
+#: the source under csrc/ that is a program, not a library
+PROGRAM = "tsan_harness"
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -45,8 +60,9 @@ build_logs: dict[str, str] = {}
 
 
 def sources() -> list[str]:
-    """Names of every native source under csrc/ (CUDA and host)."""
-    return sorted(p.stem for p in (*CSRC.glob("*.cu"), *CSRC.glob("*.cpp")))
+    """Names of every native library source under csrc/ (CUDA and host)."""
+    return sorted(p.stem for p in (*CSRC.glob("*.cu"), *CSRC.glob("*.cpp"))
+                  if p.stem != PROGRAM)
 
 
 def _nvcc() -> str:
@@ -77,20 +93,46 @@ def _source(name: str) -> Path:
     return cu if cu.exists() else CSRC / f"{name}.cpp"
 
 
-def _command(src: Path) -> list[str]:
-    if src.suffix == ".cu":
-        return [_nvcc(), *NVCC_FLAGS]
-    return [_gxx(), *GXX_FLAGS]
+def _flags(name: str) -> tuple:
+    if _source(name).suffix == ".cu":
+        return NVCC_FLAGS
+    return GXX_FLAGS + (NATIVE_ISA_FLAGS if name == NATIVE_ISA_SOURCE else ())
+
+
+def isa_fingerprint() -> str:
+    """The host's vector-ISA flags that ``-march=native`` code may use, as
+    the JAX package's native loader stamps them."""
+    import platform
+    import re
+
+    try:
+        text = Path("/proc/cpuinfo").read_text()
+        m = re.search(r"^flags\s*:\s*(.*)$", text, re.M)
+        if m:
+            relevant = {"sse4_2", "avx", "avx2", "fma", "avx512f"}
+            flags = sorted(set(m.group(1).split()) & relevant)
+            if flags:
+                return platform.machine() + ":" + "-".join(flags)
+    except OSError:
+        pass
+    return platform.machine()
+
+
+def _command(name: str) -> list[str]:
+    if _source(name).suffix == ".cu":
+        return [_nvcc(), *_flags(name)]
+    return [_gxx(), *_flags(name)]
 
 
 def _target(name: str) -> Path:
     src = _source(name)
-    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
     digest = hashlib.sha256(src.read_bytes())
     if src.suffix == ".cu":
         for header in sorted(CSRC.glob("*.cuh")):
             digest.update(header.read_bytes())
-    digest.update(" ".join(flags).encode())
+    digest.update(" ".join(_flags(name)).encode())
+    if name == NATIVE_ISA_SOURCE:
+        digest.update(isa_fingerprint().encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -104,7 +146,7 @@ def _start(name: str):
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     src = _source(name)
     proc = subprocess.Popen(
-        [*_command(src), "-o", str(tmp), str(src)],
+        [*_command(name), "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT,
         text=True,

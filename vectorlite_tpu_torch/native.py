@@ -1,14 +1,16 @@
-"""Host code in native libraries: the f64 re-score and the .vlc codec.
+"""Host code in native libraries: the f64 re-score, the .vlc codec and
+the HNSW graph builder.
 
 Bindings of ``csrc/host_rescore.cpp`` (the port's copy of the JAX
-package's ``flat_rescore_f64``) and ``csrc/vlc_emit.cpp`` (its copy of
-``native/vlc_emit.cpp``), each built with ``g++`` at first use by
+package's ``flat_rescore_f64``), ``csrc/vlc_emit.cpp`` (its copy of
+``native/vlc_emit.cpp``) and ``csrc/hnsw_builder.cpp`` (its copy of
+``native/hnsw_builder.cpp``), each built with ``g++`` at first use by
 ``kernels/_build.py`` and loaded with ctypes. Each keeps a Python twin
 that serves when ``VECTORLITE_NO_NATIVE=1`` or when the library fails to
 build (a warning says so once): ``FlatIndex._exact_rescore``'s numpy
-re-score and ``persist/vlc.py``'s Python emitter and ``json`` parser.
-``RESCORE.calls`` and ``VLC.calls`` count the calls the native code
-served.
+re-score, ``persist/vlc.py``'s Python emitter and ``json`` parser, and
+``HNSWIndex``'s Python graph build and search. ``RESCORE.calls`` and
+``VLC.calls`` count the calls the native code served.
 """
 
 from __future__ import annotations
@@ -110,8 +112,7 @@ _P = ctypes.POINTER
 
 def _bind_vlc(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Signatures of the codec's C entries, as the JAX package's
-    ``_bind_vlc`` declares them; ``vlc_emit_keyed_arrays`` renders only
-    HNSW payloads and stays unbound."""
+    ``_bind_vlc`` declares them."""
     c = ctypes
     lib.vlc_fmt_f64.restype = c.c_int32
     lib.vlc_fmt_f64.argtypes = [c.c_double, c.c_char_p]
@@ -138,6 +139,18 @@ def _bind_vlc(lib: ctypes.CDLL) -> ctypes.CDLL:
         c.c_char_p,  # out
         c.c_int64,  # out_cap
     ]
+    lib.vlc_emit_keyed_arrays.restype = c.c_int64
+    lib.vlc_emit_keyed_arrays.argtypes = [
+        c.c_char_p,  # keys (raw utf-8, concatenated)
+        _P(c.c_int64),  # key_offs [n+1]
+        _P(c.c_double),  # vals (concatenated)
+        _P(c.c_int64),  # lens [n]
+        c.c_int64,  # n
+        c.c_int32,  # elem_indent
+        c.c_int32,  # last_no_comma
+        c.c_char_p,  # out
+        c.c_int64,  # out_cap
+    ]
     lib.vlc_parse_doc.restype = c.c_int32
     lib.vlc_parse_doc.argtypes = [
         c.c_char_p,  # doc
@@ -156,11 +169,11 @@ def _bind_vlc(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-class NativeVLC:
-    """The compiled ``.vlc`` codec and the count of the calls it served."""
+class NativeLibrary:
+    """One host library of ``csrc/``, built and bound at first use."""
 
-    def __init__(self):
-        self.calls = 0
+    def __init__(self, name: str, bind, what: str):
+        self._name, self._bind, self._what = name, bind, what
         self._lib = None
         self._failed = False
         self._lock = threading.Lock()
@@ -173,13 +186,19 @@ class NativeVLC:
         with self._lock:
             if self._lib is None and not self._failed:
                 try:
-                    self._lib = _bind_vlc(_build.load("vlc_emit"))
+                    self._lib = self._bind(_build.load(self._name))
                 except (RuntimeError, OSError) as exc:
                     self._failed = True
-                    logger.warning(
-                        "native .vlc codec unavailable, Python serves: %s", exc
-                    )
+                    logger.warning("%s unavailable, Python serves: %s", self._what, exc)
             return self._lib
+
+
+class NativeVLC(NativeLibrary):
+    """The compiled ``.vlc`` codec and the count of the calls it served."""
+
+    def __init__(self):
+        super().__init__("vlc_emit", _bind_vlc, "native .vlc codec")
+        self.calls = 0
 
     def call(self, symbol: str, *args):
         """Call one C entry of the codec (``library()`` must have given a
@@ -191,3 +210,59 @@ class NativeVLC:
 
 
 VLC = NativeVLC()
+
+
+def _bind_hnsw(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Signatures of the builder's C entries, as the JAX package's
+    ``native._bind`` declares them."""
+    c = ctypes
+    lib.hnsw_new.restype = c.c_void_p
+    lib.hnsw_new.argtypes = [c.c_int32] * 5 + [c.c_uint64]
+    lib.hnsw_free.argtypes = [c.c_void_p]
+    lib.hnsw_bind.argtypes = [
+        c.c_void_p, _P(c.c_float), _P(c.c_float), _P(c.c_float),
+        _P(c.c_int32), _P(c.c_int32), c.c_int64,
+    ]
+    lib.hnsw_insert_batch.argtypes = [c.c_void_p, c.c_int64, c.c_int64]
+    lib.hnsw_insert_batch_parallel.argtypes = [c.c_void_p, c.c_int64, c.c_int64, c.c_int32]
+    lib.hnsw_search_batch.argtypes = [
+        c.c_void_p, _P(c.c_float), c.c_int64, c.c_int32,
+        _P(c.c_int32), _P(c.c_float), _P(c.c_int32), c.c_int32,
+    ]
+    lib.hnsw_insert_leveled.argtypes = [c.c_void_p, c.c_int64, c.c_int32]
+    lib.hnsw_set_keep_pruned.argtypes = [c.c_void_p, c.c_int32]
+    lib.hnsw_draw_levels.argtypes = [c.c_void_p, c.c_int64, _P(c.c_int32)]
+    lib.hnsw_bulk_link_heuristic_l0.argtypes = [
+        c.c_void_p, _P(c.c_int64), c.c_int64, c.c_int32,
+        _P(c.c_int32), _P(c.c_float),
+        c.c_int32,  # worker threads (1 = single-threaded)
+    ]
+    lib.hnsw_refine_l0.argtypes = [c.c_void_p, c.c_int32, c.c_int32]
+    lib.hnsw_entry.restype = c.c_int64
+    lib.hnsw_entry.argtypes = [c.c_void_p]
+    lib.hnsw_top_level.restype = c.c_int32
+    lib.hnsw_top_level.argtypes = [c.c_void_p]
+    lib.hnsw_num_nodes.restype = c.c_int64
+    lib.hnsw_num_nodes.argtypes = [c.c_void_p]
+    lib.hnsw_num_upper_levels.restype = c.c_int32
+    lib.hnsw_num_upper_levels.argtypes = [c.c_void_p]
+    lib.hnsw_get_upper.argtypes = [c.c_void_p, c.c_int32, _P(c.c_int32), c.c_int64]
+    lib.hnsw_descend.restype = c.c_int64
+    lib.hnsw_descend.argtypes = [c.c_void_p, _P(c.c_float)]
+    lib.hnsw_descend_batch.argtypes = [c.c_void_p, _P(c.c_float), c.c_int64, _P(c.c_int64)]
+    lib.hnsw_search.restype = c.c_int32
+    lib.hnsw_search.argtypes = [
+        c.c_void_p, _P(c.c_float), c.c_int32, _P(c.c_int32), _P(c.c_float),
+    ]
+    lib.hnsw_restore.argtypes = [
+        c.c_void_p, c.c_int64, c.c_int64, c.c_int32, c.c_int32, _P(c.c_int32),
+    ]
+    lib.hnsw_drain_dirty.restype = c.c_int64
+    lib.hnsw_drain_dirty.argtypes = [c.c_void_p, _P(c.c_int32), c.c_int64]
+    lib.hnsw_dirty_count.restype = c.c_int64
+    lib.hnsw_dirty_count.argtypes = [c.c_void_p]
+    return lib
+
+
+#: the HNSW builder (``csrc/hnsw_builder.cpp``)
+HNSW = NativeLibrary("hnsw_builder", _bind_hnsw, "native hnsw builder")

@@ -10,11 +10,13 @@ externally tagged: ``{"Flat": {...}}`` or ``{"HNSW": {...}}``
 Loading validates ``version == "1.0.0"`` and
 ``format == "vectorlite-collection"`` (reference: src/persistence.rs:160-174)
 and recomputes next_id as max_id + 1 (reference: src/client.rs:295-308).
+HNSW graphs load from the graph dump the JAX package writes beside the
+reference payload, or are rebuilt by re-inserting every stored vector
+(reference: src/index/hnsw.rs:272-360).
 
-Port of ``vectorlite_tpu/persist/vlc.py`` for Flat payloads: the same
-bytes on save, through the native codec (``csrc/vlc_emit.cpp``, bound as
-``native.VLC``) or its Python twin. An ``"HNSW"`` payload raises
-HNSWNotPorted until HNSW is ported.
+Port of ``vectorlite_tpu/persist/vlc.py``: the same bytes on save, Flat
+and HNSW, through the native codec (``csrc/vlc_emit.cpp``, bound as
+``native.VLC``) or its Python twin.
 """
 
 from __future__ import annotations
@@ -29,13 +31,13 @@ import numpy as _np
 
 from ..errors import (
     FileNotFound,
-    HNSWNotPorted,
     InvalidFormat,
     SerializationError,
     VectorLiteError,
     VersionMismatch,
 )
 from ..index.flat import FlatIndex, FlatRowsView
+from ..index.hnsw import HNSWIndex
 from ..native import VLC
 from ..store.collection import Collection
 
@@ -300,6 +302,81 @@ def _emit_vector_rows(rows, indent: int, out: list) -> bool:
     return True
 
 
+def _emit_keyed_arrays(obj: dict, indent: int, out: list) -> bool:
+    """Bulk fast path for the HNSW ``vector_values`` map: a dict whose
+    values are all 1-D float ndarrays (reference serde shape:
+    src/index/hnsw.rs:197-213) renders through
+    native ``vlc_emit_keyed_arrays`` in chunks. Same contract as
+    ``_emit_vector_rows``: byte-identical or declines untouched."""
+    import ctypes
+
+    if len(obj) < 64:
+        return False
+    lib = VLC.library()
+    if lib is None:
+        return False
+    for k, v in obj.items():
+        if type(k) is not str:
+            return False
+        if not (
+            isinstance(v, _np.ndarray)
+            and v.ndim == 1
+            and _np.issubdtype(v.dtype, _np.floating)
+        ):
+            return False
+    items = list(obj.items())
+    try:
+        all_keys = [k.encode("utf-8") for k, _ in items]
+    except UnicodeEncodeError:
+        return False
+    ei = indent + 1
+    pad_v = 2 * ei + 2
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    out.append("{\n")
+    n = len(items)
+    avg_d = max(1, sum(int(v.shape[0]) for _, v in items) // n)
+    chunk_rows = max(64, _EMIT_CHUNK // avg_d)
+    for start in range(0, n, chunk_rows):
+        chunk = items[start : start + chunk_rows]
+        cn = len(chunk)
+        last = start + chunk_rows >= n
+        key_parts = all_keys[start : start + chunk_rows]
+        lens = _np.fromiter(
+            (int(v.shape[0]) for _, v in chunk), dtype=_np.int64, count=cn
+        )
+        vals = _np.concatenate(
+            [_np.ascontiguousarray(v, dtype=_np.float64) for _, v in chunk]
+        ) if int(lens.sum()) else _np.empty(0, dtype=_np.float64)
+        key_offs = _np.zeros(cn + 1, dtype=_np.int64)
+        _np.cumsum([len(k) for k in key_parts], out=key_offs[1:])
+        cap = (
+            cn * (2 * pad_v + 32)
+            + int(lens.sum()) * (pad_v + 26)
+            + 6 * int(key_offs[-1])
+            + 16
+        )
+        buf = _emit_scratch(cap)
+        ln = VLC.call(
+            "vlc_emit_keyed_arrays",
+            b"".join(key_parts),
+            key_offs.ctypes.data_as(i64p),
+            vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            lens.ctypes.data_as(i64p),
+            cn,
+            ei,
+            1 if last else 0,
+            buf,
+            cap,
+        )
+        if ln < 0:
+            raise SerializationError("native vlc keyed emitter overflow")
+        out.append(
+            ctypes.string_at(ctypes.addressof(buf), ln).decode("utf-8")
+        )
+    out.append("  " * indent + "}")
+    return True
+
+
 def _emit(obj, indent: int, out: list) -> None:
     pad = "  " * indent
     pad_in = "  " * (indent + 1)
@@ -318,6 +395,8 @@ def _emit(obj, indent: int, out: list) -> None:
     elif isinstance(obj, dict):
         if not obj:
             out.append("{}")
+            return
+        if _emit_keyed_arrays(obj, indent, out):
             return
         out.append("{\n")
         for i, (k, v) in enumerate(obj.items()):
@@ -461,7 +540,11 @@ def _index_from_payload(index_obj: dict, **index_kwargs):
     if "Flat" in index_obj:
         index = FlatIndex.index_from_json(index_obj["Flat"], **index_kwargs)
     elif "HNSW" in index_obj:
-        raise HNSWNotPorted(".vlc payloads")
+        # an HNSW index takes only the device of the Flat kwargs
+        device = index_kwargs.get("device")
+        index = HNSWIndex.index_from_json(
+            index_obj["HNSW"], **({} if device is None else {"device": device})
+        )
     else:
         raise InvalidFormat(f"Unknown index payload: {list(index_obj)}")
     return index

@@ -25,8 +25,7 @@ Design notes:
 * **Deleted collections prune their snapshot** (restore would otherwise
   resurrect them). Only files this daemon's encoding owns are touched.
 
-Port of ``vectorlite_tpu/store/autosave.py``. Restoring an HNSW snapshot
-raises HNSWNotPorted rather than skipping it as unreadable.
+Port of ``vectorlite_tpu/store/autosave.py``.
 """
 
 from __future__ import annotations
@@ -211,7 +210,6 @@ def restore_into(client, directory, **index_kwargs) -> list[str]:
     corrupt snapshot must not block the rest of the restore. Collections
     already registered (e.g. via ``--filepath``) win over snapshots.
     """
-    from ..errors import HNSWNotPorted
     from ..persist.vlc import load_collection_from_file
 
     directory = Path(directory)
@@ -226,8 +224,6 @@ def restore_into(client, directory, **index_kwargs) -> list[str]:
             continue
         try:
             collection = load_collection_from_file(p, **index_kwargs)
-        except HNSWNotPorted:
-            raise
         except Exception:  # noqa: BLE001
             logger.exception("Skipping unreadable autosave %s", p)
             continue

@@ -2,11 +2,11 @@
 
 Mirrors the reference ``VectorLiteClient`` (reference: src/client.rs:65-192):
 a map of named collections plus a shared embedding function. Collection
-dimension always comes from the embedder (reference: src/client.rs:88).
+dimension always comes from the embedder (reference: src/client.rs:88);
+HNSW creation requires an explicit metric (reference: src/client.rs:96).
 
-Flat collections only so far: HNSW comes with its own port, and one CUDA
-device serves every collection until the multi-device port. A collection
-observer (``set_collection_observer``, e.g. ``store.wal.WalManager``) hears
+One CUDA device serves every collection until the multi-device port. A
+collection observer (``set_collection_observer``, e.g. ``store.wal.WalManager``) hears
 of every registration and deletion.
 """
 
@@ -24,10 +24,11 @@ from ..embed.base import EmbeddingFunction
 from ..errors import (
     CollectionAlreadyExists,
     CollectionNotFound,
-    HNSWNotPorted,
     InvalidIndexType,
+    MetricRequired,
 )
 from ..index.flat import FlatIndex
+from ..index.hnsw import HNSWIndex
 from .collection import Collection, CollectionInfo
 
 
@@ -99,6 +100,18 @@ class VectorLiteClient:
             )
         return {"device_dtype": self._config.device_dtype, "device": self._device}
 
+    def hnsw_index_kwargs(self) -> dict:
+        """Construction kwargs for HNSW indexes: the profile's graph
+        degrees and beam widths, and the device."""
+        cfg = self._config
+        return {
+            "m": cfg.hnsw_m,
+            "m0": cfg.hnsw_m0,
+            "ef_construction": cfg.hnsw_ef_construction,
+            "ef_search": cfg.hnsw_ef_search,
+            "device": self._device,
+        }
+
     @property
     def embedding_function(self) -> EmbeddingFunction:
         return self._embedding_function
@@ -113,11 +126,15 @@ class VectorLiteClient:
             index_type = IndexType.parse(index_type)
         if name in self._collections:
             raise CollectionAlreadyExists(name)
-        if index_type is not IndexType.FLAT:
-            raise HNSWNotPorted()
-        index = FlatIndex(
-            self._embedding_function.dimension, **self.flat_index_kwargs()
-        )
+        dimension = self._embedding_function.dimension
+        if index_type is IndexType.FLAT:
+            index = FlatIndex(dimension, **self.flat_index_kwargs())
+        else:
+            if metric is None:
+                # no default: force explicit choice (reference: src/client.rs:96)
+                raise MetricRequired()
+            self.flat_index_kwargs()  # a mesh is refused for HNSW too
+            index = HNSWIndex(dimension, metric, **self.hnsw_index_kwargs())
         self._collections[name] = collection = Collection(name, index)
         if self._observer is not None:
             self._observer.collection_registered(collection)
@@ -196,8 +213,9 @@ class VectorLiteClient:
         ef: Optional[int] = None,
         min_score: Optional[float] = None,
     ) -> list[list[SearchResult]]:
-        """Batched search by raw query vectors (extension). Flat defaults
-        to cosine (reference: src/client.rs:143-155)."""
+        """Batched search by raw query vectors (extension). Metric
+        auto-detect: HNSW -> its metric, Flat -> cosine (reference:
+        src/client.rs:143-155)."""
         collection = self._require(collection_name)
         metric = similarity_metric or collection.detected_metric()
         return collection.search_vectors(

@@ -10,7 +10,7 @@ Mirrors the reference ``Collection`` (reference: src/client.rs:243-497):
 * next_id recovered as max_id + 1 when constructed from a loaded index
   (reference: src/client.rs:295-308).
 
-Port of ``vectorlite_tpu/store/collection.py`` for Flat indexes: adds
+Port of ``vectorlite_tpu/store/collection.py`` for Flat and HNSW indexes: adds
 (texts and raw vectors), searches (text, raw vectors, coalesced single
 texts, BM25 hybrid), deletes (by id and by filter), updates, listing,
 gets, compaction and ``.vlc`` save/load. Every mutation bumps the
@@ -250,6 +250,15 @@ class Collection:
             return rows
         return [r for r in rows if r.score >= min_score]
 
+    def _search_kwargs(self, where, ef) -> dict:
+        """Per-request search options. ``ef`` (beam width) only applies
+        to HNSW: an exact Flat scan meets any recall it asks for, so it
+        is accepted and ignored there."""
+        kwargs: dict = {"where": where}
+        if ef is not None and getattr(self._index, "ef_search", None) is not None:
+            kwargs["ef"] = int(ef)
+        return kwargs
+
     def search_vectors(
         self,
         queries,
@@ -261,12 +270,12 @@ class Collection:
     ) -> list[list[SearchResult]]:
         """Search by RAW query vectors, batched (extension; the reference
         exposes ``VectorIndex::search`` only at the library level,
-        reference: src/lib.rs:293-298). ``ef`` is an HNSW beam width: an
-        exact Flat scan meets any recall it asks for, so it is accepted
-        and ignored."""
+        reference: src/lib.rs:293-298)."""
         queries = _as_matrix(queries, self._index.dimension, "queries")
         with self._lock.read(), profile_span("vectorlite.index.search_batch"):
-            rows = self._index.search_batch(queries, k, metric, where=where)
+            rows = self._index.search_batch(
+                queries, k, metric, **self._search_kwargs(where, ef)
+            )
         return [self._apply_min_score(row, min_score) for row in rows]
 
     def search_text(
@@ -301,7 +310,9 @@ class Collection:
         # embed outside the lock (reference: src/client.rs:393-401)
         query = _run_embed(embedding_function, query_text)
         with self._lock.read(), profile_span("vectorlite.index.search"):
-            results = self._index.search(query, k, metric, where=where)
+            results = self._index.search(
+                query, k, metric, **self._search_kwargs(where, ef)
+            )
         return self._apply_min_score(results, min_score)
 
     # ------------------------------------------------------ hybrid search
@@ -466,7 +477,9 @@ class Collection:
         with profile_span("vectorlite.embed.batch"):
             queries = _embed_arrays(embedding_function, list(query_texts))
         with self._lock.read(), profile_span("vectorlite.index.search_batch"):
-            rows = self._index.search_batch(queries, k, metric, where=where)
+            rows = self._index.search_batch(
+                queries, k, metric, **self._search_kwargs(where, ef)
+            )
         return [self._apply_min_score(row, min_score) for row in rows]
 
     def delete(self, id: int) -> None:
@@ -587,15 +600,15 @@ class Collection:
         return _IndexReadGuard(self._lock, self._index)
 
     def detected_metric(self) -> SimilarityMetric:
-        """Metric auto-detect: Flat -> Cosine default
+        """Metric auto-detect: HNSW -> its metric, Flat -> Cosine default
         (reference: src/client.rs:143-155)."""
         with self._lock.read():
             m = self._index.metric()
         return m if m is not None else SimilarityMetric.COSINE
 
     def compact(self) -> int:
-        """Reclaim tombstoned slots under the write lock. Returns the
-        number of slots reclaimed."""
+        """Reclaim tombstoned nodes (HNSW rebuild / Flat slot compaction)
+        under the write lock. Returns the number of slots reclaimed."""
         pre = self._wal_render({"op": "compact"})
         with self._lock.write():
             reclaimed = int(self._index.compact())
@@ -612,7 +625,8 @@ class Collection:
     def load_from_file(cls, path, **index_kwargs) -> "Collection":
         """Load a ``.vlc`` file; ``index_kwargs`` (``device``,
         ``device_dtype``: a client's ``flat_index_kwargs()``) go to the
-        Flat index, so the collection serves where the client does."""
+        index (an HNSW index takes the ``device``), so the collection
+        serves where the client does."""
         from ..persist.vlc import load_collection_from_file
 
         return load_collection_from_file(path, **index_kwargs)

@@ -51,9 +51,7 @@ Fsync policy (``VECTORLITE_WAL_FSYNC`` / constructor):
   loss, costs one disk sync per mutation.
 * ``off`` — Python-buffered; flushed on rotate/close only.
 
-Port of ``vectorlite_tpu/store/wal.py`` for Flat collections: a log whose
-``create`` header names an HNSW index raises HNSWNotPorted at recovery
-instead of replaying.
+Port of ``vectorlite_tpu/store/wal.py``, for Flat and HNSW collections.
 """
 
 from __future__ import annotations
@@ -67,7 +65,7 @@ from urllib.parse import quote, unquote
 
 import numpy as np
 
-from ..errors import HNSWNotPorted, VectorNotFound
+from ..errors import VectorNotFound
 
 logger = logging.getLogger("vectorlite_tpu_torch.wal")
 
@@ -385,7 +383,10 @@ def _replay_into(collection, entries: list[dict]) -> int:
                 )
         elif op == "put":
             vid = int(e["id"])
-            collection._index.delete(vid)  # absent ids succeed
+            try:
+                collection._index.delete(vid)
+            except VectorNotFound:
+                pass
             if collection._index.get_vector(vid) is None:
                 values = (
                     unpack_values(e["vals"], 1)[0]
@@ -402,7 +403,10 @@ def _replay_into(collection, entries: list[dict]) -> int:
                 )
             collection._next_id.bump_to(vid + 1)
         elif op == "del":
-            collection._index.delete(int(e["id"]))  # absent ids succeed
+            try:
+                collection._index.delete(int(e["id"]))
+            except VectorNotFound:
+                pass
         elif op == "delw":
             collection._index.delete_where(e["where"])
         elif op == "meta":
@@ -429,7 +433,9 @@ def _collection_from_header(client, entries: list[dict], name: str):
     """Build an empty collection from the log's ``create`` header (the
     collection was created after the last snapshot, or never snapshotted).
     Returns None (with a warning) when no intact header exists."""
+    from ..core.metrics import SimilarityMetric
     from ..index.flat import FlatIndex
+    from ..index.hnsw import HNSWIndex
     from .collection import Collection
 
     header = next((e for e in entries if e.get("op") == "create"), None)
@@ -439,9 +445,12 @@ def _collection_from_header(client, entries: list[dict], name: str):
             name,
         )
         return None
+    dim = int(header["dim"])
     if header.get("index_type") == "HNSW":
-        raise HNSWNotPorted("write-ahead logs")
-    index = FlatIndex(int(header["dim"]), **client.flat_index_kwargs())
+        metric = SimilarityMetric.from_serde(header["metric"])
+        index = HNSWIndex(dim, metric, **client.hnsw_index_kwargs())
+    else:
+        index = FlatIndex(dim, **client.flat_index_kwargs())
     return Collection(name, index)
 
 
@@ -600,8 +609,7 @@ def recover_into(client, directory, snapshot_dir=None) -> dict:
 
     Returns ``{name: ops_applied}``. Unreadable logs are skipped with a
     log line — one corrupt file must not block the rest, mirroring
-    autosave.restore_into. A log of an HNSW collection raises
-    HNSWNotPorted: skipping it would drop acknowledged writes."""
+    autosave.restore_into."""
     from .autosave import snapshot_path
 
     directory = Path(directory)
@@ -642,8 +650,6 @@ def recover_into(client, directory, snapshot_dir=None) -> dict:
                     continue
                 client.add_collection(collection)
             applied = _replay_into(collection, entries)
-        except HNSWNotPorted:
-            raise
         except Exception:  # noqa: BLE001 — keep other collections going
             logger.exception("WAL replay for collection %r failed", name)
             continue

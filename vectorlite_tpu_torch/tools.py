@@ -496,10 +496,9 @@ def fetch_model(
 ) -> Path:
     """Download the embedding model into the reference's on-disk layout
     (``./models/all-MiniLM-L6-v2`` — src/embeddings.rs:190), where
-    the JAX package's ``MiniLMEmbedder.from_pretrained()`` and the
-    real-model test harness (tests/test_real_model.py) find it. This
-    package's CLI refuses to start on those files until its MiniLM
-    embedder is ported, rather than serve the mock in their place.
+    ``MiniLMEmbedder.from_pretrained()`` (this package's and the JAX
+    package's), the CLI and the real-model test harness
+    (tests/test_real_model.py) find it.
 
     Fetches config.json + tokenizer.json + the first available weight
     file (model.safetensors, else pytorch_model.bin) from the Hugging
