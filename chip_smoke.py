@@ -97,6 +97,30 @@ Phases (any failure raises and the exit code is not 0):
    manhattan exact paths must agree with float64 truth on 32 queries
    taken across all four query blocks. The quantized speed path runs
    twice: with the native f64 re-score and with VECTORLITE_NO_NATIVE=1.
+3b. The device mesh (dist/), after the phase-3 collections are freed, on
+   phase 3's rows and queries: cuda:0 repeated 4 times (2^18 rows a shard).
+   (a) FlatIndex(mesh=...) beside a one-card FlatIndex of the same rows,
+   batches of 256 at k 10 and k 100: the default call with the precision
+   guard on (K1 per shard where the guard refuses the speed path), approx=
+   False, a where filter, manhattan (K4); with the guard off, on the rows
+   below the boundary of shards 2 and 3, the speed path (K3 over the bf16
+   scan copy per shard + exact re-score; recall@10 against f64 truth >=
+   0.99, beside one card's), then a burst of 4,096 rows across that
+   boundary (written in place) and a delete either side, each followed by
+   an exact search; the int8 profile (K2). Exact paths hold ids equal
+   beyond 1e-5 near-ties and scores within 1e-5 against one card; every
+   mesh path launches its kernel 4 times a search. (f) search_batch_stream,
+   32 batches of 256 at k 10, depth 2, groups 1 and 4 on one card and group
+   1 on the mesh: every batch equal to its search_batch_arrays, batches/s
+   beside a sequential loop. (e) A one-rank NCCL process group
+   (dist/multihost.py): sharded_search_topk equal to one card's search,
+   then the group destroyed. (b) The pq profile on 4 shards of 2^16 rows
+   (the first 2^18): K5 launches, recall@10 within 0.01 of one card's. (c)
+   sharded_search_ivf on a layout of the rows built by kernels/ivf.py (C
+   2,048, 4 cells probed a shard, 64 queries): K6 launches, ids against
+   the same call on gather_score_plain. (d) A 2^16-row HNSW index on the
+   mesh: the device beam of 256 queries equal to the same graph's
+   one-card beam. p50 of every path; the phase's seconds.
 4. The `pq` profile through the SDK, after the phase-3 collections are
    freed: the same rows and queries in a `pq`-profile collection (training
    and encoding on the card), batches of 256, k=10: the default call
@@ -1447,6 +1471,290 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     if q_ok < 0.99:
         raise AssertionError(f"quantized exact recall {q_ok} < 0.99")
     return launches, exact_ids
+
+
+# ---------------------------------------------------------------- phase 3b
+
+P3B_SHARDS = 4  # cuda:0 repeated: 2^18 rows a shard at 2^20
+P3B_BATCHES = 3  # timed batches a path, after a warm call
+P3B_BURST = 4096  # rows of the insert burst across a shard boundary
+P3B_PQ_ROWS = 1 << 18
+P3B_IVF_CELLS = 2048  # C, divisible by P3B_SHARDS (~512 rows a cell, P 640)
+P3B_IVF_NPROBE = 4  # cells a shard probes
+P3B_IVF_QUERIES = 64
+P3B_HNSW_ROWS = 1 << 16
+P3B_STREAM_BATCHES = 32
+
+
+def hold_arrays(label, got, want, tol=1e-5) -> None:
+    """(ids, scores) of one path against another's: scores within tol,
+    ids equal except among scores within tol of each other."""
+    gi, gs = got
+    wi, ws = want
+    fin = np.isfinite(ws)
+    close = np.array_equal(np.isfinite(gs), fin) and np.allclose(
+        gs[fin], ws[fin], rtol=tol, atol=tol)
+    bad = ids_match(ws, wi, gs, gi, tol)
+    if not close or bad:
+        raise AssertionError(f"{label}: {bad} id mismatches beyond ties, scores close {close}")
+
+
+def counted(build, fn, calls: int):
+    """Run ``fn`` ``calls`` times (host-clock ms each, to the fetched
+    result); returns (last result, ms, launches per call by kernel)."""
+    before = {kk.symbol: kk.launches for kk in build.KERNELS}
+    times, out = [], None
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    moved = {kk.symbol: (kk.launches - before[kk.symbol]) / calls
+             for kk in build.KERNELS if kk.launches != before[kk.symbol]}
+    return out, np.asarray(times), moved
+
+
+def mesh_path(vl, build, ivf, dev, rows, queries, card: str, seed: int) -> dict:
+    """Phase 3b: the device mesh (cuda:0 repeated P3B_SHARDS times) on
+    phase 3's rows and queries; returns the launches of its counted runs."""
+    import torch.distributed as tdist
+    from vectorlite_tpu_torch.dist import multihost
+    from vectorlite_tpu_torch.dist.sharding import (
+        make_mesh, shard_rows, sharded_search_ivf, sharded_search_topk)
+
+    SM = vl.SimilarityMetric
+    n = len(rows)
+    mesh = make_mesh([dev] * P3B_SHARDS)
+    rng = np.random.default_rng([seed, 3])
+    totals: dict = {}
+
+    def run(label, fn, calls, shards=None):
+        """Warm call, then ``calls`` counted ones; on the mesh every kernel
+        of the path launches once a shard a call."""
+        fn()
+        out, ms, moved = counted(build, fn, calls)
+        for sym, c in moved.items():
+            totals[sym] = totals.get(sym, 0) + int(c * calls)
+        if shards is not None and (not moved or any(c != shards for c in moved.values())):
+            raise AssertionError(f"{label}: launches a call {moved}, not {shards} each")
+        log(f"  {label:58s} p50 {np.percentile(ms, 50):8.3f} ms  launches a call {moved} [{card}]")
+        return out, ms
+
+    def flat(n_rows, on_mesh, profile="auto", metas=None):
+        idx = vl.FlatIndex(D, device=dev, device_dtype=profile, mesh=mesh if on_mesh else None)
+        idx.add_batch_arrays(np.arange(n_rows), rows[:n_rows], metadatas=metas)
+        return idx
+
+    # (a) the guard-on pair on every row: default call, approx=False, a
+    # where filter, manhattan, at k 10 and k 100
+    t0 = time.perf_counter()
+    metas = [{"shard": i % 8} for i in range(n)]
+    os.environ.pop("VECTORLITE_SPEED_GUARD", None)
+    one, sh = flat(n, False, metas=metas), flat(n, True, metas=metas)
+    for idx in (one, sh):
+        idx.search_batch_arrays(queries[:8], K, SM.COSINE)  # device build; the guard decides
+    os.environ["VECTORLITE_SPEED_GUARD"] = "0"
+    del metas
+    log(f"  (a) one card and {P3B_SHARDS} shards of {sh._capacity // P3B_SHARDS} rows built in "
+        f"{time.perf_counter() - t0:.2f} s; guard refuses reduced-precision selection: one card "
+        f"{one._precision_risky}, mesh {sh._precision_risky}")
+    if one._precision_risky != sh._precision_risky:
+        raise AssertionError("the mesh's precision guard disagrees with one card's")
+    paths = (("default call, guard on", {}), ("approx=False", {"approx": False}),
+             ("where-filtered", {"where": {"shard": 3}}),
+             ("manhattan", {"metric": SM.MANHATTAN}))
+    exact10 = None
+    for k in (K, K_WIDE):
+        for name, kw in paths:
+            kw = dict(kw)
+            metric = kw.pop("metric", SM.COSINE)
+            res = {}
+            for tag, idx, shards in (("one card", one, None), ("mesh", sh, P3B_SHARDS)):
+                res[tag], ms = run(f"{name}, k {k}, {tag}",
+                                   lambda idx=idx: idx.search_batch_arrays(queries, k, metric, **kw),
+                                   P3B_BATCHES, shards)
+            hold_arrays(f"{name}, k {k}", res["mesh"], res["one card"])
+            if name == "where-filtered":
+                live = res["mesh"][0][res["mesh"][0] >= 0]
+                if np.any(live % 8 != 3):
+                    raise AssertionError("the mesh's where filter let another shard through")
+            if k == K and name == "approx=False":
+                exact10 = res["one card"]
+
+    # (f) the stream on both
+    qs = [rng.standard_normal((B, D)) for _ in range(P3B_STREAM_BATCHES)]
+    for tag, idx, groups in (("one card", one, (1, 4)), ("mesh", sh, (1,))):
+        t0 = time.perf_counter()
+        ref = [idx.search_batch_arrays(q, K, SM.COSINE) for q in qs]
+        seq = time.perf_counter() - t0
+        for group in groups:
+            t0 = time.perf_counter()
+            got = list(idx.search_batch_stream(iter(qs), K, SM.COSINE, depth=2, group=group))
+            wall = time.perf_counter() - t0
+            for g, r in zip(got, ref):
+                hold_arrays(f"stream {tag} group {group}", g, r)
+            log(f"  (f) stream, {tag}, depth 2, group {group}: {len(qs) / wall:.1f} batches/s, "
+                f"sequential search_batch_arrays {len(qs) / seq:.1f} batches/s "
+                f"({len(qs)} batches of {B}, k {K}) [{card}]")
+
+    # (e) a one-rank NCCL group through dist/multihost.py
+    t0 = time.perf_counter()
+    multihost.init_process_group(dev, rank=0, world_size=1,
+                                 init_method=f"tcp://localhost:{free_port()}")
+    try:
+        gmesh = make_mesh([dev] * P3B_SHARDS, group=tdist.group.WORLD)
+        v = multihost.place_global(gmesh, rows)
+        sq = multihost.place_global(gmesh, np.einsum("nd,nd->n", rows, rows))
+        valid = multihost.place_global(gmesh, np.ones(n, bool))
+        (s, i), _ = run(f"(e) NCCL world 1, sharded_search_topk, k {K}",
+                        lambda: sharded_search_topk(v, sq, valid, queries, metric=SM.COSINE,
+                                                    k=K, mesh=gmesh), 2, P3B_SHARDS)
+        hold_arrays("(e) one-rank NCCL mesh vs one card", (multihost.fetch_replicated(i),
+                    multihost.fetch_replicated(s).astype(np.float64)), exact10)
+        multihost.barrier(gmesh)
+        del v, sq, valid
+    finally:
+        tdist.destroy_process_group()
+    log(f"  (e) process group up, searched and destroyed in {time.perf_counter() - t0:.2f} s")
+    del one, sh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the guard-off pair: the speed path, then a burst across the boundary
+    # of shards 2 and 3 and a delete; the pair holds the rows below it
+    a = (P3B_SHARDS - 1) * (n // P3B_SHARDS) - P3B_BURST // 2
+    one, sh = flat(a, False), flat(a, True)
+    t_s, t_ids = truth_topk(rows[:a], queries, "cosine", dev)
+    for k in (K, K_WIDE):
+        res = {}
+        for tag, idx, shards in (("one card (K3 int8 copy)", one, None),
+                                 ("mesh (K3 bf16 copy)", sh, P3B_SHARDS)):
+            res[tag], _ = run(f"speed path, guard off, k {k}, {tag}",
+                              lambda idx=idx: idx.search_batch_arrays(queries, k, SM.COSINE),
+                              P3B_BATCHES, shards)
+        r1, rm = (recall(res[tag][0][:, :K], t_ids[:, :K]) for tag in res)
+        log(f"    recall@10 against f64 truth ({B} queries): one card {r1:.5f}, mesh {rm:.5f}")
+        if rm < 0.99:
+            raise AssertionError(f"mesh speed path recall {rm} < 0.99")
+    placed = list(sh._dev_values)
+    for idx in (one, sh):
+        idx.add_batch_arrays(np.arange(a, a + P3B_BURST), rows[a : a + P3B_BURST])
+    mid = a + P3B_BURST // 2
+    head = len(queries) // 2
+    q_b = np.concatenate([queries[:head], rows[mid - 64 : mid + 64].astype(np.float64)])
+    for label, approx in (("exact", False), ("speed", None)):
+        got = sh.search_batch_arrays(q_b, K, SM.COSINE, approx=approx)
+        if label == "exact":
+            hold_arrays("burst, exact", got, one.search_batch_arrays(q_b, K, SM.COSINE, approx=False))
+        if list(got[0][head:, 0]) != list(range(mid - 64, mid + 64)):
+            raise AssertionError(f"burst, {label}: the burst rows do not come back first")
+    if sh._capacity != n or any(x is not y for x, y in zip(sh._dev_values, placed)):
+        raise AssertionError("the burst re-placed the mesh's shards")
+    for idx in (one, sh):
+        idx.delete(mid - 1)
+        idx.delete(mid)
+    got = sh.search_batch_arrays(q_b, K, SM.COSINE, approx=False)
+    hold_arrays("delete, exact", got, one.search_batch_arrays(q_b, K, SM.COSINE, approx=False))
+    if np.isin(got[0], [mid - 1, mid]).any():
+        raise AssertionError("a deleted row came back from the mesh")
+    log(f"  burst of {P3B_BURST} rows over the shard boundary at {mid} written in place, a delete "
+        f"either side: searches equal to one card's")
+    del one, sh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the int8 profile: K2 per shard, winners re-scored in f64
+    one, sh = flat(n, False, "int8"), flat(n, True, "int8")
+    for k in (K, K_WIDE):
+        res = {}
+        for tag, idx, shards in (("one card", one, None), ("mesh", sh, P3B_SHARDS)):
+            res[tag], _ = run(f"int8 profile approx=False (K2), k {k}, {tag}",
+                              lambda idx=idx: idx.search_batch_arrays(
+                                  queries, k, SM.COSINE, approx=False),
+                              P3B_BATCHES, shards)
+        hold_arrays(f"int8 profile, k {k}", res["mesh"], res["one card"])
+    del one, sh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the pq profile on 4 shards
+    t_s, t_ids = truth_topk(rows[:P3B_PQ_ROWS], queries, "cosine", dev)
+    one, sh = flat(P3B_PQ_ROWS, False, "pq"), flat(P3B_PQ_ROWS, True, "pq")
+    rec = {}
+    for tag, idx, shards in (("one card", one, None), ("mesh", sh, P3B_SHARDS)):
+        out, _ = run(f"(b) pq profile, {P3B_PQ_ROWS} rows, k {K}, {tag}",
+                     lambda idx=idx: idx.search_batch_arrays(queries, K, SM.COSINE),
+                     P3B_BATCHES, shards)
+        if not idx._pq_active:
+            raise AssertionError(f"(b) the pq rung is not serving on {tag}")
+        rec[tag] = recall(out[0], t_ids[:, :K])
+    log(f"    pq recall@10 against f64 truth: one card {rec['one card']:.5f}, "
+        f"mesh {rec['mesh']:.5f}")
+    if abs(rec["mesh"] - rec["one card"]) > 0.01:
+        raise AssertionError("(b) the mesh's pq recall is not within 0.01 of one card's")
+    del one, sh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) sharded_search_ivf on a layout of these rows
+    t0 = time.perf_counter()
+    c = P3B_IVF_CELLS
+    cents = ivf.train_centroids(rows[rng.choice(n, 1 << 16, replace=False)], c, iters=4,
+                                device=dev)
+    live = np.arange(n)
+    part_slots, extra = ivf.build_layout(ivf.assign_rows(rows, live, cents), live, c)
+    p_width = part_slots.shape[1]
+    ps = part_slots.reshape(-1).astype(np.int32)
+    prows = np.zeros((c * p_width, D), np.float32)
+    prows[ps >= 0] = rows[ps[ps >= 0]]
+    cents_np = cents.cpu().numpy()
+    layout = [shard_rows(mesh, prows, torch.bfloat16), shard_rows(mesh, ps),
+              shard_rows(mesh, np.einsum("nd,nd->n", prows, prows)), shard_rows(mesh, ps >= 0),
+              shard_rows(mesh, cents_np), shard_rows(mesh, np.einsum("cd,cd->c", cents_np, cents_np)),
+              shard_rows(mesh, rows), shard_rows(mesh, np.ones(n, bool))]
+    del prows
+    log(f"  (c) layout: C {c}, P {p_width}, {len(extra)} extras (the caller's), built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    q_ivf = queries[:P3B_IVF_QUERIES]
+
+    def probe():
+        return sharded_search_ivf(*layout, q_ivf, n, metric=SM.COSINE, k=K, k_sel=128,
+                                  nprobe_per_shard=P3B_IVF_NPROBE, p_width=p_width, mesh=mesh)
+
+    (s_k, i_k), _ = run(f"(c) sharded_search_ivf, B {P3B_IVF_QUERIES}, "
+                        f"{P3B_IVF_NPROBE} cells a shard", probe, P3B_BATCHES, P3B_SHARDS)
+    saved = ivf.gather_score_pallas
+    ivf.gather_score_pallas = ivf.gather_score_plain
+    try:
+        s_p, i_p = probe()
+    finally:
+        ivf.gather_score_pallas = saved
+    hold_arrays("(c) sharded IVF vs its plain twins", (i_k.cpu().numpy(), s_k.cpu().numpy()),
+                (i_p.cpu().numpy(), s_p.cpu().numpy()))
+    del layout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) HNSW on 4 shards: the device beam against one card's on one graph
+    t0 = time.perf_counter()
+    h = vl.HNSWIndex(D, SM.COSINE, mesh=mesh)
+    h.add_batch_arrays(np.arange(P3B_HNSW_ROWS), rows[:P3B_HNSW_ROWS])
+    log(f"  (d) HNSW of {P3B_HNSW_ROWS} rows built in {time.perf_counter() - t0:.2f} s")
+    beam = {}
+    for tag in ("mesh", "one card"):
+        if tag == "one card":
+            h._mesh = None  # the same graph's single-device beam
+        beam[tag], _ = run(f"(d) HNSW device beam, B {B}, ef 64, {tag}",
+                           lambda: h.search_batch(queries, K, SM.COSINE, ef=64, use_device=True),
+                           2)
+    as_arrays = {tag: (ids_of(res), scores_of(res)) for tag, res in beam.items()}
+    hold_arrays("(d) mesh beams vs one card's", as_arrays["mesh"], as_arrays["one card"])
+    log(f"    beams equal: {np.array_equal(as_arrays['mesh'][0], as_arrays['one card'][0])} "
+        f"(ids), max score difference "
+        f"{np.max(np.abs(as_arrays['mesh'][1] - as_arrays['one card'][1])):.3g}")
+    del h
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
 
 
 def pq_path(vl, build, pq, native, dev, rows, queries, exact_ids, card: str,
@@ -3474,24 +3782,31 @@ def main() -> int:
     gc.collect()  # the phase-3 collections go before the pq collection comes
     torch.cuda.empty_cache()
 
+    log(f"[3b] the device mesh: cuda:0 x {P3B_SHARDS} (N={args.rows}, D={D}, B={B}) [{card}]")
+    t0 = time.perf_counter()
+    for sym, c in mesh_path(vl, _build, ivf, dev, rows, queries, card, args.seed).items():
+        launches[sym] = launches.get(sym, 0) + c
+    log(f"  phase 3b {time.perf_counter() - t0:.1f} s; host peak RSS {peak_rss_gb():.2f} GB")
+
     log(f"[4] the pq profile through the SDK (N={args.rows}, D={D}, B={B}, k={K})")
-    launches.update(pq_path(
-        vl, _build, pq, native.RESCORE, dev, rows, queries, exact_ids, card,
-        args.batches, rng))
+    for sym, c in pq_path(vl, _build, pq, native.RESCORE, dev, rows, queries, exact_ids,
+                          card, args.batches, rng).items():
+        launches[sym] = launches.get(sym, 0) + c
     log(f"  host peak RSS after phase 4: {peak_rss_gb():.2f} GB")
     del queries, exact_ids  # phase 7 serves the rows again
     gc.collect()
     torch.cuda.empty_cache()
 
     log(f"[5] the IVF rung through the SDK (N={args.ivf_rows}, D={D}, k={K})")
-    launches["gather_score"] = ivf_path(vl, _build, ivf, native.RESCORE, dev, args, card)
+    launches["gather_score"] = launches.get("gather_score", 0) + ivf_path(
+        vl, _build, ivf, native.RESCORE, dev, args, card)
     gc.collect()
     torch.cuda.empty_cache()
 
     log(f"[6] the merge-engine probe (N={args.rows}, D={D}, B={B}, k={HEADLINE_K})")
     six = headline_path(merge, decompose, scan, _build, vl.SimilarityMetric, dev, args, card)
     for sym in ("scan_merge_topw", "scan_fold_probe", K3_BF16, K3_F32):
-        launches[sym] = six[sym]
+        launches[sym] = launches.get(sym, 0) + six[sym]
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,5 +1,6 @@
 """One phase of chip_smoke.py alone, from the checkout at TREE, on one CUDA
 card: phase 3 (the SDK main path at 2^20 x 384, batches of 256), phase
+3b (the device mesh, cuda:0 repeated, on phase 3's rows and queries), phase
 6 (the merge-engine probe), phase 8 (HTTP on the card, over a guard-on
 collection of 2^20 rows with texts and metadata built here in phase 7's
 place, beside one coalesced SDK serving run of it) or phase 9 (the MiniLM
@@ -8,7 +9,7 @@ lines. Run it in turns from two checkouts (say a `git archive` of a
 parent commit and of its change) to compare their host-side latencies,
 which vary more between runs than device times do.
 
-    python3 scripts/smoke_phase.py TREE [--phase 3|6|8|9] [--skip-load NAME]
+    python3 scripts/smoke_phase.py TREE [--phase 3|3b|6|8|9] [--skip-load NAME]
         [--extra-lib PATH]
 
 --skip-load leaves one native library out of the libraries loaded before
@@ -31,7 +32,7 @@ from types import SimpleNamespace
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tree")
-    ap.add_argument("--phase", type=int, choices=(3, 6, 8, 9), default=3)
+    ap.add_argument("--phase", choices=("3", "3b", "6", "8", "9"), default="3")
     ap.add_argument("--skip-load", default="")
     ap.add_argument("--extra-lib", default="")
     args = ap.parse_args()
@@ -47,7 +48,7 @@ def main() -> int:
     import chip_smoke as cs
     import vectorlite_tpu_torch as vl
     from vectorlite_tpu_torch import native
-    from vectorlite_tpu_torch.kernels import _build, decompose, merge, scan
+    from vectorlite_tpu_torch.kernels import _build, decompose, ivf, merge, scan
 
     _build.build_all(_build.sources())
     for name in _build.sources():
@@ -59,14 +60,21 @@ def main() -> int:
         print("loaded", lib, flush=True)
     card = cs.card_line()
     dev = torch.device("cuda", 0)
-    if args.phase == 3:
+    if args.phase in ("3", "3b"):
         rng = np.random.default_rng(0)
         rows = rng.standard_normal((1 << 20, cs.D), dtype=np.float32)
         queries = rng.standard_normal((cs.B, cs.D), dtype=np.float32).astype(np.float64)
-        cs.main_path(vl, _build, native.RESCORE, dev, rows, queries, card, 20)
-    elif args.phase == 9:
+        if args.phase == "3":
+            cs.main_path(vl, _build, native.RESCORE, dev, rows, queries, card, 20)
+        else:
+            import time
+
+            t0 = time.perf_counter()
+            print(cs.mesh_path(vl, _build, ivf, dev, rows, queries, card, 0), flush=True)
+            print(f"phase 3b {time.perf_counter() - t0:.1f} s", flush=True)
+    elif args.phase == "9":
         cs.text_hnsw_path(vl, _build, dev, card, 0)
-    elif args.phase == 6:
+    elif args.phase == "6":
         cs.headline_path(merge, decompose, scan, _build, vl.SimilarityMetric, dev,
                          SimpleNamespace(rows=1 << 20, seed=0), card)
     else:

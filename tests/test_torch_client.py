@@ -117,11 +117,55 @@ def test_hnsw_collections_match_jax():
     assert [h.score for h in got] == pytest.approx([h.score for h in want], abs=1e-5)
 
 
-def test_mesh_is_refused(monkeypatch):
-    monkeypatch.setenv("VECTORLITE_MESH", "2")
-    t = tv.VectorLiteClient(tv.MockEmbeddingFunction(8), device="cpu")
-    with pytest.raises(ValueError, match="VECTORLITE_MESH"):
+def test_mesh_env_var_wires_through_on_the_cpu(monkeypatch):
+    """VECTORLITE_MESH=8 on the CPU: 8 CPU shards (the counterpart of the
+    JAX client's 8 virtual devices) behind every collection, with the
+    JAX mesh client's results."""
+    monkeypatch.setenv("VECTORLITE_MESH", "8")
+    t = tv.VectorLiteClient(tv.MockEmbeddingFunction(384), device="cpu")
+    j = jv.VectorLiteClient(jv.MockEmbeddingFunction(384))
+    assert t._config.mesh_devices == 8
+    mesh = t.flat_index_kwargs()["mesh"]
+    assert mesh.size == 8 and mesh.devices == (t.device,) * 8
+    for client, m in ((j, jv), (t, tv)):
+        client.create_collection("docs", m.IndexType.FLAT)
+        client.add_texts_to_collection("docs", TEXTS, [{"topic": i % 7} for i in range(len(TEXTS))])
+        client.delete_from_collection("docs", 3)
+    index = t.get_collection("docs")._index
+    assert index._mesh is mesh and index._capacity % 8 == 0
+    for q in ("topic 3", TEXTS[12]):
+        assert hits(j.search_text_in_collection("docs", q, 5)) == hits(
+            t.search_text_in_collection("docs", q, 5))
+    assert len(index._dev_values) == 8
+    where = {"topic": 2}
+    assert hits(j.search_text_in_collection("docs", "topic 2", 4, where=where)) == hits(
+        t.search_text_in_collection("docs", "topic 2", 4, where=where))
+    t.create_collection("h", "hnsw", tv.SimilarityMetric.COSINE)
+    assert t.get_collection("h")._index._mesh is mesh
+    monkeypatch.setenv("VECTORLITE_MESH", "1")
+    assert "mesh" not in tv.VectorLiteClient(
+        tv.MockEmbeddingFunction(8), device="cpu").flat_index_kwargs()
+
+
+def test_mesh_beyond_the_visible_cards_is_refused(monkeypatch):
+    """On a CUDA device the mesh takes the first n cards: more than are
+    visible raises a ValueError naming VECTORLITE_MESH, as the JAX client
+    does for devices."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setenv("VECTORLITE_MESH", "4")
+    t = tv.VectorLiteClient(tv.MockEmbeddingFunction(8), device="cuda:0")
+    with pytest.raises(ValueError, match="VECTORLITE_MESH=4 but only 2 CUDA"):
         t.create_collection("m", "flat")
+    with pytest.raises(ValueError, match="VECTORLITE_MESH"):
+        t.create_collection("h", "hnsw", tv.SimilarityMetric.COSINE)
+    assert t.list_collections() == []
+    monkeypatch.setenv("VECTORLITE_MESH", "2")
+    t2 = tv.VectorLiteClient(tv.MockEmbeddingFunction(8), device="cuda:0")
+    assert t2.flat_index_kwargs()["mesh"].devices == (
+        torch.device("cuda", 0), torch.device("cuda", 1))
 
 
 def test_search_steps_show_in_a_profiler_trace():

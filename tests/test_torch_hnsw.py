@@ -218,8 +218,13 @@ def test_basic_contract():
         t.search([1, 0], 1, tv.SimilarityMetric.COSINE)
     with pytest.raises(ValueError, match="0"):
         HNSWIndex(0, tv.SimilarityMetric.COSINE, device="cpu")
-    with pytest.raises(ValueError, match="several devices"):
-        HNSWIndex(4, tv.SimilarityMetric.COSINE, device="cpu", mesh=object())
+    from vectorlite_tpu_torch.dist.sharding import make_mesh
+
+    meshed = HNSWIndex(4, tv.SimilarityMetric.COSINE, mesh=make_mesh(["cpu"] * 2))
+    meshed.add(tv.Vector(id=5, values=[1, 0, 0, 0], text="a"))
+    assert meshed.device.type == "cpu"
+    assert meshed.search_batch([[1, 0, 0, 0]], 1, tv.SimilarityMetric.COSINE,
+                               use_device=True)[0][0].id == 5
     assert t.search([1, 0, 0, 0], 3, tv.SimilarityMetric.COSINE)[0].id == 5
 
 

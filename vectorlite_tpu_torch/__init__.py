@@ -17,8 +17,9 @@ the write-ahead log, autosave) and the HTTP serving surface on the
 standard library (``api.server``, ``cli``, ``remote.RemoteClient``,
 ``tools``); the HNSW index (native host build and search, the device
 beam, the bulk build on K1's wide mode) and the MiniLM embedder on the
-card. See ROADMAP.md for what is still to come. Entry points run
-on the CUDA card unless given ``device="cpu"`` (``--device cpu``).
+card; the device mesh (``dist/``: the kernels per shard, ``torch.distributed``
+across processes) and the pipelined ``FlatIndex.search_batch_stream``. Entry
+points run on the CUDA card unless given ``device="cpu"`` (``--device cpu``).
 """
 
 from .core.types import DEFAULT_VECTOR_DIMENSION, SearchResult, Vector

@@ -67,9 +67,8 @@ class VectorLiteConfig:
     hnsw_ef_search: int = 128
     device_dtype: object = "auto"
     profile_name: str = "default"
-    #: Multi-device serving: number of devices to shard Flat corpora over
-    #: (``VECTORLITE_MESH``; 0/1 = one device). Only one device is served
-    #: until the multi-device port.
+    #: Multi-device serving: number of devices to shard collections over
+    #: (``VECTORLITE_MESH``; 0/1 = one device; dist/sharding.py)
     mesh_devices: int = 0
     #: torch device for the index tensors; None = the CUDA card
     device: Optional[object] = None

@@ -47,7 +47,13 @@ Returned scores are exact (f64 host math — the native streaming
 re-score of ``native.py``, or numpy — or f32 device re-scoring);
 selection is exact on the host path and on ``approx=False``.
 
-Not yet ported: the device mesh and the pipelined ``search_batch_stream``.
+* **Mesh** (``mesh=``, dist/sharding.py) — the device cache is split by
+  rows over the mesh's shards (capacity a multiple of the shard count),
+  searches run the single-device engines per shard and merge the
+  winners; host semantics (ids, tombstones, compaction, ``.vlc`` serde)
+  are the single-device path's.
+* **Pipelined stream** (``search_batch_stream``) — one dispatch thread,
+  ``depth`` fetch workers, optional grouping of batches into one launch.
 """
 
 from __future__ import annotations
@@ -369,11 +375,16 @@ class FlatIndex:
         *,
         device_dtype="auto",
         device=None,
+        mesh=None,
     ):
         if dim <= 0:
             raise ValueError("FlatIndex dimension must be positive")
         self.dim = int(dim)
-        self._device = resolve_device(device)
+        # Multi-device serving (dist/sharding.py): with a mesh, the device
+        # cache is split by rows over its shards, and the index's own
+        # device (queries, merged results) is the mesh's first
+        self._mesh = mesh
+        self._device = mesh.first if mesh is not None else resolve_device(device)
         disable_tf32()
         # "int8" selects the quantized profile: symmetric per-row int8
         # corpus with exact host re-scoring of the winners. "auto"
@@ -396,6 +407,8 @@ class FlatIndex:
             raise ValueError(f"unsupported device dtype {device_dtype!r}")
 
         cap = max(_MIN_CAPACITY, next_pow2(max(1, len(data))))
+        if mesh is not None:
+            cap = -(-cap // mesh.size) * mesh.size  # split evenly across the mesh
         self._capacity = cap
         # truth-matrix placement is pinned for the index's lifetime (a
         # growth realloc must not switch RAM <-> disk mid-life)
@@ -749,6 +762,147 @@ class FlatIndex:
         scores, slots = self._search_slots(q64, k_eff, metric, approx, mask, mkey)
         return self._pack_arrays(scores, slots, k, k_eff)
 
+    def search_batch_stream(
+        self,
+        batches,
+        k: int,
+        metric: SimilarityMetric,
+        *,
+        depth: int = 2,
+        group: int = 1,
+        approx: Optional[bool] = None,
+        where: Optional[dict] = None,
+    ):
+        """Pipelined batched search: yields ``(ids [B, k] int64, scores
+        [B, k] f64)`` for each batch of ``batches``, in order, each equal
+        to ``search_batch_arrays`` of that batch.
+
+        One dispatch thread uploads the queries and launches the search
+        (holding the device lock only around the sync and the launch, as
+        every search does), then queues the copy of the result into pinned
+        host buffers behind the kernels and records an event; ``depth``
+        fetch workers wait on the event and do the host work (the exact
+        re-score, ids). So batch i's fetch and host assembly overlap batch
+        i+1's kernels, and up to ``depth`` x ``group`` batches are in
+        flight. ``group`` > 1 concatenates that many consecutive batches
+        into one upload, one search and one fetch, then splits the rows
+        back: the rows of each batch are those the batch alone gives, and
+        grouping trades the first batch's latency for fewer launches."""
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
+        k = int(k)
+        depth = max(1, int(depth))
+        group = max(1, int(group))
+        mask = mkey = None
+        mcount = 0
+        if where is not None:
+            # one mask for the whole stream; a mutation mid-stream races
+            # it as it races the unfiltered stream
+            mask, mcount, mkey = self._where_mask(where)
+            if mcount == self._count:
+                mask = None
+        pending: deque = deque()
+        curgroup: list = []  # (q64, k_eff, b, holder) of the open group
+
+        def dispatch(items):
+            q64 = np.concatenate([it[0] for it in items])
+            out = self._dispatch_arrays(q64, items[0][1], metric, approx, mask, mkey)
+            return q64, self._start_fetch(out)
+
+        def finish(disp_fut, items):
+            q64, fetch = disp_fut.result()
+            scores, slots = fetch()
+            b_total = q64.shape[0]
+            scores, slots = self._finalize_device(
+                q64, scores[:b_total], slots[:b_total], items[0][1], metric
+            )
+            out, off = [], 0
+            for _q64, k_eff, b, _holder in items:
+                out.append(self._pack_arrays(
+                    scores[off : off + b], slots[off : off + b], k, k_eff
+                ))
+                off += b
+            return out
+
+        def flush():
+            if not curgroup:
+                return
+            items, holder = list(curgroup), curgroup[0][3]
+            curgroup.clear()
+            holder["fut"] = fetchers.submit(finish, dispatcher.submit(dispatch, items), items)
+
+        def resolve(item):
+            if item[0] == "ready":
+                return item[1]
+            _, holder, j = item
+            if "fut" not in holder:
+                flush()  # the batch belongs to the still-open group
+            return holder["fut"].result()[j]
+
+        fetchers = ThreadPoolExecutor(max_workers=depth, thread_name_prefix="vl-stream-fetch")
+        dispatcher = ThreadPoolExecutor(max_workers=1, thread_name_prefix="vl-stream-dispatch")
+        try:
+            for queries in batches:
+                q64 = np.asarray(queries, dtype=np.float64)
+                b = q64.shape[0]
+                avail = mcount if mask is not None else self._count
+                if avail == 0 or k <= 0:
+                    k_out = max(0, k)
+                    item = ("ready", (np.full((b, k_out), -1, np.int64),
+                                      np.full((b, k_out), -np.inf, np.float64)))
+                else:
+                    if q64.shape[1] != self.dim:
+                        raise DimensionMismatch(self.dim, q64.shape[1])
+                    k_eff = min(k, avail)
+                    if self._host_scan_eligible(b):
+                        if mask is None:
+                            scores, slots = self._host_scan(q64, k_eff, metric)
+                        else:
+                            scores, slots = self._host_scan_subset(q64, k_eff, metric, mask)
+                        item = ("ready", self._pack_arrays(scores, slots, k, k_eff))
+                    else:
+                        # a k_eff change (a mutation mid-stream) closes the
+                        # open group
+                        if curgroup and curgroup[0][1] != k_eff:
+                            flush()
+                        holder = curgroup[0][3] if curgroup else {}
+                        item = ("g", holder, len(curgroup))
+                        curgroup.append((q64, k_eff, b, holder))
+                        if len(curgroup) >= group:
+                            flush()
+                pending.append(item)
+                if len(pending) > depth * group:
+                    yield resolve(pending.popleft())
+            flush()
+            while pending:
+                yield resolve(pending.popleft())
+        finally:
+            fetchers.shutdown(wait=False)
+            dispatcher.shutdown(wait=False)
+
+    def _start_fetch(self, out):
+        """Queue the copy of a device result (scores, slots) to the host;
+        returns a function that waits for it and gives the numpy arrays. On
+        the card the copy goes into pinned buffers behind the kernels on
+        the current stream (a copy into pageable memory would block), and
+        an event marks its end."""
+        scores, slots = out
+        if scores.device.type != "cuda":
+            return lambda: (scores.numpy(), slots.numpy())
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out]
+        with torch.cuda.device(scores.device):
+            for h, t in zip(host, out):
+                h.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+
+        def fetch():
+            done.synchronize()
+            return host[0].numpy(), host[1].numpy()
+
+        return fetch
+
     def _search_slots(self, q64, k_eff, metric, approx, mask, mkey):
         """(scores [B, k_eff] f64-comparable, slots [B, k_eff]) from the
         host scan or one device dispatch."""
@@ -757,7 +911,17 @@ class FlatIndex:
             if mask is None:
                 return self._host_scan(q64, k_eff, metric)
             return self._host_scan_subset(q64, k_eff, metric, mask)
+        scores, slots = self._dispatch_arrays(q64, k_eff, metric, approx, mask, mkey)
+        return self._finalize_device(
+            q64, scores.cpu().numpy()[:b], slots.cpu().numpy()[:b], k_eff, metric
+        )
+
+    def _dispatch_arrays(self, q64, k_eff, metric, approx, mask=None, mkey=None):
+        """Pad and dispatch one device search: the (scores, slots) tensors
+        on the index's device, rows past the batch padding included, without
+        waiting for them."""
         q = q64.astype(np.float32)
+        b = q.shape[0]
         k_pad = min(
             self._capacity, max(1, next_pow2(min(k_eff, _MAX_K_BUCKET)))
         )
@@ -771,14 +935,7 @@ class FlatIndex:
         )
         k_sel = self._selection_k(k_pad)
         where_dev = self._where_dev(mkey, mask) if mask is not None else None
-        scores, slots = self._device_topk(
-            q, k_sel, metric, approx, where_dev=where_dev
-        )
-        scores = scores.cpu().numpy()
-        slots = slots.cpu().numpy()
-        return self._finalize_device(
-            q64, scores[:b], slots[:b], k_eff, metric
-        )
+        return self._device_topk(q, k_sel, metric, approx, where_dev=where_dev)
 
     def _finalize_device(self, q64, scores, slots, k_eff, metric):
         """Post-fetch host work: exact re-scoring / clamping and k
@@ -889,7 +1046,11 @@ class FlatIndex:
 
     def _host_scan_eligible(self, b: int) -> bool:
         rows = env_number("VECTORLITE_HOST_SCAN_ROWS", _HOST_SCAN_ROWS)
-        return b <= _HOST_SCAN_MAX_BATCH and self._size <= rows
+        return (
+            self._mesh is None
+            and b <= _HOST_SCAN_MAX_BATCH
+            and self._size <= rows
+        )
 
     # -------------------------------------------------- metadata filtering
 
@@ -941,12 +1102,13 @@ class FlatIndex:
         return n
 
     def _where_dev(self, key: Optional[str], mask: np.ndarray) -> torch.Tensor:
-        """Device copy of a where mask, cached in its entry so repeated
-        filtered searches skip the upload."""
+        """Device copy of a where mask (sharded like the validity mask on
+        a mesh), cached in its entry so repeated filtered searches skip the
+        upload."""
         ent = self._where_masks.get(key)
         if ent is not None and ent[4] is not None and ent[2] is mask:
             return ent[4]
-        dev = torch.from_numpy(mask).to(self._device)
+        dev = self._place(mask)
         if ent is not None and ent[2] is mask:
             ent[4] = dev
         return dev
@@ -1159,6 +1321,8 @@ class FlatIndex:
         demands. While a cache is live, its dtype is pinned."""
         if self._quantized or not self._auto_dtype:
             return self._device_dtype
+        if self._mesh is not None:
+            return torch.float32  # the sharded engines run f32 (or explicit int8)
         if self._dev_values is not None:
             return self._device_dtype
         budget = _hbm_budget_bytes(self._device)
@@ -1184,9 +1348,12 @@ class FlatIndex:
             or not _use_pallas(self._capacity)
         ):
             return False
+        # a mesh splits the rows across its devices: the budget is each
+        # distinct device's, summed (a card repeated in the mesh counts once)
+        devices = [self._device] if self._mesh is None else self._mesh.distinct_devices()
         return (
             self._capacity * self.dim * _SCAN_COPY_BYTES_PER_ELEM
-            <= _hbm_budget_bytes(self._device)
+            <= sum(_hbm_budget_bytes(d) for d in devices)
         )
 
     def _scan_copy_dtype(self) -> torch.dtype:
@@ -1206,6 +1373,14 @@ class FlatIndex:
             # the PQ branch selects exhaustively over ADC ranks; the block
             # engine never sees the code matrix
             return False
+        if self._mesh is not None:
+            # per shard, the speed path (K3 + exact re-score) at the
+            # single-device scale; the int8 profile stays exact
+            if self._quantized:
+                return False
+            if approx is not None:
+                return bool(approx)
+            return _use_pallas(self._capacity)
         if not _use_pallas(self._capacity):
             return False
         if not self._block_selection_feasible(k_pad):
@@ -1330,9 +1505,12 @@ class FlatIndex:
             valid = self._dev_valid
             if where_dev is not None:
                 # filtered searches are exhaustive (see _resolve_approx)
-                valid = valid & where_dev
+                if self._mesh is None:
+                    valid = valid & where_dev
+                else:
+                    valid = [v & w for v, w in zip(valid, where_dev)]
                 approx = False
-            queries = torch.from_numpy(q).to(self._device)
+            queries = self._upload(q)
             if (
                 approx
                 and self._ivf_active
@@ -1359,6 +1537,8 @@ class FlatIndex:
                 approx = False
             if self._pq_active:
                 return self._pq_topk(queries, k_pad, metric, valid)
+            if self._mesh is not None:
+                return self._mesh_topk(queries, k_pad, metric, approx, valid)
             tile = (
                 _PALLAS_TILE_BF16
                 if self._device_dtype == torch.bfloat16
@@ -1432,11 +1612,49 @@ class FlatIndex:
                 # rotation-invariant euclidean proxy (dot + norms); the
                 # exact L1 re-score restores true scores and order
                 sel_metric = SimilarityMetric.EUCLIDEAN
+        if self._mesh is not None:
+            from ..dist.sharding import sharded_search_pq
+
+            rows = self._capacity // self._mesh.size
+            return sharded_search_pq(
+                self._dev_codes, self._dev_codebooks, self._dev_sqnorms, valid,
+                queries, metric=sel_metric, k=k_pad,
+                chunk=min(_pq_scan_chunk(self._pq_code_bits()), rows),
+                mesh=self._mesh, packed=self._pq_packed,
+            )
         return pq.pq_search_topk(
             self._dev_codes, self._dev_codebooks, self._dev_sqnorms, valid,
             queries, metric=sel_metric, k=min(k_pad, self._capacity),
             chunk=min(_pq_scan_chunk(self._pq_code_bits()), self._capacity),
             packed=self._pq_packed,
+        )
+
+    def _mesh_topk(self, queries, k_pad, metric, approx, valid):
+        """The sharded engines (dist/sharding.py), each shard routed as
+        the single-device index routes at the shard's rows: K2 for the
+        int8 profile; for ``approx`` the speed path (K3 over the bf16
+        scan copy, or the rows, and an exact f32 re-score of the pool);
+        else K1, or K4 for Manhattan."""
+        from ..dist import sharding
+
+        mesh = self._mesh
+        if self._quantized:
+            return sharding.sharded_search_topk_int8(
+                self._dev_values, self._dev_scales, self._dev_sqnorms, valid,
+                queries, metric=metric, k=k_pad, mesh=mesh,
+            )
+        if approx and metric is not SimilarityMetric.MANHATTAN:
+            rows = self._dev_scan if self._dev_scan is not None else self._dev_values
+            tomb = self._count != self._size
+            return sharding.sharded_search_amk(
+                rows, self._dev_values, self._dev_sqnorms, valid, queries,
+                metric=metric, k=k_pad,
+                k_sel=min(self._capacity, max(_K_SEL_MIN, next_pow2(2 * k_pad))),
+                mesh=mesh, tombstones=tomb, live_hi=None if tomb else self._size,
+            )
+        return sharding.sharded_search_topk(
+            self._dev_values, self._dev_sqnorms, valid, queries,
+            metric=metric, k=k_pad, mesh=mesh,
         )
 
     def _pool_k(self, k_sel: int, k_pad: int) -> int:
@@ -1503,6 +1721,50 @@ class FlatIndex:
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self._device)
 
+    def _upload(self, q: np.ndarray) -> torch.Tensor:
+        """The queries on the device. On the card they go through pinned
+        memory without a wait: a copy from pageable memory would block
+        the host until the kernels already queued have run, so a stream's
+        next launch could not be queued behind them."""
+        t = torch.from_numpy(q)
+        if self._device.type != "cuda":
+            return t.to(self._device)
+        return t.pin_memory().to(self._device, non_blocking=True)
+
+    def _place(self, array, dtype=None):
+        """A full ``[cap, ...]`` host array on the device (cast to
+        ``dtype`` on the host first), or split over the mesh's shards."""
+        if self._mesh is not None:
+            from ..dist.sharding import shard_rows
+
+            return shard_rows(self._mesh, array, dtype)
+        t = torch.from_numpy(array)
+        return (t if dtype is None else t.to(dtype)).to(self._device)
+
+    def _write(self, buf, rows, lo: int) -> None:
+        """``rows`` (a host array or a device tensor) into ``buf[lo:]`` in
+        place, or into the shards they land on."""
+        if self._mesh is not None:
+            from ..dist.sharding import update_rows_sharded
+
+            update_rows_sharded(buf, rows, lo, mesh=self._mesh)
+        else:
+            if isinstance(rows, np.ndarray):
+                rows = self._to_device(rows)
+            update_rows(buf, rows, lo)
+
+    def _dirty_window(self) -> tuple[int, int]:
+        """The dirty rows to write. On a mesh the window is the JAX
+        package's: a power-of-two burst ending at the dirty end (or at the
+        capacity), so a burst straddles shard boundaries as it does
+        there."""
+        lo, hi = self._dirty_lo, self._dirty_hi
+        if self._mesh is not None:
+            burst = next_pow2(hi - lo)
+            hi = min(self._capacity, lo + burst)
+            lo = max(0, hi - burst)
+        return lo, hi
+
     def _sync_device(self) -> None:
         """Bring every device cache up to the host truth: the rung tensors
         (_sync_device_core) and, past the gate, the IVF layout. The mask
@@ -1521,6 +1783,9 @@ class FlatIndex:
         the dirty rows in place. An active PQ rung has freed the f32
         cache, so its check comes first."""
         if self._pq and self._sync_device_pq():
+            return
+        if self._mesh is not None:
+            self._sync_device_mesh()
             return
         if self._dev_values is None:
             self._build_device()
@@ -1572,12 +1837,16 @@ class FlatIndex:
                 update_rows(
                     codes, self._encode_pq(self._values64[lo : lo + step]), lo
                 )
+            if self._mesh is not None:
+                from ..dist.sharding import shard_rows
+
+                codes = shard_rows(self._mesh, codes)
             self._dev_codes = codes
             # exact squared norms from the f64 truth, reduced straight to
             # [cap] (no [cap, D] temp)
             sq = np.einsum("nd,nd->n", self._values64, self._values64)
-            self._dev_sqnorms = self._to_device(sq.astype(np.float32))
-            self._dev_valid = self._to_device(self._valid)
+            self._dev_sqnorms = self._place(sq.astype(np.float32))
+            self._dev_valid = self._place(self._valid)
             # free the f32 cache (the whole point is capacity)
             self._dev_values = None
             self._dev_scan = None
@@ -1591,13 +1860,13 @@ class FlatIndex:
         if self._dirty_hi > self._dirty_lo:
             # appended rows use the codebooks (and rotation) of the last
             # wholesale build; the next capacity doubling retrains
-            lo, hi = self._dirty_lo, self._dirty_hi
+            lo, hi = self._dirty_window()
             rows32 = self._to_device(self._values64[lo:hi].astype(np.float32))
-            update_rows(self._dev_sqnorms, row_sqnorms(rows32), lo)
-            update_rows(self._dev_codes, self._encode_pq(self._values64[lo:hi]), lo)
+            self._write(self._dev_sqnorms, row_sqnorms(rows32), lo)
+            self._write(self._dev_codes, self._encode_pq(self._values64[lo:hi]), lo)
             self._dirty_lo = self._dirty_hi = self._size
         if self._mask_dirty:
-            self._dev_valid = self._to_device(self._valid)
+            self._dev_valid = self._place(self._valid)
             self._mask_dirty = False
         self._pq_active = True
         return True
@@ -1693,6 +1962,54 @@ class FlatIndex:
         self._dirty_lo = self._dirty_hi = self._size
         self._mask_dirty = False
 
+    def _sync_device_mesh(self) -> None:
+        """Mesh placement: a wholesale build uploads each shard's rows from
+        the host (no device stages the whole corpus), with the precision
+        guard and the scan copy (bf16, as in the JAX package's mesh) decided
+        as on one device; insert bursts write the shards they land on."""
+        if self._dev_values is None:
+            self._device_dtype = self._prospective_dtype()
+            vals32 = np.asarray(self._values64, dtype=np.float32)
+            self._precision_risky = (
+                _use_pallas(self._capacity)
+                and env_number("VECTORLITE_SPEED_GUARD", 1) == 1
+                and _bf16_selection_risky(vals32, self._valid, self._size)
+            )
+            self._dev_sqnorms = self._place(
+                np.einsum("nd,nd->n", vals32, vals32, dtype=np.float32)
+            )
+            if self._quantized:
+                q, scales = _quantize_rows_int8_np(vals32)
+                self._dev_values = self._place(q)
+                self._dev_scales = self._place(scales)
+            else:
+                self._dev_values = self._place(vals32, self._device_dtype)
+            self._dev_scan = self._dev_scan_scales = None
+            if self._device_dtype == torch.float32 and self._scan_copy_wanted():
+                self._dev_scan = self._place(vals32, torch.bfloat16)
+            self._dev_valid = self._place(self._valid)
+            self._dirty_lo = self._dirty_hi = self._size
+            self._mask_dirty = False
+            return
+        if self._dirty_hi > self._dirty_lo:
+            lo, hi = self._dirty_window()
+            rows32 = np.asarray(self._values64[lo:hi], dtype=np.float32)
+            self._write(
+                self._dev_sqnorms, np.einsum("nd,nd->n", rows32, rows32, dtype=np.float32), lo
+            )
+            if self._quantized:
+                rows_q, row_scales = _quantize_rows_int8_np(rows32)
+                self._write(self._dev_values, rows_q, lo)
+                self._write(self._dev_scales, row_scales, lo)
+            else:
+                self._write(self._dev_values, rows32, lo)
+                if self._dev_scan is not None:
+                    self._write(self._dev_scan, rows32, lo)
+            self._dirty_lo = self._dirty_hi = self._size
+        if self._mask_dirty:
+            self._dev_valid = self._place(self._valid)
+            self._mask_dirty = False
+
     # ------------------------------------------------------ IVF scale rung
 
     def _ivf_wanted(self) -> bool:
@@ -1707,7 +2024,9 @@ class FlatIndex:
         _ivf_build re-runs the statistic against the probed window."""
         if env_number("VECTORLITE_IVF", 1) != 1:
             return False
-        if self._pq:
+        if self._pq or self._mesh is not None:
+            # a mesh serves the sharded brute engines (the sharded probe
+            # stage is dist/sharding.py sharded_search_ivf)
             return False
         if self._device.type != "cuda" and not os.environ.get(
             "VECTORLITE_IVF_FORCE"

@@ -30,8 +30,10 @@ build; both give the JAX package's graph for a seed at one build thread.
 The index takes an explicit ``device`` as ``FlatIndex`` does (``None`` is
 the CUDA card, and raises without one): its device copy (``_sync_device``)
 feeds the level-0 beam (``kernels/beam.py``) and the bulk build's scan
-(``index/bulk_build.py``, K1's wide mode on the card). A ``mesh`` is
-refused until the multi-device port.
+(``index/bulk_build.py``, K1's wide mode on the card). With a ``mesh``
+(dist/sharding.py) the level-0 graph is kept on each of its distinct
+devices and a device-beam batch is split across its shards
+(dist/hnsw_mesh.py).
 """
 
 from __future__ import annotations
@@ -165,14 +167,12 @@ class HNSWIndex:
     ):
         if dim == 0:
             raise ValueError("HNSW index dimension cannot be 0")
-        if mesh is not None:
-            raise ValueError(
-                "serving an HNSW graph over several devices is not ported "
-                "yet; one device serves every collection"
-            )
         self.dim = int(dim)
         self._metric = metric
-        self._device = resolve_device(device)
+        # multi-device serving (dist/hnsw_mesh.py): the level-0 graph on
+        # each mesh device, device-beam batches split over the shards
+        self._mesh = mesh
+        self._device = mesh.first if mesh is not None else resolve_device(device)
         self.m = int(m)
         self.m0 = int(m0)
         self.ef_construction = int(ef_construction)
@@ -215,6 +215,7 @@ class HNSWIndex:
         # device-search cache: vectors synced by append watermark, level-0
         # adjacency rows by dirty set (links/prunes touch scattered rows)
         self._dev = None  # (vecs, sqnorms, adj0) tensors on the device
+        self._dev_mesh = None  # their per-shard copies on a mesh
         self._dev_n = 0
         self._vec_synced = 0
         self._adj_dirty: set[int] = set()
@@ -701,6 +702,7 @@ class HNSWIndex:
             store_f64=self._store_f64,
             native=self._nb is not None,
             device=self._device,
+            mesh=self._mesh,
         )
         fresh.add_batch(vectors)
         # Adopt the rebuilt state wholesale (same object identity).
@@ -984,6 +986,8 @@ class HNSWIndex:
         self._native_drain_dirty()
         n = self._num_nodes
         dev = self._device
+        if self._dev is None or n != self._dev_n or self._adj_dirty:
+            self._dev_mesh = None  # the replicas are stale: made again below
         if (
             self._dev is None
             or self._dev[0].shape[0] != self._capacity
@@ -1012,6 +1016,10 @@ class HNSWIndex:
         self._dev_n = n
         self._vec_synced = n
         self._adj_dirty.clear()
+        if self._mesh is not None and self._dev_mesh is None:
+            from ..dist.hnsw_mesh import replicate_graph
+
+            self._dev_mesh = replicate_graph(self._mesh, *self._dev)
 
     def _search_device(
         self, q: np.ndarray, k: int, ef: int
@@ -1025,6 +1033,10 @@ class HNSWIndex:
         )
         ef_pad = next_pow2(max(ef, 8))
         b_pad = next_pow2(b)
+        if self._mesh is not None:
+            # the mesh splits the batch: pad to a multiple of its size
+            n_dev = self._mesh.size
+            b_pad = -(-b_pad // n_dev) * n_dev
         if b_pad > b:
             q = np.concatenate([q, np.zeros((b_pad - b, self.dim), np.float32)])
             entries = np.concatenate(
@@ -1033,16 +1045,24 @@ class HNSWIndex:
         with self._dev_lock:
             self._sync_device()
             vecs, sqn, adj = self._dev
-            beam_ids, beam_dist = beam_search_l0(
-                vecs,
-                sqn,
-                adj,
-                torch.from_numpy(entries).to(self._device),
-                torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(self._device),
-                metric=self._metric,
-                ef=ef_pad,
-                max_iters=4 * ef_pad + 32,
-            )
+            if self._mesh is not None:
+                from ..dist.hnsw_mesh import mesh_beam_search
+
+                beam_ids, beam_dist = mesh_beam_search(
+                    self._mesh, *self._dev_mesh, entries, q,
+                    metric=self._metric, ef=ef_pad, max_iters=4 * ef_pad + 32,
+                )
+            else:
+                beam_ids, beam_dist = beam_search_l0(
+                    vecs,
+                    sqn,
+                    adj,
+                    torch.from_numpy(entries).to(self._device),
+                    torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(self._device),
+                    metric=self._metric,
+                    ef=ef_pad,
+                    max_iters=4 * ef_pad + 32,
+                )
         beam_ids = beam_ids.cpu().numpy()[:b]
         beam_dist = beam_dist.cpu().numpy()[:b]
         out: list[list[SearchResult]] = []

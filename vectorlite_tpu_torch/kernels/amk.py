@@ -2,8 +2,10 @@
 the exact f32 re-score of a candidate pool.
 
 Port of three helpers of ``vectorlite_tpu/kernels/amk.py`` that the IVF
-rung (kernels/ivf.py) runs: ``_rank_scores`` (:98), ``_matmul`` (:109)
-and ``_exact_rescore_device`` (:152). The module's engines,
+rung (kernels/ivf.py) and the mesh (dist/sharding.py) run:
+``_rank_scores`` (:98), ``_matmul`` (:109) and ``_exact_rescore_device``
+(:152), the last in two steps here (``sorted_pool``, ``rescore_rows``) for
+the mesh, which gathers the pool's rows from its shards. The module's engines,
 ``amk_search_topk_rescored`` and ``amk_select_int8``, are not here: they
 select with ``jax.lax.approx_max_k``, a feature of the TPU compiler with
 no CUDA counterpart, and the port's speed path is the lane-group kernel
@@ -60,13 +62,28 @@ def _exact_rescore_device(
     are a contiguous live prefix and a slot is live iff ``slot <
     live_hi``; otherwise ``valid[slot]`` decides. ``row_scales``
     dequantizes int8 rows."""
-    disable_tf32()
-    i_sel = torch.sort(i_sel.to(torch.int64), dim=1).values
-    dup = torch.zeros_like(i_sel, dtype=torch.bool)
-    dup[:, 1:] = i_sel[:, 1:] == i_sel[:, :-1]
+    i_sel, dup = sorted_pool(i_sel)
     rows = values_exact[i_sel].to(torch.float32)  # [B, k_sel, D]
     if row_scales is not None:
         rows = rows * row_scales[i_sel][..., None]
+    ok = i_sel < live_hi if valid is None else valid[i_sel]
+    return rescore_rows(i_sel, rows, ok & ~dup, queries, metric, k)
+
+
+def sorted_pool(i_sel):
+    """A candidate pool sorted by slot (int64), and the mask of the
+    entries that repeat the slot before them."""
+    i_sel = torch.sort(i_sel.to(torch.int64), dim=1).values
+    dup = torch.zeros_like(i_sel, dtype=torch.bool)
+    dup[:, 1:] = i_sel[:, 1:] == i_sel[:, :-1]
+    return i_sel, dup
+
+
+def rescore_rows(i_sel, rows, ok, queries, metric, k):
+    """Exact f32 scores of the gathered pool ``rows`` [B, P, D] (``i_sel``
+    sorted by slot), -inf where ``ok`` is false, and their stable top k:
+    (scores [B, k], slots [B, k])."""
+    disable_tf32()
     q = queries.to(torch.float32)
     dot = torch.bmm(rows, q[:, :, None])[..., 0]
     if metric is SimilarityMetric.DOT_PRODUCT:
@@ -86,7 +103,6 @@ def _exact_rescore_device(
         exact = 1.0 / (1.0 + torch.sqrt(d_sq))
     else:
         raise NotImplementedError("manhattan has no matmul-form re-score")
-    ok = i_sel < live_hi if valid is None else valid[i_sel]
-    exact = torch.where(ok & ~dup, exact, NEG_INF)
+    exact = torch.where(ok, exact, NEG_INF)
     s_top, pos = stable_topk(exact, k)
     return s_top, torch.gather(i_sel, 1, pos)

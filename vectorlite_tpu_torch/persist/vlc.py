@@ -540,10 +540,11 @@ def _index_from_payload(index_obj: dict, **index_kwargs):
     if "Flat" in index_obj:
         index = FlatIndex.index_from_json(index_obj["Flat"], **index_kwargs)
     elif "HNSW" in index_obj:
-        # an HNSW index takes only the device of the Flat kwargs
-        device = index_kwargs.get("device")
+        # an HNSW index takes only the device and the mesh of the Flat
+        # kwargs
         index = HNSWIndex.index_from_json(
-            index_obj["HNSW"], **({} if device is None else {"device": device})
+            index_obj["HNSW"],
+            **{key: index_kwargs[key] for key in ("device", "mesh") if key in index_kwargs},
         )
     else:
         raise InvalidFormat(f"Unknown index payload: {list(index_obj)}")

@@ -5,7 +5,9 @@ a map of named collections plus a shared embedding function. Collection
 dimension always comes from the embedder (reference: src/client.rs:88);
 HNSW creation requires an explicit metric (reference: src/client.rs:96).
 
-One CUDA device serves every collection until the multi-device port. A
+``VECTORLITE_MESH=n`` (n > 1) shards every collection over a mesh of n
+devices (dist/sharding.py): the first n CUDA cards, or n CPU shards when
+the client runs on the CPU. A
 collection observer (``set_collection_observer``, e.g. ``store.wal.WalManager``) hears
 of every registration and deletion.
 """
@@ -67,6 +69,7 @@ class VectorLiteClient:
         self._device = resolve_device(
             device if device is not None else self._config.device
         )
+        self._mesh = None  # built lazily from config.mesh_devices
         self._observer = None  # see set_collection_observer
 
     def set_collection_observer(self, observer) -> None:
@@ -85,20 +88,38 @@ class VectorLiteClient:
     def device(self) -> torch.device:
         return self._device
 
-    def flat_index_kwargs(self) -> dict:
-        """Construction kwargs for Flat indexes: the dtype profile and
-        the device. A multi-device mesh is refused until its port."""
+    def mesh(self):
+        """The mesh of ``config.mesh_devices`` (VECTORLITE_MESH) devices, or
+        None for one device: on a CUDA device the first n cards (more than
+        are visible raises), on the CPU n CPU shards."""
         n = getattr(self._config, "mesh_devices", 0) or 0
-        if n > 1:
-            visible = (
-                torch.cuda.device_count() if torch.cuda.is_available() else 0
-            )
-            raise ValueError(
-                f"VECTORLITE_MESH={n}: serving over several devices is not "
-                f"ported yet ({visible} CUDA device(s) visible); one device "
-                f"serves every collection"
-            )
-        return {"device_dtype": self._config.device_dtype, "device": self._device}
+        if n <= 1:
+            return None
+        if self._mesh is None:
+            from ..dist.sharding import make_mesh
+
+            if self._device.type == "cuda":
+                visible = torch.cuda.device_count()
+                if n > visible:
+                    raise ValueError(
+                        f"VECTORLITE_MESH={n} but only {visible} CUDA "
+                        f"device(s) are visible"
+                    )
+                devices = [torch.device("cuda", i) for i in range(n)]
+            else:
+                devices = [self._device] * n
+            self._mesh = make_mesh(devices)
+        return self._mesh
+
+    def flat_index_kwargs(self) -> dict:
+        """Construction kwargs for Flat indexes (the dtype profile, the
+        device and, with VECTORLITE_MESH, the mesh), shared by
+        create_collection and the .vlc and WAL load paths."""
+        kwargs = {"device_dtype": self._config.device_dtype, "device": self._device}
+        mesh = self.mesh()
+        if mesh is not None:
+            kwargs["mesh"] = mesh
+        return kwargs
 
     def hnsw_index_kwargs(self) -> dict:
         """Construction kwargs for HNSW indexes: the profile's graph
@@ -110,6 +131,7 @@ class VectorLiteClient:
             "ef_construction": cfg.hnsw_ef_construction,
             "ef_search": cfg.hnsw_ef_search,
             "device": self._device,
+            "mesh": self.mesh(),
         }
 
     @property
@@ -133,7 +155,6 @@ class VectorLiteClient:
             if metric is None:
                 # no default: force explicit choice (reference: src/client.rs:96)
                 raise MetricRequired()
-            self.flat_index_kwargs()  # a mesh is refused for HNSW too
             index = HNSWIndex(dimension, metric, **self.hnsw_index_kwargs())
         self._collections[name] = collection = Collection(name, index)
         if self._observer is not None:
