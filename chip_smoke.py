@@ -6,17 +6,20 @@ Phases (any failure raises and the exit code is not 0):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every native source under vectorlite_tpu_torch/csrc (scan.cu,
-   lanes.cu, exact.cu, wide.cu, l1.cu, pq.cu, ivf.cu with nvcc,
+   lanes.cu, exact.cu, wide.cu, deep.cu, l1.cu, pq.cu, ivf.cu with nvcc,
    host_rescore.cpp, vlc_emit.cpp and hnsw_builder.cpp with g++; one
-   compiler per source, all started together); the wide mode's
+   compiler per source, all started together); the wide and deep modes'
    shared-memory plans.
 2. Kernels against their plain-torch versions on the card: K1 and K2 on
    the route scan.exact_route names (k <= 32: the tensor-core body's
    per-query top-k, scan_topk_exact_tf32 over f32 rows, _bf16 over bf16
    rows, scan_topk_exact_s8 over int8 rows; k 1, 16, 32; 32 < k <= 256:
-   its wide mode, scan_topk_wide_tf32 / _bf16 / _s8, k 33, 100, 256; k >
-   256: the CUDA-core scan_topk_exact / _int8 with lists in the output,
-   k 300), K3 on its three routes (int8 rows: scan_block_topw_s8, the
+   its wide mode, scan_topk_wide_tf32 / _bf16 / _s8, k 33, 100, 256; 256 <
+   k <= 2,048: its deep mode, scan_topk_deep_tf32 / _bf16 / _s8, k 257,
+   300, 512, 1,024, 2,048, on the tiles scan.exact_tile grows, and tile by
+   tile at k = tile_n = 2,048 and at k 300 over 32,768-row tiles; k >
+   2,048: the CUDA-core scan_topk_exact / _int8 with lists in the output,
+   k 2,100), K3 on its three routes (int8 rows: scan_block_topw_s8, the
    tensor-core body's int8 form; bf16 rows: scan_block_topw_bf16; f32 rows:
    scan_block_topw, the CUDA-core body; three metrics), K4 on the route
    exact_route names (k <= 32: the FADD stream, scan_topk_l1_fadd over f32
@@ -26,14 +29,17 @@ Phases (any failure raises and the exit code is not 0):
    Then each kernel at the main-path shape (2^20 x 384, B=256, four query
    blocks; K1 over f32 rows at k 16 and bf16 rows at k 32, K2 at k 32, and
    the wide mode at k 100's lists: K1 over f32 rows at 128, over bf16 rows
-   at 256, K2 at 256; the CUDA-core K1 and K2 at k 300; K3 on each route;
+   at 256, K2 at 256; the deep mode on its grown tiles: K1 over f32 rows at
+   k 300 and k_pad 1,024, over bf16 rows at the pool of 512, K2 at k 300
+   and the pool of 1,024, each with merge_topk's sort apart; K3 on each route;
    K4 over f32 rows at k 16, over bf16 rows at the memory-optimized pool of
    32 and at k 16, the CUDA-core K4 at k 300): timed
    beside its plain version and the PyTorch library path (K3's: one torch.mm, bf16 over the int8 or bf16
    values cast outside the timing, TF32-off f32 over f32 rows, then
    torch.topk of each lane group; K4's: 1 / (1 + torch.cdist(p=1)) and
    torch.topk), and its output held against the plain
-   version's. Everywhere: ids equal except among scores within 1e-5 of
+   version's. The CUDA-core K1 and K2 at 65,536 x 384, B 64, k 2,100 over
+   4,096-row tiles, the same way. Everywhere: ids equal except among scores within 1e-5 of
    each other, scores within rtol/atol 1e-5.
    K5 against pq_rank_plain, both entries: the tensor-core entry
    (pq_rank_mma) on 4-bit codes, packed and unpacked, and the look-up
@@ -97,6 +103,13 @@ Phases (any failure raises and the exit code is not 0):
    manhattan exact paths must agree with float64 truth on 32 queries
    taken across all four query blocks. The quantized speed path runs
    twice: with the native f64 re-score and with VECTORLITE_NO_NATIVE=1.
+   Then lists past 256 on the deep mode: approx=False at k 1,000 over the
+   f32 rows (K1, k_pad 1,024), the memory-optimized collection's exact
+   path at k 200 (K1 over bf16 rows, pool 512) and the quantized one's at
+   k 500 (K2, pool 1,024): one search_batch call each whose launches must
+   be the deep entry's alone, then batches through search_batch_arrays
+   (p50 / p99, the device stage apart), every query's ids against float64
+   truth beyond 1e-5 near-ties.
 3b. The device mesh (dist/), after the phase-3 collections are freed, on
    phase 3's rows and queries: cuda:0 repeated 4 times (2^18 rows a shard).
    (a) FlatIndex(mesh=...) beside a one-card FlatIndex of the same rows,
@@ -281,6 +294,9 @@ D = 384
 B = 256
 K = 10
 K_WIDE = 100  # phase 3's wide exact searches: lists past the TOPK mode's 32
+#: phase 3's deep exact searches by row type: k_pad 1,024 over f32 rows, the
+#: 2x pools of 512 (bf16) and 1,024 (int8): lists past the wide mode's 256
+K_DEEP = {"f32": 1000, "bf16": 200, "int8": 500}
 
 #: NVIDIA H100 SXM data sheet (dense, 700 W): device-memory bandwidth and
 #: the peak rate of each operand type the functions need. The reference
@@ -303,8 +319,11 @@ REPLACES = {
     "scan_topk_exact": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_wide_tf32": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_wide_bf16": "vectorlite_tpu/kernels/pallas_scan.py:46",
+    "scan_topk_deep_tf32": "vectorlite_tpu/kernels/pallas_scan.py:46",
+    "scan_topk_deep_bf16": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_exact_s8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_topk_wide_s8": "vectorlite_tpu/kernels/pallas_scan.py:471",
+    "scan_topk_deep_s8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_topk_exact_int8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_block_topw": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_block_topw_s8": "vectorlite_tpu/kernels/pallas_scan.py:159",
@@ -327,13 +346,18 @@ K3_INT8, K3_BF16, K3_F32 = "scan_block_topw_s8", "scan_block_topw_bf16", "scan_b
 K3_SYMBOLS = (K3_INT8, K3_BF16, K3_F32)
 #: K1's and K2's routes (kernels/scan.py exact_route): k <= 32 on the
 #: tensor-core body's per-query top-k mode (f32 rows: 3xTF32; bf16 rows;
-#: int8 rows), 32 < k <= 256 on its wide mode, k > 256 on the CUDA-core
-#: body
+#: int8 rows), 32 < k <= 256 on its wide mode, 256 < k <= 2,048 on its deep
+#: mode (tiles up to 32,768 rows), beyond on the CUDA-core body
 K1_TF32, K1_BF16, K1_CORE = "scan_topk_exact_tf32", "scan_topk_exact_bf16", "scan_topk_exact"
 K1_WIDE, K1_WIDE_BF16 = "scan_topk_wide_tf32", "scan_topk_wide_bf16"
-K1_SYMBOLS = (K1_TF32, K1_BF16, K1_WIDE, K1_WIDE_BF16, K1_CORE)
-K2_S8, K2_WIDE, K2_CORE = "scan_topk_exact_s8", "scan_topk_wide_s8", "scan_topk_exact_int8"
-K2_SYMBOLS = (K2_S8, K2_WIDE, K2_CORE)
+K1_DEEP, K1_DEEP_BF16 = "scan_topk_deep_tf32", "scan_topk_deep_bf16"
+K1_SYMBOLS = (K1_TF32, K1_BF16, K1_WIDE, K1_WIDE_BF16, K1_DEEP, K1_DEEP_BF16, K1_CORE)
+K2_S8, K2_WIDE, K2_DEEP = "scan_topk_exact_s8", "scan_topk_wide_s8", "scan_topk_deep_s8"
+K2_CORE = "scan_topk_exact_int8"
+K2_SYMBOLS = (K2_S8, K2_WIDE, K2_DEEP, K2_CORE)
+#: phase 2's lists past 2,048 (the CUDA-core K1 / K2's range) and their
+#: tile: checked and timed at the small shape
+CORE_K, CORE_TILE = 2100, 4096
 #: K4's routes (exact_route, manhattan): k <= 32 on the FADD stream (f32 and
 #: bf16 rows), k > 32 on the CUDA-core body
 K4_F32, K4_BF16, K4_CORE = "scan_topk_l1_fadd", "scan_topk_l1_fadd_bf16", "scan_topk_l1"
@@ -365,6 +389,26 @@ def wide_plans(build, widths=(100, 384, 768)) -> dict:
                 fn(code, d, k, plan)
                 plans[f"{dtype} D{d} k{k}"] = dict(zip(
                     ("stages", "ring_bytes", "score_bytes", "list_bytes", "smem_bytes"), plan))
+    return plans
+
+
+def deep_plans(build, widths=(100, 384, 768)) -> dict:
+    """The deep mode's shared-memory plan by row dtype and width
+    (csrc/deep.cu scan_topk_deep_plan): the ring's stages and the bytes of
+    the ring, the score tiles, the staging buffers with the queries' state,
+    and all."""
+    import ctypes
+
+    fn = build.load("deep").scan_topk_deep_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = None
+    plans = {}
+    for code, dtype in enumerate(("f32", "bf16", "int8")):
+        for d in widths:
+            plan = (ctypes.c_int * 5)()
+            fn(code, d, plan)
+            plans[f"{dtype} D{d}"] = dict(zip(
+                ("stages", "ring_bytes", "score_bytes", "staging_bytes", "smem_bytes"), plan))
     return plans
 
 
@@ -487,15 +531,26 @@ def variants(scan, SM):
         (None, "f32 k32", dots, *exact(2048), 32),
         (None, "f32 k100", dots, *exact(2048), 100),
         (None, "f32 k256", (SM.COSINE,), *exact(2048), 256),
+        (None, "f32 k257", dots, *exact(2048), 257),
         (None, "f32 k300", (SM.COSINE,), *exact(2048), 300),
+        (None, "f32 k512", (SM.COSINE,), *exact(2048), 512),
+        (None, "f32 k1024", dots, *exact(2048), 1024),
+        (None, "f32 k2048", (SM.COSINE,), *exact(2048), 2048),
+        (None, f"f32 k{CORE_K}", (SM.COSINE,), *exact(CORE_TILE), CORE_K),
         (None, "bf16", dots, *exact(4096), 16),
         (None, "bf16 k33", (SM.COSINE,), *exact(4096), 33),
         (None, "bf16 k256", dots, *exact(4096), 256),
+        (None, "bf16 k300", (SM.COSINE,), *exact(4096), 300),
+        (None, "bf16 k512", dots, *exact(4096), 512),
+        (None, "bf16 k2048", (SM.COSINE,), *exact(4096), 2048),
         (None, "int8", dots, *exact(2048), 16),
         (None, "int8 k32", dots, *exact(2048), 32),
         (None, "int8 k100", (SM.COSINE,), *exact(2048), 100),
         (None, "int8 k256", dots, *exact(2048), 256),
         (None, "int8 k300", (SM.COSINE,), *exact(2048), 300),
+        (None, "int8 k1024", dots, *exact(2048), 1024),
+        (None, "int8 k2048", (SM.COSINE,), *exact(2048), 2048),
+        (None, f"int8 k{CORE_K}", (SM.COSINE,), *exact(CORE_TILE), CORE_K),
         (K3_F32, "f32", dots, block, block_plain, 16),
         (K3_BF16, "bf16", dots, block, block_plain, 16),
         (K3_INT8, "int8", dots, block, block_plain, 16),
@@ -525,17 +580,40 @@ def check_kernels(scan, metrics_mod, dev, rng) -> dict:
     errs = {}
     for name, label, metrics, kern, plain, k in variants(scan, SM):
         for shape, rows, sq, valid, q in shapes:
-            if k > 256 and shape != shapes[0][0]:
-                continue  # the CUDA-core lists: the main shape only
             v, sc = rows[label.split()[0]]
             for metric in metrics:
-                sym = name or scan.exact_route(v.dtype, k, metric).symbol
+                tile = scan.exact_tile(v.shape[0], CORE_TILE if k == CORE_K else 2048, k,
+                                       metric)
+                sym = name or scan.exact_route(v.dtype, min(k, tile), metric, tile).symbol
                 out = kern(v, sc, sq, valid, q, metric, k)
                 torch.cuda.synchronize()
                 ref = plain(v, sc, sq, valid, q, metric, k + 1)
                 err = compare(f"{sym} {label} {shape} {metric.name}", out, ref)
                 errs[sym] = max(errs.get(sym, 0.0), err)
+    check_deep_tiles(scan, SM, shapes, errs)
     return errs
+
+
+def check_deep_tiles(scan, SM, shapes, errs: dict) -> None:
+    """Phase 2a, the deep mode's tile by tile: tile_topk_cuda at k = tile_n
+    (2,048) and at k 300 over 32,768-row tiles (65,536 x 384) or one tile of
+    8,192 rows (8,192 x 100), every tile's list against tile_topk_plain's,
+    -inf slots naming the same rows."""
+    for shape, rows, sq, valid, q in shapes:
+        n = valid.shape[0]
+        for label, (v, sc) in rows.items():
+            for k, tile_n in ((2048, 2048), (300, min(n, scan.WIDE_MAX_TILE))):
+                sym = scan.exact_route(v.dtype, k, SM.COSINE, tile_n).symbol
+                got = scan.tile_topk_cuda(v, sc, sq, valid, q, metric=SM.COSINE, k_tile=k,
+                                          tile_n=tile_n)
+                torch.cuda.synchronize()
+                kw = min(k + 1, tile_n)
+                want = scan.tile_topk_plain(v, sc, sq, valid, q, metric=SM.COSINE, k_tile=kw,
+                                            tile_n=tile_n)
+                err = compare(f"{sym} {label} k{k} tiles of {tile_n} {shape}",
+                              [x.reshape(-1, k) for x in got],
+                              [x.reshape(-1, kw) for x in want])
+                errs[sym] = max(errs.get(sym, 0.0), err)
 
 
 def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
@@ -557,15 +635,15 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     dot_ops = 2.0 * B * n * D
     side = n * 4 + n * 1 + B * D * 4  # sqnorms, validity, queries
 
-    def library(rows, scales, k, metric):
+    def library(rows, scales, k, metric, qq=q, qqsq=qsq, rsq=sq):
         def fn():
             if metric is SM.MANHATTAN:
-                score = 1.0 / (1.0 + torch.cdist(q, rows, p=1.0))
+                score = 1.0 / (1.0 + torch.cdist(qq, rows, p=1.0))
             else:
-                dot = torch.mm(q, rows.T)
+                dot = torch.mm(qq, rows.T)
                 if scales is not None:
                     dot = dot * scales[None, :]
-                score = metrics_mod.metric_from_dot(dot, qsq, sq[None, :], metric)
+                score = metrics_mod.metric_from_dot(dot, qqsq, rsq[None, :], metric)
             return torch.topk(score, k)
         return fn
 
@@ -573,8 +651,10 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     # k_pad 16 (tile 2048), over bf16 rows (the memory-optimized profile)
     # with the 2x pool (32, and 256 at k 100) and tile 4096, and at k 100
     # (k_pad 128) on the wide mode; K2 over int8 rows with the 2x pool (32,
-    # and 256 at k 100 on the wide mode); the CUDA-core K1 and K2, which no
-    # path hands a list up to 256, at k 300; K3 over the int8 scan copy,
+    # and 256 at k 100 on the wide mode); the deep mode on the tiles
+    # exact_tile grows: K1 over f32 rows at k 300 (logged) and at k 1,000's
+    # k_pad 1,024, over bf16 rows at k 200's pool of 512, K2 at k 300
+    # (logged) and at k 500's pool of 1,024; K3 over the int8 scan copy,
     # 4096-row tiles, W = 2, pool 128 (and its two other routes: a bf16 scan
     # copy, f32 rows without a copy); K4 over f32 rows at k_pad 16, over
     # bf16 rows (the memory-optimized profile) at the 2x pool of 32 (and at
@@ -590,6 +670,9 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     def tiles_out(tile_n, k):
         return B * (n // tile_n) * k * 8
 
+    def grown(tile_n, k):
+        return scan.exact_tile(n, tile_n, k)
+
     specs = [
         (K1_TF32, SM.COSINE, v, None, 16, 2048, None, "tf32",
          3 * dot_ops, n * D * 4 + side + tiles_out(2048, 16)),
@@ -599,14 +682,20 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
          3 * dot_ops, n * D * 4 + side + tiles_out(2048, 128)),
         (K1_WIDE_BF16, SM.COSINE, vb, None, 256, 4096, None, "bf16",
          dot_ops, n * D * 2 + side + tiles_out(4096, 256)),
-        (K1_CORE, SM.COSINE, v, None, 300, 2048, None, "tf32",
-         3 * dot_ops, n * D * 4 + side + tiles_out(2048, 300)),
+        (K1_DEEP + " k300", SM.COSINE, v, None, 300, grown(2048, 300), None, "tf32",
+         3 * dot_ops, n * D * 4 + side + tiles_out(grown(2048, 300), 300)),
+        (K1_DEEP, SM.COSINE, v, None, 1024, grown(2048, 1024), None, "tf32",
+         3 * dot_ops, n * D * 4 + side + tiles_out(grown(2048, 1024), 1024)),
+        (K1_DEEP_BF16, SM.COSINE, vb, None, 512, grown(4096, 512), None, "bf16",
+         dot_ops, n * D * 2 + side + tiles_out(grown(4096, 512), 512)),
         (K2_S8, SM.COSINE, vq, sc, 32, 2048, None, "int8",
          dot_ops, n * D + n * 4 + side + tiles_out(2048, 32)),
         (K2_WIDE, SM.COSINE, vq, sc, 256, 2048, None, "int8",
          dot_ops, n * D + n * 4 + side + tiles_out(2048, 256)),
-        (K2_CORE, SM.COSINE, vq, sc, 300, 2048, None, "int8",
-         dot_ops, n * D + n * 4 + side + tiles_out(2048, 300)),
+        (K2_DEEP + " k300", SM.COSINE, vq, sc, 300, grown(2048, 300), None, "int8",
+         dot_ops, n * D + n * 4 + side + tiles_out(grown(2048, 300), 300)),
+        (K2_DEEP, SM.COSINE, vq, sc, 1024, grown(2048, 1024), None, "int8",
+         dot_ops, n * D + n * 4 + side + tiles_out(grown(2048, 1024), 1024)),
         (K3_INT8, SM.COSINE, vq, sc, 128, 4096, 2, "int8",
          dot_ops, n * D + n * 4 + side + k3_out),
         (K3_BF16, SM.COSINE, vb, None, 128, 4096, 2, "bf16",
@@ -651,7 +740,7 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
                 return torch.topk(torch.mm(lq, lrows.T).view(
                     B, n // tile_n, tile_n // 128, 128), winners, dim=2)
         plain_reps = 2 if metric is SM.MANHATTAN else 5
-        reps = 5 if name in (K1_CORE, K2_CORE, K4_CORE) else 20  # ~0.25 s a call
+        reps = 5 if name == K4_CORE else 20  # ~0.25 s a call
         ms, plain_ms = interleaved_ms(kern, plain, reps=reps, plain_reps=plain_reps)
         lib_ms = cuda_time_ms(lib, 10)
         err = compare(f"{key} at the main-path shape (top {k})",
@@ -659,14 +748,68 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
         errs[name] = max(errs.get(name, 0.0), err)
         t = out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         **bound(nbytes, ops, op_type)}
+        if name in (K1_DEEP, K1_DEEP_BF16, K2_DEEP):
+            # merge_topk's stable sort of the grown tiles' lists, apart
+            s_, i_ = kern()
+            merge_ms = cuda_time_ms(lambda: scan.merge_topk(
+                s_.reshape(B, -1), i_.reshape(B, -1), k), 5)
+            log(f"  {key:22s} tiles of {tile_n}: merge_topk sort {merge_ms:.4f} ms of "
+                f"{B} x {s_.shape[1] * k} candidates")
+            del s_, i_
         int8_work = (f"; tensor work {3 * dot_ops / PEAK_OPS_PER_S['int8'] * 1e3:.4f} "
                      f"ms (3 int8 passes)")
-        work = {K3_INT8: int8_work, K2_S8: int8_work, K2_WIDE: int8_work,
+        work = {K3_INT8: int8_work, K2_S8: int8_work, K2_WIDE: int8_work, K2_DEEP: int8_work,
                 K3_BF16: f"; {design_work(n)}", K1_BF16: f"; {design_work(n)}",
-                K1_WIDE_BF16: f"; {design_work(n)}"}.get(name, "")
+                K1_WIDE_BF16: f"; {design_work(n)}",
+                K1_DEEP_BF16: f"; {design_work(n)}"}.get(name, "")
         log(f"  {key:22s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{op_type} rate){work}")
+    # merge_topk's sort at the caller's 2,048-row tiles (k 1,000's k_pad of
+    # 1,024 a tile), beside the grown tiles' above: what exact_tile saves
+    s_ = torch.randn((B, (n // 2048) * 1024), device=dev)
+    i_ = torch.arange(s_.shape[1], dtype=torch.int32, device=dev).expand(B, -1).contiguous()
+    log(f"  merge_topk sort at 2,048-row tiles, k 1,024: "
+        f"{cuda_time_ms(lambda: scan.merge_topk(s_, i_, 1024), 3):.4f} ms of {B} x "
+        f"{s_.shape[1]} candidates")
+    del s_, i_
+    out.update(time_core_kernels(scan, metrics_mod, v, vq, sc, sq, q, library))
+    return out
+
+
+def time_core_kernels(scan, metrics_mod, v, vq, sc, sq, q, library) -> dict:
+    """Phase 2b, the CUDA-core K1 and K2 (lists past 2,048: no path of the
+    main shape hands them one) at the small shape, 65,536 x 384 rows of
+    the main ones and 64 queries, lists of CORE_K over CORE_TILE-row tiles,
+    beside the plain version and the library path; outputs held."""
+    SM = metrics_mod.SimilarityMetric
+    n, b, k, tile_n = 65536, 64, CORE_K, CORE_TILE
+    qs, sqs = q[:b].contiguous(), sq[:n]
+    qsq = (qs * qs).sum(-1, keepdim=True)
+    valid = torch.ones(n, dtype=torch.bool, device=v.device)
+    out = {}
+    side = n * 4 + n * 1 + b * D * 4
+    tiles = b * (n // tile_n) * k * 8
+    for name, rows, scales, op_type, passes, row_bytes in (
+            (K1_CORE, v[:n], None, "tf32", 3, n * D * 4),
+            (K2_CORE, vq[:n], sc[:n], "int8", 1, n * D + n * 4)):
+        def kern(rows=rows, scales=scales):
+            return scan.tile_topk_cuda(rows, scales, sqs, valid, qs, metric=SM.COSINE,
+                                       k_tile=k, tile_n=tile_n)
+
+        def plain(rows=rows, scales=scales):
+            return scan.tile_topk_plain(rows, scales, sqs, valid, qs, metric=SM.COSINE,
+                                        k_tile=k + 1, tile_n=tile_n)
+        ms, plain_ms = interleaved_ms(kern, plain, reps=2, plain_reps=2)
+        lib = library(rows.to(torch.float32), scales, k, SM.COSINE, qs, qsq, sqs)
+        lib_ms = cuda_time_ms(lib, 5)
+        compare(f"{name} at {n} x {D}, B {b} (top {k}, tiles of {tile_n})",
+                merged(scan, kern(), b, k), merged(scan, plain(), b, k + 1))
+        t = out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         **bound(row_bytes + side + tiles, passes * 2.0 * b * n * D, op_type)}
+        log(f"  {name:22s} {n} x {D}, B {b}, k {k}, tiles of {tile_n}: kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}, {op_type} rate)")
     return out
 
 
@@ -1215,8 +1358,8 @@ def recall(got: np.ndarray, truth: np.ndarray) -> float:
     return hits / truth.size
 
 
-def truth_topk(rows32: np.ndarray, q64: np.ndarray, metric_name: str, dev):
-    """float64 top-(K+1) on the card: (scores, slots), ties to the lowest
+def truth_topk(rows32: np.ndarray, q64: np.ndarray, metric_name: str, dev, k: int = K):
+    """float64 top-(k+1) on the card: (scores, slots), ties to the lowest
     slot. Rows are the f32 values the collection stored as f64."""
     q = torch.from_numpy(q64).to(dev)
     out = []
@@ -1229,7 +1372,7 @@ def truth_topk(rows32: np.ndarray, q64: np.ndarray, metric_name: str, dev):
         out.append(s)
     s = torch.cat(out, dim=1)
     s, i = torch.sort(s, dim=1, descending=True, stable=True)
-    return s[:, : K + 1].cpu().numpy(), i[:, : K + 1].cpu().numpy()
+    return s[:, : k + 1].cpu().numpy(), i[:, : k + 1].cpu().numpy()
 
 
 def with_env(fn, name: str, value: str):
@@ -1417,6 +1560,20 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
         raise AssertionError("the native f64 re-score never served the quantized paths")
     wide_breakdown(wide, exact, queries, times, n_batches // 2, build, card)
     dclient.delete_collection("default")
+    # lists past 256 (k_pad 1,024; the 2x pools of 512 over bf16 rows and
+    # 1,024 over int8 rows) run on the tensor-core body's deep mode, on the
+    # tiles exact_tile grows
+    deep = [(f"exact approx=False, k {K_DEEP['f32']} (K1, deep lists)", client, K1_DEEP,
+             K_DEEP["f32"]),
+            (f"memory-optimized exact, k {K_DEEP['bf16']} (K1 over bf16 rows, deep lists)",
+             mclient, K1_DEEP_BF16, K_DEEP["bf16"]),
+            (f"quantized exact, k {K_DEEP['int8']} (K2, deep lists)", qclient, K2_DEEP,
+             K_DEEP["int8"])]
+    deep_paths(build, SM, deep, rows, queries, dev, card, n_batches)
+    launches = {kk.symbol: kk.launches for kk in build.KERNELS}
+    for sym in (K1_DEEP, K1_DEEP_BF16, K2_DEEP):
+        if not launches[sym]:
+            raise AssertionError(f"{sym} was never launched on the main path")
 
     # correctness by the repo's own means
     speed = ids_of(results["speed, guard off (K3 + f32 re-score)"])
@@ -1471,6 +1628,48 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     if q_ok < 0.99:
         raise AssertionError(f"quantized exact recall {q_ok} < 0.99")
     return launches, exact_ids
+
+
+def deep_paths(build, SM, clients, rows, queries, dev, card: str, n_batches: int) -> None:
+    """Phase 3's lists past 256, each (name, client, kernel, k) on its
+    collection: one object-returning call (search_batch, approx=False)
+    whose launches must be the deep entry's and no CUDA-core entry's, then
+    n_batches timed calls of search_batch_arrays (256 x k result objects a
+    call would time the host), the device stage (the index's _device_topk
+    to torch.cuda.synchronize()) timed apart, the same route, and every
+    query's ids held against float64 truth beyond 1e-5 near-ties."""
+    for name, client, sym, k in clients:
+        with client.get_collection("main").index_read() as index:
+            pass
+        before = {kk.symbol: kk.launches for kk in build.KERNELS}
+        index.search_batch(queries, k, SM.COSINE, approx=False)
+        moved = {kk.symbol for kk in build.KERNELS if kk.launches != before[kk.symbol]}
+        if moved & {*K1_SYMBOLS, *K2_SYMBOLS} != {sym}:
+            raise AssertionError(f"{name}: launched {moved}, not {sym}")
+        spent = {"device": []}
+        index._device_topk = timed(spent, "device", index._device_topk, True)
+        try:
+            _, moved_all, times = drive(
+                [(name, lambda qs, index=index, k=k: index.search_batch_arrays(
+                    qs, k, SM.COSINE, approx=False))], queries, n_batches, build, card)
+            ids, scores = index.search_batch_arrays(queries, k, SM.COSINE, approx=False)
+        finally:
+            del index._device_topk
+        if set(moved_all[name]) & {*K1_SYMBOLS, *K2_SYMBOLS} != {sym}:
+            raise AssertionError(f"{name}: launched {moved_all[name]}, not {sym}")
+        dev_ms = np.asarray(spent["device"][1:])  # past the warm call
+        log(f"    {name}: device stage p50 {np.percentile(dev_ms, 50):.3f} ms p99 "
+            f"{np.percentile(dev_ms, 99):.3f} ms; batch p50 {np.percentile(times[name], 50):.3f} "
+            f"ms p99 {np.percentile(times[name], 99):.3f} ms [{card}]")
+        bad, err = 0, 0.0
+        for lo in range(0, B, 64):  # float64 truth, 64 queries at a time
+            t_s, t_ids = truth_topk(rows, queries[lo:lo + 64], "cosine", dev, k)
+            bad += ids_match(t_s, t_ids, scores[lo:lo + 64], ids[lo:lo + 64])
+            err = max(err, float(np.max(np.abs(scores[lo:lo + 64] - t_s[:, :k]))))
+        log(f"    {name} vs f64 truth ({B} queries, top {k}): id mismatches beyond ties "
+            f"{bad}, max score err {err:.3g}")
+        if bad or err > 1e-5:
+            raise AssertionError(f"{name} disagrees with float64 truth")
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -3741,6 +3940,8 @@ def main() -> int:
     log(f"    built {sources} in {time.perf_counter() - t0:.2f} s")
     for key, plan in wide_plans(_build).items():
         log(f"    wide mode plan, {key}: {plan}")
+    for key, plan in deep_plans(_build).items():
+        log(f"    deep mode plan, {key}: {plan}")
     for name, text in _build.build_logs.items():
         for line in _build.ptxas_report(name):
             log(f"    {name} ptxas:", line)

@@ -250,3 +250,42 @@ def test_quantized_rescore_native_and_numpy(corpus, metric, native,
     j_ids, j_s = search(jax_index, queries, metric)
     assert np.array_equal(ids, j_ids)
     np.testing.assert_allclose(s, j_s, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("profile, k, pool", [
+    ("f32", 1000, 1024), ("memory-optimized", 200, 512), ("quantized", 500, 1024),
+])
+def test_kernel_regime_deep_lists_match_f64_truth(corpus, profile, k, pool, kernel_regime,
+                                                  monkeypatch):
+    """Lists past 256 at kernel scale: approx=False at k 1,000 over f32 rows
+    (K1, k_pad 1,024), the memory-optimized profile's exact path at k 200
+    (K1 over bf16 rows, the 2x pool of 512) and the quantized profile's at
+    k 500 (K2, the 2x pool of 1,024) reach the exact kernels with those
+    lists, on the tile exact_tile grows (the whole 4,096 rows here), and
+    return float64 truth's ids beyond 1e-5 near-ties; the re-scored
+    profiles return its scores."""
+    rows, deleted, queries = corpus
+    dtype = {"f32": "auto", "memory-optimized": torch.bfloat16, "quantized": "int8"}[profile]
+    port = build(FlatIndex(D, device_dtype=dtype, device="cpu"), rows, deleted, False)
+    seen = []
+    for name in ("pallas_search_topk", "pallas_search_topk_int8"):
+        fn = getattr(tflat.scan, name)
+        monkeypatch.setattr(tflat.scan, name, lambda *a, fn=fn, **kw: seen.append(
+            (kw["k"], kw["tile_n"])) or fn(*a, **kw))
+    ids, s = port.search_batch_arrays(queries, k, SimilarityMetric.COSINE, approx=False)
+    assert seen == [(pool, tflat._PALLAS_TILE_BF16 if profile == "memory-optimized"
+                     else tflat._PALLAS_TILE_F32)]
+    assert tflat.scan.exact_tile(port._capacity, seen[0][1], pool) == N
+    live = np.setdiff1d(np.arange(10, 10 + N), deleted)
+    v = np.asarray(rows, np.float64)[live - 10]
+    truth = (queries @ v.T) / (np.linalg.norm(queries, axis=1)[:, None]
+                               * np.linalg.norm(v, axis=1)[None, :])
+    order = np.argsort(-truth, axis=1, kind="stable")[:, :k]
+    t_ids, t_s = live[order], np.take_along_axis(truth, order, 1)
+    np.testing.assert_allclose(s, t_s, rtol=1e-5, atol=1e-5)
+    for b_i, p in zip(*np.nonzero(ids != t_ids)):
+        gaps = np.abs(t_s[b_i] - t_s[b_i, p])
+        gaps[p] = np.inf
+        assert gaps.min() <= 1e-5
+    if profile != "f32":
+        np.testing.assert_allclose(s, t_s, rtol=1e-12, atol=1e-12)

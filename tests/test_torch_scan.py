@@ -96,6 +96,35 @@ def test_exact_wide_k_matches_pallas(dtype, rng):
     check(jout, tout)
 
 
+@pytest.mark.parametrize("k", [300, 512, 1000])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_exact_deep_k_matches_pallas(dtype, k, rng):
+    """k past 256 (the deep mode's range on the card): the JAX K1 / K2 in
+    interpret mode at tile_n 256 (each tile's top 256, merged) against the
+    port at the same tile_n, which grows its own tile with k (exact_tile:
+    the whole 8,192 rows here, one list of k). Cosine, 10% invalid rows;
+    ids exact, scores within 1e-5. The reference unrolls one step a list
+    entry, so tile_n 256 keeps each case near 7 s on one CPU core."""
+    n, d, b = 8192, 64, 8
+    values, valid = corpus(rng, n, d, invalid_frac=0.1)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    (jv, jsq, jvalid), (tv, tsq, tvalid) = both(values, valid, "f32" if dtype == "int8" else dtype)
+    kw = dict(k=k, tile_n=256)
+    assert scan.exact_tile(n, 256, k) == n
+    if dtype == "int8":
+        (jq, js), (tq, ts) = quantized(values)
+        jout = jscan.pallas_search_topk_int8(
+            jq, js, jsq, jvalid, jnp.asarray(q), metric=JMetric.COSINE, interpret=True, **kw)
+        tout = scan.pallas_search_topk_int8(
+            tq, ts, tsq, tvalid, torch.from_numpy(q), metric=SimilarityMetric.COSINE, **kw)
+    else:
+        jout = jscan.pallas_search_topk(
+            jv, jsq, jvalid, jnp.asarray(q), metric=JMetric.COSINE, interpret=True, **kw)
+        tout = scan.pallas_search_topk(
+            tv, tsq, tvalid, torch.from_numpy(q), metric=SimilarityMetric.COSINE, **kw)
+    check(jout, tout)
+
+
 def test_tie_break_lowest_row(rng):
     n, d, b, k = 1024, 64, 8, 4
     base = rng.normal(size=(1, d)).astype(np.float32)
@@ -680,12 +709,12 @@ def test_topk_mode_model_matches_tile_topk_plain(k):
 
 def tensor_core_entry(dtype, k):
     """The symbol of K1 / K2's tensor-core entry for rows of ``dtype`` and
-    lists of ``k`` (the TOPK mode to k 32, the wide mode to k 256), or
-    None past them."""
-    if k > 256:
+    lists of ``k`` (the TOPK mode to k 32, the wide mode to k 256, the deep
+    mode to k 2,048), or None past them."""
+    if k > 2048:
         return None
-    return ("scan_topk_exact_" if k <= 32 else "scan_topk_wide_") + {
-        "f32": "tf32", "bf16": "bf16", "int8": "s8"}[dtype]
+    mode = "exact" if k <= 32 else "wide" if k <= 256 else "deep"
+    return f"scan_topk_{mode}_" + {"f32": "tf32", "bf16": "bf16", "int8": "s8"}[dtype]
 
 
 #: the wide mode's empty slot: (-inf, WIDE_PLACE), after every row
@@ -802,12 +831,174 @@ def test_wide_mode_model_matches_tile_topk_plain(k, tile_n):
         assert set(batches) == {32, 64, 128}
 
 
+#: the deep mode's staging buffer (a query's candidates between merges) and
+#: an empty entry's row (csrc/scan_mma.cuh DEEP_STAGE, NO_ROW)
+DEEP_STAGE = 256
+NO_ROW = 0x7FFFFFFF
+
+
+def _deep_rank(bs, br, s, r):
+    """deep_rank for every (s, r) at once: the batch entries (sorted) that
+    precede it, by the binary search's steps of 256, 128, ..., 1."""
+    lo = np.zeros(len(s), np.int64)
+    step = DEEP_STAGE
+    while step:
+        j = lo + step - 1
+        ok = j < len(bs)
+        jj = np.minimum(j, len(bs) - 1)
+        lo += np.where(ok & _precedes(bs[jj], br[jj], s, r), step, 0)
+        step //= 2
+    return lo
+
+
+def _deep_merge(ls, lr, bs, br, k):
+    """deep_merge: the batch sorted by the bitonic network (256 slots, empty
+    ones (-inf, NO_ROW)); list entry i moves to i + c(i), c(i) the batch
+    entries that precede it (_deep_rank), and the batch entries j in [c(i -
+    1), c(i)) land at j + i; those past the list's last entry at j + len;
+    what lands at or past k drops. The kernel stops at the first group of
+    runs whose lowest entry stays (c 0), below which every c is 0 and no
+    batch entry lands: the same arrays."""
+    n = len(bs)
+    ps = np.full(DEEP_STAGE, -np.inf, np.float32)
+    pr = np.full(DEEP_STAGE, NO_ROW, np.int64)
+    ps[:n], pr[:n] = bs, br
+    ps, pr = _bitonic_sort(ps, pr)
+    bs, br = ps[:n], pr[:n]
+    c = _deep_rank(bs, br, ls, lr)
+    to_batch = np.empty(n, np.int64)
+    prev = 0
+    for i, ci in enumerate(c):
+        to_batch[prev:ci] = np.arange(prev, ci) + i
+        prev = ci
+    to_batch[prev:] = np.arange(prev, n) + len(ls)
+    size = min(k, len(ls) + n)
+    out_s = np.full(size, np.nan, np.float32)
+    out_r = np.full(size, -1, np.int64)
+    for src_s, src_r, to in ((ls, lr, np.arange(len(ls)) + c), (bs, br, to_batch)):
+        keep = to < k
+        assert np.all(np.isnan(out_s[to[keep]]))  # every slot written once
+        out_s[to[keep]], out_r[to[keep]] = src_s[keep], src_r[keep]
+    assert not np.isnan(out_s).any()
+    return out_s, out_r
+
+
+def deep_mode_model(s, tile_n, k, merges=None):
+    """A NumPy model of the deep mode's selection over a [B, N] score
+    matrix, step for step: per tile and query a list of up to k entries (the
+    output row) and a staging buffer of 256; each 128-row chunk's rows that
+    precede the k-th entry ((-inf, NO_ROW) while the list is short of k:
+    every row) staged in row order, the buffer merged first (_deep_merge)
+    when the chunk's rows would overflow it, and the ballot taken again
+    against the new k-th entry; at the tile's end the staged rows merged.
+    Order: (score descending, row ascending). Returns ([B, T, k] scores,
+    int32 rows); ``merges`` counts the merges by batch size."""
+    b, n = s.shape
+    n_tiles = n // tile_n
+    out_s = np.empty((b, n_tiles, k), np.float32)
+    out_i = np.empty((b, n_tiles, k), np.int32)
+    for q in range(b):
+        for t in range(n_tiles):
+            base = t * tile_n
+            ls, lr = np.empty(0, np.float32), np.empty(0, np.int64)
+            st_s, st_r = np.empty(0, np.float32), np.empty(0, np.int64)
+            kth = (-np.inf, NO_ROW)
+
+            def merge(ls, lr, st_s, st_r):
+                if merges is not None:
+                    merges[len(st_s)] = merges.get(len(st_s), 0) + 1
+                ls, lr = _deep_merge(ls, lr, st_s, st_r, k)
+                return ls, lr, (ls[k - 1], lr[k - 1]) if len(ls) == k else (-np.inf, NO_ROW)
+            for c in range(tile_n // 128):
+                cs = s[q, base + c * 128:base + (c + 1) * 128]
+                cr = np.arange(c * 128, (c + 1) * 128)
+                cand = _precedes(cs, cr, *kth)
+                if not cand.any():
+                    continue
+                if len(st_s) + int(cand.sum()) > DEEP_STAGE:
+                    ls, lr, kth = merge(ls, lr, st_s, st_r)
+                    st_s, st_r = np.empty(0, np.float32), np.empty(0, np.int64)
+                    cand = _precedes(cs, cr, *kth)
+                st_s = np.concatenate([st_s, cs[cand]])
+                st_r = np.concatenate([st_r, cr[cand]])
+            if len(st_s):
+                ls, lr, kth = merge(ls, lr, st_s, st_r)
+            out_s[q, t] = ls
+            out_i[q, t] = lr + base
+    return out_s, out_i
+
+
+@pytest.mark.parametrize("k, tile_n", [
+    (257, 512), (300, 2048), (512, 2048), (1024, 4096), (2048, 2048), (300, 16384),
+    (1024, 32768), (2048, 32768),
+])
+def test_deep_mode_model_matches_tile_topk_plain(k, tile_n):
+    """The deep mode's selection (candidates staged 256 a query, merged into
+    a list in the output by ranks) gives tile_topk_plain's ids and scores
+    exactly on integer-valued scores with many ties, an all-invalid tile, a
+    tile invalid but for one row, a tile whose rows rise (every chunk's rows
+    all enter) and one whose rows fall, and k up to tile_n; batches past
+    128 rows occur, and (tiles of 2,048 rows and more past k) partial ones."""
+    g = np.random.default_rng([k, tile_n, 1])
+    b, n = 3, 5 * tile_n
+    s = g.integers(-4, 5, size=(b, n)).astype(np.float32)
+    s[:, tile_n:3 * tile_n] = -np.inf  # tile 1: no valid row
+    s[:, 2 * tile_n + 100] = 2.0  # tile 2: one valid row
+    s[0, 3 * tile_n:4 * tile_n] = np.arange(tile_n) // 3  # rising, in ties of three
+    s[1, 3 * tile_n:4 * tile_n] = -np.arange(tile_n) // 5  # falling, in ties of five
+    s[2, 3 * tile_n:4 * tile_n] = g.normal(size=tile_n)
+    merges = {}
+    got_s, got_i = deep_mode_model(s, tile_n, k, merges)
+    want_s, want_i = scan.stable_topk(torch.from_numpy(s).view(b, n // tile_n, tile_n), k)
+    want_i = want_i + torch.arange(n // tile_n)[None, :, None] * tile_n
+    assert np.array_equal(got_i, want_i.numpy())
+    assert np.array_equal(got_s, want_s.numpy())
+    assert max(merges) > 128
+    if k < tile_n >= 2048:
+        assert min(merges) < DEEP_STAGE
+
+
+@pytest.mark.parametrize("k, tile_n, want", [
+    (256, 2048, 2048), (257, 2048, 16384), (300, 2048, 16384), (512, 2048, 16384),
+    (1000, 2048, 32768), (1024, 2048, 32768), (2048, 2048, 32768), (2049, 2048, 32768),
+    (512, 4096, 16384), (1024, 4096, 32768), (300, 65536, 65536),
+])
+def test_exact_tile_grows_with_k(k, tile_n, want, rng):
+    """exact_tile at 2^20 rows: tile_n up to k 256; past it the smallest
+    multiple of tile_n dividing the rows with at least 32 k rows, at most
+    32,768 (a tile past that stays as the caller gave it); manhattan keeps
+    the caller's tile. At test size the grown tile gives _exact the same
+    merged ids and scores as the caller's tile."""
+    assert scan.exact_tile(1 << 20, tile_n, k) == want
+    assert scan.exact_tile(1 << 20, tile_n, k, SimilarityMetric.MANHATTAN) == tile_n
+    assert scan.exact_tile(3 * tile_n, tile_n, k) == (
+        tile_n if k <= 256 or tile_n > scan.WIDE_MAX_TILE else 3 * tile_n)
+    if k <= 256 or k > 2048 or tile_n > 4096:
+        return
+    n, d, b = 3 * 8192, 16, 4
+    values, valid = corpus(rng, n, d, invalid_frac=0.1)
+    values[::7] = values[3]  # ties across tiles: the lowest row first
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    _, (tv, tsq, tvalid) = both(values, valid)
+    tq = torch.from_numpy(q)
+    grown = scan.exact_tile(n, tile_n, k)
+    assert grown > tile_n
+    for metric in METRICS:
+        m = SimilarityMetric[metric]
+        got = scan.pallas_search_topk(tv, tsq, tvalid, tq, metric=m, k=k, tile_n=tile_n)
+        want_s, want_i = scan.merge_topk(*(x.reshape(b, -1) for x in scan.tile_topk_plain(
+            tv, None, tsq, tvalid, tq, metric=m, k_tile=min(k, tile_n), tile_n=tile_n)), k)
+        assert torch.equal(got[1], want_i)
+        assert torch.equal(got[0], want_s)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("k", [1, 16, 32, 33, 128, 256, 257, 300])
+@pytest.mark.parametrize("k", [1, 16, 32, 33, 128, 256, 257, 300, 512, 1024, 2048, 2049])
 def test_exact_route(dtype, k):
     """exact_route: up to k 32 the tensor-core body's TOPK mode by the rows'
-    dtype (f32: 3xTF32, bf16, int8: K2), up to k 256 its wide mode (tiles
-    of at most 32,768 rows), beyond them the CUDA-core K1 / K2. Manhattan
+    dtype (f32: 3xTF32, bf16, int8: K2), up to k 256 its wide mode and up to
+    k 2,048 its deep mode (both on tiles of at most 32,768 rows), beyond
+    them the CUDA-core K1 / K2. Manhattan
     (K4): up to k 32 the FADD stream over f32 and bf16 rows (tiles of a
     multiple of 256 rows), beyond it (and for tiles of 384 rows) the
     CUDA-core scan_topk_l1; over int8 rows the wrapper refuses it."""
@@ -817,9 +1008,9 @@ def test_exact_route(dtype, k):
     for metric in METRICS:
         assert scan.exact_route(dt, k, SimilarityMetric[metric]).symbol == want
         for tile_n in (2048, 32768, 65536):
-            wide = 32 < k <= 256 and tile_n > scan.WIDE_MAX_TILE
+            listed = 32 < k <= 2048 and tile_n > scan.WIDE_MAX_TILE
             assert scan.exact_route(dt, k, SimilarityMetric[metric], tile_n).symbol == (
-                core.symbol if wide else want)
+                core.symbol if listed else want)
     l1 = {"f32": "scan_topk_l1_fadd", "bf16": "scan_topk_l1_fadd_bf16"}.get(dtype)
     want_l1 = l1 if k <= 32 and l1 else "scan_topk_l1"
     MANHATTAN = SimilarityMetric.MANHATTAN
@@ -836,21 +1027,26 @@ def test_exact_route(dtype, k):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("k", [16, 32, 33, 128, 256, 257])
-def test_exact_wrapper_routes_rows_by_dtype_and_k(dtype, k, monkeypatch):
+@pytest.mark.parametrize("k, tile_n", [
+    (16, 512), (32, 512), (33, 512), (128, 512), (256, 512), (257, 512), (300, 512),
+    (512, 512), (1024, 2048), (2048, 2048), (2049, 4096), (300, 65536),
+])
+def test_exact_wrapper_routes_rows_by_dtype_and_k(dtype, k, tile_n, monkeypatch):
     """tile_topk_cuda launches the kernel exact_route names, once, with its
     own operands: the tf32 / bf16 / int8 query operand (and the int8 term
-    scales) on the tensor-core body (both modes), the transposed f32
-    queries and a dtype code on the CUDA-core body. A fake card lets the
-    host side run here."""
-    n, d, b, tile_n = 1024, 100, 5, 512
+    scales) on the tensor-core body (all three modes), the transposed f32
+    queries and a dtype code on the CUDA-core body (k past 2,048, tiles
+    past 32,768 rows). A fake card lets the host side run here."""
+    n, b = 2 * tile_n, 5
+    d = 100 if tile_n <= 4096 else 8
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
     rows = torch.zeros((n, d), dtype=dt)
     scales = torch.ones(n) if dtype == "int8" else None
     launched = []
     kernels = (scan.SCAN_TOPK_EXACT, scan.SCAN_TOPK_EXACT_INT8, scan.SCAN_TOPK_EXACT_TF32,
                scan.SCAN_TOPK_EXACT_BF16, scan.SCAN_TOPK_EXACT_S8, scan.SCAN_TOPK_WIDE_TF32,
-               scan.SCAN_TOPK_WIDE_BF16, scan.SCAN_TOPK_WIDE_S8)
+               scan.SCAN_TOPK_WIDE_BF16, scan.SCAN_TOPK_WIDE_S8, scan.SCAN_TOPK_DEEP_TF32,
+               scan.SCAN_TOPK_DEEP_BF16, scan.SCAN_TOPK_DEEP_S8)
     for kern in kernels:
         monkeypatch.setattr(kern, "launch",
                             lambda *a, kern=kern: launched.append((kern.symbol, a)))
@@ -868,10 +1064,12 @@ def test_exact_wrapper_routes_rows_by_dtype_and_k(dtype, k, monkeypatch):
                                k_tile=k, tile_n=tile_n)
     assert s.shape == i.shape == (b, n // tile_n, k)
     want = scan.exact_route(dt, k, SimilarityMetric.EUCLIDEAN, tile_n)
-    assert want.symbol == (tensor_core_entry(dtype, k) or want.symbol)
+    core = tile_n > scan.WIDE_MAX_TILE and k > 32 or k > 2048
+    assert want.symbol == (want.symbol if core else tensor_core_entry(dtype, k))
+    assert core == (want in (scan.SCAN_TOPK_EXACT, scan.SCAN_TOPK_EXACT_INT8))
     assert [sym for sym, _ in launched] == [want.symbol]
     args = launched[0][1]
-    if k <= 256:
+    if not core:
         assert ops == [{"f32": "query_operand_tf32", "bf16": "query_operand",
                         "int8": "query_operand_int8"}[dtype]]
         tail = args[9:15] if dtype == "int8" else args[7:13]
@@ -1058,8 +1256,9 @@ def assert_topk_matches(got, want):
 def test_exact_kernel_matches_plain_on_the_card(dtype, k, tile_n, shape):
     """K1 on the route exact_route names: the tensor-core body's TOPK mode
     (k <= 32; scan_topk_exact_tf32 over f32 rows, _bf16 over bf16 rows),
-    its wide mode (k 33-256: scan_topk_wide_tf32) and the CUDA-core
-    scan_topk_exact's lists in the output (k > 256)."""
+    its wide mode (k 33-256: scan_topk_wide_tf32) and its deep mode (k 300:
+    scan_topk_deep_tf32, on the tile exact_tile grows: 16,384 and 8,192
+    rows here); the plain version at the caller's tile."""
     rows, sq, valid, q = card_inputs(*shape)
     v, _ = rows[dtype]
     for metric in METRICS:
@@ -1093,19 +1292,39 @@ TOPK_SHAPES = [(8192, 100, 5, 2048), (65536, 384, 256, 4096), (16384, 768, 70, 2
                (1 << 19, 384, 256, 2048)]
 TOPK_IDS = ["8192x100-B5-t2048", "65536x384-B256-t4096", "16384x768-B70-t2048",
             "524288x384-B256-t2048"]
+#: the deep mode's lists (k 257-2,048) on those shapes (k = tile_n at 2,048
+#: over 2,048-row tiles) and over tiles of 16,384 and 32,768 rows (the
+#: wrapper's grown tiles; 200-byte rows on the plain-load staging)
+DEEP_KS = [257, 300, 512, 1024, 2048]
+DEEP_SHAPES = [(65536, 384, 64, 16384), (131072, 384, 70, 32768), (65536, 100, 5, 32768)]
+DEEP_IDS = ["65536x384-B64-t16384", "131072x384-B70-t32768", "65536x100-B5-t32768"]
+TOPK_CASES = [
+    pytest.param(shape, k, id=f"k{k}-{sid}")
+    for shapes, ids, ks in ((TOPK_SHAPES, TOPK_IDS, [1, 10, 16, 32, 33, 64, 100, 128, 256]),
+                            (TOPK_SHAPES + DEEP_SHAPES, TOPK_IDS + DEEP_IDS, DEEP_KS))
+    for k in ks for shape, sid in zip(shapes, ids)
+]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", TOPK_SHAPES, ids=TOPK_IDS)
-@pytest.mark.parametrize("k", [1, 10, 16, 32, 33, 64, 100, 128, 256])
+@pytest.mark.parametrize("shape, k", TOPK_CASES)
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 def test_exact_topk_mode_matches_plain_on_the_card(dtype, k, shape):
     """K1 and K2 on the route exact_route names (k <= 32: the tensor-core
     body's TOPK mode, scan_topk_exact_tf32 / _bf16 / _s8; k 33-256: its wide
-    mode, scan_topk_wide_tf32 / _bf16 / _s8), one launch a metric: every
-    tile's list held against tile_topk_plain's under the 1e-5 rule, with 5%
+    mode, scan_topk_wide_tf32 / _bf16 / _s8; k 257-2,048: its deep mode,
+    scan_topk_deep_tf32 / _bf16 / _s8), one launch a metric: every tile's
+    list held against tile_topk_plain's under the 1e-5 rule, with 5%
     invalid rows, rows 7, 300 and 900 one row (ties to the lowest), query 0
-    near them, and tile 1 without a valid row."""
+    near them, and tile 1 without a valid row.
+
+    One case the rule cannot decide: dot products of these rows (|x| up to
+    2 sqrt(D)) near 0, which lists of half a tile or more reach. There the
+    plain f32 product itself lies up to 1.2e-5 (D 100), 4.8e-5 (D 384) and
+    1.3e-4 (D 768) from float64 on an H100 (PERF.md), so no two f32
+    products meet 1e-5 against each other. Those dot lists are held to
+    float64 instead (assert_dots_match_f64); cosine and euclidean keep the
+    rule there."""
     n, d, b, tile_n = shape
     rows, sq, valid, q = card_inputs(n, d, b)
     for name, (v, _) in rows.items():
@@ -1128,10 +1347,44 @@ def test_exact_topk_mode_matches_plain_on_the_card(dtype, k, shape):
                                      tile_n=tile_n)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
-        ws, wi = scan.tile_topk_plain(v, scales, sq, valid, q, metric=m, k_tile=k + 1,
+        kw = min(k + 1, tile_n)
+        ws, wi = scan.tile_topk_plain(v, scales, sq, valid, q, metric=m, k_tile=kw,
                                       tile_n=tile_n)
+        if metric == "DOT_PRODUCT" and 2 * k >= tile_n:
+            assert_dots_match_f64((s_, i_), (ws[..., :k], wi[..., :k]), v, scales, valid, q)
+            continue
         assert_topk_matches((s_.reshape(-1, k), i_.reshape(-1, k)),
-                            (ws.reshape(-1, k + 1), wi.reshape(-1, k + 1)))
+                            (ws.reshape(-1, kw), wi.reshape(-1, kw)))
+
+
+def assert_dots_match_f64(got, want, v, scales, valid, q):
+    """[B, T, k] dot-product lists against float64, beside the plain f32
+    product's lists: the kernel's listed scores no farther from their rows'
+    float64 dots than the plain version's, in rms and in the largest error
+    among dots within 1 of 0 (the largest error overall is an ulp or two of
+    the largest scores for both); each listed row's float64 dot within e
+    (the plain version's largest error) of its tile's float64 k-th best;
+    -inf slots (invalid rows) name the plain version's rows."""
+    b, n_tiles, k = got[0].shape
+    v64 = v.double() if scales is None else v.double() * scales.double()[:, None]
+    exact = q.double() @ v64.T
+    exact = torch.where(valid[None, :], exact, -torch.inf)
+    rms, near0, top = [], [], []
+    for s_, i_ in (got, want):
+        dots = exact.gather(1, i_.reshape(b, -1).long())
+        fin = torch.isfinite(dots)
+        assert torch.equal(fin, torch.isfinite(s_.reshape(b, -1)))
+        err = (s_.reshape(b, -1).double() - dots)[fin].abs()
+        rms.append(err.square().mean().sqrt().item())
+        near0.append(err[dots[fin].abs() < 1.0].max().item())
+        top.append(err.max().item())
+    assert rms[0] <= rms[1] and near0[0] <= near0[1], (rms, near0)
+    kth = exact.view(b, n_tiles, -1).topk(k, dim=-1).values[..., -1:]
+    mine = exact.gather(1, got[1].reshape(b, -1).long()).view(b, n_tiles, k)
+    fin = torch.isfinite(kth).expand_as(mine)
+    assert bool((mine[fin] >= kth.expand_as(mine)[fin] - top[1]).all())
+    inf = ~torch.isfinite(got[0])
+    assert torch.equal(got[1][inf], want[1][inf])
 
 
 @pytest.mark.cuda

@@ -12,10 +12,13 @@ reference's names and contracts so the two packages read side by side:
   rows; bf16 rows ``scan_topk_exact_bf16``; int8 rows
   ``scan_topk_exact_s8``), up to k = 256 on its wide mode (``csrc/wide.cu``
   ``scan_topk_wide_tf32`` / ``_bf16`` / ``_s8``: lists in shared memory,
-  merged a chunk at a time by bitonic networks), beyond it on the
-  CUDA-core body (``csrc/scan.cu`` ``scan_topk_exact`` /
-  ``scan_topk_exact_int8``): the route is decided before any launch
-  (``exact_route``).
+  merged a chunk at a time by bitonic networks), up to k = 2,048 on its
+  deep mode (``csrc/deep.cu`` ``scan_topk_deep_tf32`` / ``_bf16`` /
+  ``_s8``: lists in the output, candidates staged in shared memory and
+  merged a batch at a time), beyond it on the CUDA-core body
+  (``csrc/scan.cu`` ``scan_topk_exact`` / ``scan_topk_exact_int8``): the
+  route is decided before any launch (``exact_route``). Past k = 256 the
+  tiles grow with k (``exact_tile``).
 * ``pallas_search_block_topk`` / ``pallas_search_block_topk_int8`` —
   lane-group top-W candidate selection: kernel K3 keeps, per tile and per
   lane group l (the rows ``l mod 128`` of the tile), the W best rows; a
@@ -139,6 +142,18 @@ SCAN_TOPK_WIDE_S8 = _build.Kernel(
     "wide", "scan_topk_wide_s8",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
+SCAN_TOPK_DEEP_TF32 = _build.Kernel(
+    "deep", "scan_topk_deep_tf32",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_DEEP_BF16 = _build.Kernel(
+    "deep", "scan_topk_deep_bf16",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_DEEP_S8 = _build.Kernel(
+    "deep", "scan_topk_deep_s8",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
 
 
 # ------------------------------------------------------------ plain versions
@@ -259,6 +274,11 @@ MMA_MAX_K = 32
 #: 16-bit offsets in the tile)
 WIDE_MAX_K = 256
 WIDE_MAX_TILE = 1 << 15
+#: the longest per-tile list its deep mode keeps (in the output; tiles up
+#: to WIDE_MAX_TILE), and the rows a tile grows to for each entry of a list
+#: past WIDE_MAX_K (about k ln(T / k) of a tile's T rows enter its list)
+DEEP_MAX_K = 2048
+DEEP_TILE_PER_K = 32
 
 
 #: the longest per-tile list K4's FADD stream keeps (one entry a lane), and
@@ -289,8 +309,8 @@ def exact_route(dtype, k, metric=SimilarityMetric.COSINE, tile_n=DEFAULT_TILE_N)
     stream (f32/bf16 rows), else on the CUDA-core body; up to
     ``MMA_MAX_K`` the tensor-core body's TOPK mode (f32 rows: 3xTF32, bf16
     rows, int8 rows: K2); up to ``WIDE_MAX_K`` (and tiles up to
-    ``WIDE_MAX_TILE``) its wide mode; beyond them the CUDA-core K1
-    (f32/bf16) or K2."""
+    ``WIDE_MAX_TILE``) its wide mode, up to ``DEEP_MAX_K`` (the same
+    tiles) its deep mode; beyond them the CUDA-core K1 (f32/bf16) or K2."""
     if metric is SimilarityMetric.MANHATTAN:
         if k <= L1_MAX_K and tile_n % L1_CHUNK == 0:
             return _L1_FADD.get(dtype, SCAN_TOPK_L1)
@@ -301,7 +321,29 @@ def exact_route(dtype, k, metric=SimilarityMetric.COSINE, tile_n=DEFAULT_TILE_N)
     if k <= WIDE_MAX_K and tile_n <= WIDE_MAX_TILE:
         return {torch.float32: SCAN_TOPK_WIDE_TF32, torch.bfloat16: SCAN_TOPK_WIDE_BF16,
                 torch.int8: SCAN_TOPK_WIDE_S8}[dtype]
+    if k <= DEEP_MAX_K and tile_n <= WIDE_MAX_TILE:
+        return {torch.float32: SCAN_TOPK_DEEP_TF32, torch.bfloat16: SCAN_TOPK_DEEP_BF16,
+                torch.int8: SCAN_TOPK_DEEP_S8}[dtype]
     return SCAN_TOPK_EXACT_INT8 if dtype == torch.int8 else SCAN_TOPK_EXACT
+
+
+def exact_tile(n, tile_n, k, metric=SimilarityMetric.COSINE):
+    """The tile K1 / K2 scan ``n`` rows at for lists of ``k``: the
+    caller's ``tile_n`` up to k ``WIDE_MAX_K`` (and for manhattan, K4);
+    past it the smallest multiple of ``tile_n`` that divides ``n``, holds
+    at most ``WIDE_MAX_TILE`` rows and at least ``DEEP_TILE_PER_K`` k, else
+    the largest such multiple. Per-tile lists are ordered by (score
+    descending, row ascending) and the merge is stable, so the merged top
+    k is the same at any tile."""
+    if k <= WIDE_MAX_K or metric is SimilarityMetric.MANHATTAN or tile_n > WIDE_MAX_TILE:
+        return tile_n
+    best = tile_n
+    for m in range(2, WIDE_MAX_TILE // tile_n + 1):
+        if best >= DEEP_TILE_PER_K * k:
+            break
+        if n % (tile_n * m) == 0:
+            best = tile_n * m
+    return best
 
 
 def tile_topk_cuda(
@@ -340,7 +382,7 @@ def tile_topk_cuda(
                 n, d, b, k_tile, tile_n, _stream(dev),
             )
         return out_s, out_i
-    if kernel in (SCAN_TOPK_EXACT_S8, SCAN_TOPK_WIDE_S8):
+    if kernel in (SCAN_TOPK_EXACT_S8, SCAN_TOPK_WIDE_S8, SCAN_TOPK_DEEP_S8):
         q_op, q_scale = scan_mma.query_operand_int8(queries)
         with torch.cuda.device(dev):
             kernel.launch(
@@ -351,7 +393,7 @@ def tile_topk_cuda(
             )
         return out_s, out_i
     if kernel in (SCAN_TOPK_EXACT_TF32, SCAN_TOPK_EXACT_BF16, SCAN_TOPK_WIDE_TF32,
-                  SCAN_TOPK_WIDE_BF16):
+                  SCAN_TOPK_WIDE_BF16, SCAN_TOPK_DEEP_TF32, SCAN_TOPK_DEEP_BF16):
         if values.dtype == torch.float32:
             q_op = scan_mma.query_operand_tf32(queries)
         else:
@@ -493,6 +535,7 @@ def _exact(values, scales, sqnorms, valid, queries, metric, k, tile_n):
     n = values.shape[0]
     b = queries.shape[0]
     _check_tiling(n, tile_n)
+    tile_n = exact_tile(n, tile_n, k, metric)
     s, i = _tiles(
         tile_topk_plain, tile_topk_cuda,
         values=values, scales=scales, sqnorms=sqnorms, valid=valid,
