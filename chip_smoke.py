@@ -6,20 +6,20 @@ Phases (any failure raises and the exit code is not 0):
 
 1. Card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every native source under vectorlite_tpu_torch/csrc (scan.cu,
-   lanes.cu, exact.cu, wide.cu, deep.cu, l1.cu, pq.cu, ivf.cu with nvcc,
+   lanes.cu, exact.cu, wide.cu, select.cu, l1.cu, pq.cu, ivf.cu with nvcc,
    host_rescore.cpp, vlc_emit.cpp and hnsw_builder.cpp with g++; one
-   compiler per source, all started together); the wide and deep modes'
+   compiler per source, all started together); the wide mode's
    shared-memory plans.
 2. Kernels against their plain-torch versions on the card: K1 and K2 on
    the route scan.exact_route names (k <= 32: the tensor-core body's
    per-query top-k, scan_topk_exact_tf32 over f32 rows, _bf16 over bf16
    rows, scan_topk_exact_s8 over int8 rows; k 1, 16, 32; 32 < k <= 256:
-   its wide mode, scan_topk_wide_tf32 / _bf16 / _s8, k 33, 100, 256; 256 <
-   k <= 2,048: its deep mode, scan_topk_deep_tf32 / _bf16 / _s8, k 257,
-   300, 512, 1,024, 2,048, on the tiles scan.exact_tile grows, and tile by
-   tile at k = tile_n = 2,048 and at k 300 over 32,768-row tiles; k >
-   2,048: the CUDA-core scan_topk_exact / _int8 with lists in the output,
-   k 2,100), K3 on its three routes (int8 rows: scan_block_topw_s8, the
+   its wide mode, scan_topk_wide_tf32 / _bf16 / _s8, k 33, 100, 256; k >
+   256 and tiles past 32,768 rows: its scores into the radix select,
+   scan_topk_select_tf32 / _bf16 / _s8, k 257, 300, 512, 1,024, 2,048,
+   2,100 and 4,096 on the tiles scan.exact_tile grows, and tile by tile at
+   k = tile_n = 2,048 and 4,096, k 300 and 2,100 over 32,768-row tiles and
+   k 300 over 65,536), K3 on its three routes (int8 rows: scan_block_topw_s8, the
    tensor-core body's int8 form; bf16 rows: scan_block_topw_bf16; f32 rows:
    scan_block_topw, the CUDA-core body; three metrics), K4 on the route
    exact_route names (k <= 32: the FADD stream, scan_topk_l1_fadd over f32
@@ -29,18 +29,23 @@ Phases (any failure raises and the exit code is not 0):
    Then each kernel at the main-path shape (2^20 x 384, B=256, four query
    blocks; K1 over f32 rows at k 16 and bf16 rows at k 32, K2 at k 32, and
    the wide mode at k 100's lists: K1 over f32 rows at 128, over bf16 rows
-   at 256, K2 at 256; the deep mode on its grown tiles: K1 over f32 rows at
-   k 300 and k_pad 1,024, over bf16 rows at the pool of 512, K2 at k 300
-   and the pool of 1,024, each with merge_topk's sort apart; K3 on each route;
+   at 256, K2 at 256; K3 on each route;
    K4 over f32 rows at k 16, over bf16 rows at the memory-optimized pool of
    32 and at k 16, the CUDA-core K4 at k 300): timed
    beside its plain version and the PyTorch library path (K3's: one torch.mm, bf16 over the int8 or bf16
    values cast outside the timing, TF32-off f32 over f32 rows, then
    torch.topk of each lane group; K4's: 1 / (1 + torch.cdist(p=1)) and
    torch.topk), and its output held against the plain
-   version's. The CUDA-core K1 and K2 at 65,536 x 384, B 64, k 2,100 over
-   4,096-row tiles, the same way. Everywhere: ids equal except among scores within 1e-5 of
-   each other, scores within rtol/atol 1e-5.
+   version's. The radix select's entries at the paths' shapes, on the
+   tiles exact_tile grows (K1 over f32 rows at k 300 and at k_pad 1,024,
+   4,096 and 8,192, over bf16 rows at the pools of 512 and 4,096, K2 at k
+   300 and the pools of 1,024 and 4,096; the bound counts the function's
+   bytes and operations, a second bound the scratch's device-memory
+   traffic too where a group of its scores outgrows L2) and at 65,536 x
+   384, B 64, k 2,100 over 4,096-row tiles (the old CUDA-core entries'
+   shape), the same way, merge_topk's sort apart. Everywhere: ids
+   equal except among scores within 1e-5 of each other, scores within
+   rtol/atol 1e-5.
    K5 against pq_rank_plain, both entries: the tensor-core entry
    (pq_rank_mma) on 4-bit codes, packed and unpacked, and the look-up
    entry (pq_rank) on kc = 256 and on 4-bit codes, 4 metrics each, at
@@ -103,13 +108,16 @@ Phases (any failure raises and the exit code is not 0):
    manhattan exact paths must agree with float64 truth on 32 queries
    taken across all four query blocks. The quantized speed path runs
    twice: with the native f64 re-score and with VECTORLITE_NO_NATIVE=1.
-   Then lists past 256 on the deep mode: approx=False at k 1,000 over the
-   f32 rows (K1, k_pad 1,024), the memory-optimized collection's exact
+   Then lists past 256 on the radix select: approx=False at k 1,000 over
+   the f32 rows (K1, k_pad 1,024), the memory-optimized collection's exact
    path at k 200 (K1 over bf16 rows, pool 512) and the quantized one's at
    k 500 (K2, pool 1,024): one search_batch call each whose launches must
-   be the deep entry's alone, then batches through search_batch_arrays
+   be the select entry's alone, then batches through search_batch_arrays
    (p50 / p99, the device stage apart), every query's ids against float64
-   truth beyond 1e-5 near-ties.
+   truth beyond 1e-5 near-ties. Then lists past 2,048, batches of 64:
+   approx=False at k 3,000 (K1, k_pad 4,096), the memory-optimized exact
+   path at k 2,000 and the quantized one at k 2,000 (pools of 4,096), the
+   same way, with the host remainder and the launches printed.
 3b. The device mesh (dist/), after the phase-3 collections are freed, on
    phase 3's rows and queries: cuda:0 repeated 4 times (2^18 rows a shard).
    (a) FlatIndex(mesh=...) beside a one-card FlatIndex of the same rows,
@@ -295,8 +303,18 @@ B = 256
 K = 10
 K_WIDE = 100  # phase 3's wide exact searches: lists past the TOPK mode's 32
 #: phase 3's deep exact searches by row type: k_pad 1,024 over f32 rows, the
-#: 2x pools of 512 (bf16) and 1,024 (int8): lists past the wide mode's 256
+#: 2x pools of 512 (bf16) and 1,024 (int8): lists past the wide mode's 256,
+#: on the radix select
 K_DEEP = {"f32": 1000, "bf16": 200, "int8": 500}
+#: phase 3's exact searches past 2,048 by row type (k_pad 4,096 over f32
+#: rows, the 2x pools of 4,096 over bf16 and int8 rows), in batches of
+#: SELECT_BATCH: the radix select's lists
+K_SELECT = {"f32": 3000, "bf16": 2000, "int8": 2000}
+SELECT_BATCH = 64
+#: H100's L2: a group of the radix select's scores larger than this goes
+#: through device memory (its design bound then counts the scratch written
+#: and read once)
+L2_BYTES = 50e6
 
 #: NVIDIA H100 SXM data sheet (dense, 700 W): device-memory bandwidth and
 #: the peak rate of each operand type the functions need. The reference
@@ -316,15 +334,13 @@ PEAK_OPS_PER_S = {"f32": 67e12, "f32_add": 33.5e12, "tf32": 494.7e12, "bf16": 98
 REPLACES = {
     "scan_topk_exact_tf32": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_exact_bf16": "vectorlite_tpu/kernels/pallas_scan.py:46",
-    "scan_topk_exact": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_wide_tf32": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_wide_bf16": "vectorlite_tpu/kernels/pallas_scan.py:46",
-    "scan_topk_deep_tf32": "vectorlite_tpu/kernels/pallas_scan.py:46",
-    "scan_topk_deep_bf16": "vectorlite_tpu/kernels/pallas_scan.py:46",
+    "scan_topk_select_tf32": "vectorlite_tpu/kernels/pallas_scan.py:46",
+    "scan_topk_select_bf16": "vectorlite_tpu/kernels/pallas_scan.py:46",
     "scan_topk_exact_s8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_topk_wide_s8": "vectorlite_tpu/kernels/pallas_scan.py:471",
-    "scan_topk_deep_s8": "vectorlite_tpu/kernels/pallas_scan.py:471",
-    "scan_topk_exact_int8": "vectorlite_tpu/kernels/pallas_scan.py:471",
+    "scan_topk_select_s8": "vectorlite_tpu/kernels/pallas_scan.py:471",
     "scan_block_topw": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_block_topw_s8": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_block_topw_bf16": "vectorlite_tpu/kernels/pallas_scan.py:159",
@@ -346,18 +362,19 @@ K3_INT8, K3_BF16, K3_F32 = "scan_block_topw_s8", "scan_block_topw_bf16", "scan_b
 K3_SYMBOLS = (K3_INT8, K3_BF16, K3_F32)
 #: K1's and K2's routes (kernels/scan.py exact_route): k <= 32 on the
 #: tensor-core body's per-query top-k mode (f32 rows: 3xTF32; bf16 rows;
-#: int8 rows), 32 < k <= 256 on its wide mode, 256 < k <= 2,048 on its deep
-#: mode (tiles up to 32,768 rows), beyond on the CUDA-core body
-K1_TF32, K1_BF16, K1_CORE = "scan_topk_exact_tf32", "scan_topk_exact_bf16", "scan_topk_exact"
+#: int8 rows), 32 < k <= 256 on its wide mode (tiles up to 32,768 rows),
+#: beyond (or past those tiles) on its scores into the radix select
+#: (csrc/select.cu)
+K1_TF32, K1_BF16 = "scan_topk_exact_tf32", "scan_topk_exact_bf16"
 K1_WIDE, K1_WIDE_BF16 = "scan_topk_wide_tf32", "scan_topk_wide_bf16"
-K1_DEEP, K1_DEEP_BF16 = "scan_topk_deep_tf32", "scan_topk_deep_bf16"
-K1_SYMBOLS = (K1_TF32, K1_BF16, K1_WIDE, K1_WIDE_BF16, K1_DEEP, K1_DEEP_BF16, K1_CORE)
-K2_S8, K2_WIDE, K2_DEEP = "scan_topk_exact_s8", "scan_topk_wide_s8", "scan_topk_deep_s8"
-K2_CORE = "scan_topk_exact_int8"
-K2_SYMBOLS = (K2_S8, K2_WIDE, K2_DEEP, K2_CORE)
-#: phase 2's lists past 2,048 (the CUDA-core K1 / K2's range) and their
-#: tile: checked and timed at the small shape
-CORE_K, CORE_TILE = 2100, 4096
+K1_SELECT, K1_SELECT_BF16 = "scan_topk_select_tf32", "scan_topk_select_bf16"
+K1_SYMBOLS = (K1_TF32, K1_BF16, K1_WIDE, K1_WIDE_BF16, K1_SELECT, K1_SELECT_BF16)
+K2_S8, K2_WIDE, K2_SELECT = "scan_topk_exact_s8", "scan_topk_wide_s8", "scan_topk_select_s8"
+K2_SYMBOLS = (K2_S8, K2_WIDE, K2_SELECT)
+#: phase 2's lists past 2,048 and the tile of the CUDA-core entries the
+#: radix select replaced (324.93 / 338.54 ms at 65,536 x 384, B 64;
+#: PERF.md): the radix select's checks and its timing at that shape
+OLD_K, OLD_TILE = 2100, 4096
 #: K4's routes (exact_route, manhattan): k <= 32 on the FADD stream (f32 and
 #: bf16 rows), k > 32 on the CUDA-core body
 K4_F32, K4_BF16, K4_CORE = "scan_topk_l1_fadd", "scan_topk_l1_fadd_bf16", "scan_topk_l1"
@@ -389,26 +406,6 @@ def wide_plans(build, widths=(100, 384, 768)) -> dict:
                 fn(code, d, k, plan)
                 plans[f"{dtype} D{d} k{k}"] = dict(zip(
                     ("stages", "ring_bytes", "score_bytes", "list_bytes", "smem_bytes"), plan))
-    return plans
-
-
-def deep_plans(build, widths=(100, 384, 768)) -> dict:
-    """The deep mode's shared-memory plan by row dtype and width
-    (csrc/deep.cu scan_topk_deep_plan): the ring's stages and the bytes of
-    the ring, the score tiles, the staging buffers with the queries' state,
-    and all."""
-    import ctypes
-
-    fn = build.load("deep").scan_topk_deep_plan
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = None
-    plans = {}
-    for code, dtype in enumerate(("f32", "bf16", "int8")):
-        for d in widths:
-            plan = (ctypes.c_int * 5)()
-            fn(code, d, plan)
-            plans[f"{dtype} D{d}"] = dict(zip(
-                ("stages", "ring_bytes", "score_bytes", "staging_bytes", "smem_bytes"), plan))
     return plans
 
 
@@ -536,13 +533,15 @@ def variants(scan, SM):
         (None, "f32 k512", (SM.COSINE,), *exact(2048), 512),
         (None, "f32 k1024", dots, *exact(2048), 1024),
         (None, "f32 k2048", (SM.COSINE,), *exact(2048), 2048),
-        (None, f"f32 k{CORE_K}", (SM.COSINE,), *exact(CORE_TILE), CORE_K),
+        (None, f"f32 k{OLD_K}", (SM.COSINE,), *exact(OLD_TILE), OLD_K),
+        (None, "f32 k4096", (SM.COSINE,), *exact(2048), 4096),
         (None, "bf16", dots, *exact(4096), 16),
         (None, "bf16 k33", (SM.COSINE,), *exact(4096), 33),
         (None, "bf16 k256", dots, *exact(4096), 256),
         (None, "bf16 k300", (SM.COSINE,), *exact(4096), 300),
         (None, "bf16 k512", dots, *exact(4096), 512),
         (None, "bf16 k2048", (SM.COSINE,), *exact(4096), 2048),
+        (None, f"bf16 k{OLD_K}", dots, *exact(OLD_TILE), OLD_K),
         (None, "int8", dots, *exact(2048), 16),
         (None, "int8 k32", dots, *exact(2048), 32),
         (None, "int8 k100", (SM.COSINE,), *exact(2048), 100),
@@ -550,7 +549,8 @@ def variants(scan, SM):
         (None, "int8 k300", (SM.COSINE,), *exact(2048), 300),
         (None, "int8 k1024", dots, *exact(2048), 1024),
         (None, "int8 k2048", (SM.COSINE,), *exact(2048), 2048),
-        (None, f"int8 k{CORE_K}", (SM.COSINE,), *exact(CORE_TILE), CORE_K),
+        (None, f"int8 k{OLD_K}", (SM.COSINE,), *exact(OLD_TILE), OLD_K),
+        (None, "int8 k4096", (SM.COSINE,), *exact(2048), 4096),
         (K3_F32, "f32", dots, block, block_plain, 16),
         (K3_BF16, "bf16", dots, block, block_plain, 16),
         (K3_INT8, "int8", dots, block, block_plain, 16),
@@ -582,7 +582,7 @@ def check_kernels(scan, metrics_mod, dev, rng) -> dict:
         for shape, rows, sq, valid, q in shapes:
             v, sc = rows[label.split()[0]]
             for metric in metrics:
-                tile = scan.exact_tile(v.shape[0], CORE_TILE if k == CORE_K else 2048, k,
+                tile = scan.exact_tile(v.shape[0], OLD_TILE if k == OLD_K else 2048, k,
                                        metric)
                 sym = name or scan.exact_route(v.dtype, min(k, tile), metric, tile).symbol
                 out = kern(v, sc, sq, valid, q, metric, k)
@@ -590,30 +590,37 @@ def check_kernels(scan, metrics_mod, dev, rng) -> dict:
                 ref = plain(v, sc, sq, valid, q, metric, k + 1)
                 err = compare(f"{sym} {label} {shape} {metric.name}", out, ref)
                 errs[sym] = max(errs.get(sym, 0.0), err)
-    check_deep_tiles(scan, SM, shapes, errs)
+    check_select_tiles(scan, SM, shapes, errs)
     return errs
 
 
-def check_deep_tiles(scan, SM, shapes, errs: dict) -> None:
-    """Phase 2a, the deep mode's tile by tile: tile_topk_cuda at k = tile_n
-    (2,048) and at k 300 over 32,768-row tiles (65,536 x 384) or one tile of
-    8,192 rows (8,192 x 100), every tile's list against tile_topk_plain's,
-    -inf slots naming the same rows."""
+def check_select_tiles(scan, SM, shapes, errs: dict) -> None:
+    """Phase 2a, the radix select's tile by tile: tile_topk_cuda at k =
+    tile_n = 2,048 and 4,096, at k 300 and 2,100 over 32,768-row tiles and
+    at k 300 over 65,536 (past the wide mode's tiles: 65,536 x 384) or one
+    tile of 8,192 rows at k 300, 2,100 and k = tile_n (8,192 x 100), every
+    tile's list against tile_topk_plain's, -inf slots naming the same rows;
+    the dot product where the list is under half the tile."""
     for shape, rows, sq, valid, q in shapes:
         n = valid.shape[0]
+        cases = ((2048, 2048), (4096, 4096), (300, 32768), (OLD_K, 32768),
+                 (300, 65536)) if n >= 65536 else ((300, n), (OLD_K, n), (n, n))
         for label, (v, sc) in rows.items():
-            for k, tile_n in ((2048, 2048), (300, min(n, scan.WIDE_MAX_TILE))):
+            for k, tile_n in cases:
                 sym = scan.exact_route(v.dtype, k, SM.COSINE, tile_n).symbol
-                got = scan.tile_topk_cuda(v, sc, sq, valid, q, metric=SM.COSINE, k_tile=k,
-                                          tile_n=tile_n)
-                torch.cuda.synchronize()
-                kw = min(k + 1, tile_n)
-                want = scan.tile_topk_plain(v, sc, sq, valid, q, metric=SM.COSINE, k_tile=kw,
-                                            tile_n=tile_n)
-                err = compare(f"{sym} {label} k{k} tiles of {tile_n} {shape}",
-                              [x.reshape(-1, k) for x in got],
-                              [x.reshape(-1, kw) for x in want])
-                errs[sym] = max(errs.get(sym, 0.0), err)
+                for metric in (SM.COSINE, SM.DOT_PRODUCT):
+                    if metric is SM.DOT_PRODUCT and 2 * k >= tile_n:
+                        continue  # dots near 0 (tests/test_torch_scan.py holds them to f64)
+                    got = scan.tile_topk_cuda(v, sc, sq, valid, q, metric=metric, k_tile=k,
+                                              tile_n=tile_n)
+                    torch.cuda.synchronize()
+                    kw = min(k + 1, tile_n)
+                    want = scan.tile_topk_plain(v, sc, sq, valid, q, metric=metric,
+                                                k_tile=kw, tile_n=tile_n)
+                    err = compare(f"{sym} {label} k{k} tiles of {tile_n} {shape} {metric.name}",
+                                  [x.reshape(-1, k) for x in got],
+                                  [x.reshape(-1, kw) for x in want])
+                    errs[sym] = max(errs.get(sym, 0.0), err)
 
 
 def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
@@ -651,10 +658,7 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     # k_pad 16 (tile 2048), over bf16 rows (the memory-optimized profile)
     # with the 2x pool (32, and 256 at k 100) and tile 4096, and at k 100
     # (k_pad 128) on the wide mode; K2 over int8 rows with the 2x pool (32,
-    # and 256 at k 100 on the wide mode); the deep mode on the tiles
-    # exact_tile grows: K1 over f32 rows at k 300 (logged) and at k 1,000's
-    # k_pad 1,024, over bf16 rows at k 200's pool of 512, K2 at k 300
-    # (logged) and at k 500's pool of 1,024; K3 over the int8 scan copy,
+    # and 256 at k 100 on the wide mode); K3 over the int8 scan copy,
     # 4096-row tiles, W = 2, pool 128 (and its two other routes: a bf16 scan
     # copy, f32 rows without a copy); K4 over f32 rows at k_pad 16, over
     # bf16 rows (the memory-optimized profile) at the 2x pool of 32 (and at
@@ -670,9 +674,6 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     def tiles_out(tile_n, k):
         return B * (n // tile_n) * k * 8
 
-    def grown(tile_n, k):
-        return scan.exact_tile(n, tile_n, k)
-
     specs = [
         (K1_TF32, SM.COSINE, v, None, 16, 2048, None, "tf32",
          3 * dot_ops, n * D * 4 + side + tiles_out(2048, 16)),
@@ -682,20 +683,10 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
          3 * dot_ops, n * D * 4 + side + tiles_out(2048, 128)),
         (K1_WIDE_BF16, SM.COSINE, vb, None, 256, 4096, None, "bf16",
          dot_ops, n * D * 2 + side + tiles_out(4096, 256)),
-        (K1_DEEP + " k300", SM.COSINE, v, None, 300, grown(2048, 300), None, "tf32",
-         3 * dot_ops, n * D * 4 + side + tiles_out(grown(2048, 300), 300)),
-        (K1_DEEP, SM.COSINE, v, None, 1024, grown(2048, 1024), None, "tf32",
-         3 * dot_ops, n * D * 4 + side + tiles_out(grown(2048, 1024), 1024)),
-        (K1_DEEP_BF16, SM.COSINE, vb, None, 512, grown(4096, 512), None, "bf16",
-         dot_ops, n * D * 2 + side + tiles_out(grown(4096, 512), 512)),
         (K2_S8, SM.COSINE, vq, sc, 32, 2048, None, "int8",
          dot_ops, n * D + n * 4 + side + tiles_out(2048, 32)),
         (K2_WIDE, SM.COSINE, vq, sc, 256, 2048, None, "int8",
          dot_ops, n * D + n * 4 + side + tiles_out(2048, 256)),
-        (K2_DEEP + " k300", SM.COSINE, vq, sc, 300, grown(2048, 300), None, "int8",
-         dot_ops, n * D + n * 4 + side + tiles_out(grown(2048, 300), 300)),
-        (K2_DEEP, SM.COSINE, vq, sc, 1024, grown(2048, 1024), None, "int8",
-         dot_ops, n * D + n * 4 + side + tiles_out(grown(2048, 1024), 1024)),
         (K3_INT8, SM.COSINE, vq, sc, 128, 4096, 2, "int8",
          dot_ops, n * D + n * 4 + side + k3_out),
         (K3_BF16, SM.COSINE, vb, None, 128, 4096, 2, "bf16",
@@ -748,20 +739,11 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
         errs[name] = max(errs.get(name, 0.0), err)
         t = out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         **bound(nbytes, ops, op_type)}
-        if name in (K1_DEEP, K1_DEEP_BF16, K2_DEEP):
-            # merge_topk's stable sort of the grown tiles' lists, apart
-            s_, i_ = kern()
-            merge_ms = cuda_time_ms(lambda: scan.merge_topk(
-                s_.reshape(B, -1), i_.reshape(B, -1), k), 5)
-            log(f"  {key:22s} tiles of {tile_n}: merge_topk sort {merge_ms:.4f} ms of "
-                f"{B} x {s_.shape[1] * k} candidates")
-            del s_, i_
         int8_work = (f"; tensor work {3 * dot_ops / PEAK_OPS_PER_S['int8'] * 1e3:.4f} "
                      f"ms (3 int8 passes)")
-        work = {K3_INT8: int8_work, K2_S8: int8_work, K2_WIDE: int8_work, K2_DEEP: int8_work,
+        work = {K3_INT8: int8_work, K2_S8: int8_work, K2_WIDE: int8_work,
                 K3_BF16: f"; {design_work(n)}", K1_BF16: f"; {design_work(n)}",
-                K1_WIDE_BF16: f"; {design_work(n)}",
-                K1_DEEP_BF16: f"; {design_work(n)}"}.get(name, "")
+                K1_WIDE_BF16: f"; {design_work(n)}"}.get(name, "")
         log(f"  {key:22s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{op_type} rate){work}")
@@ -773,43 +755,82 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
         f"{cuda_time_ms(lambda: scan.merge_topk(s_, i_, 1024), 3):.4f} ms of {B} x "
         f"{s_.shape[1]} candidates")
     del s_, i_
-    out.update(time_core_kernels(scan, metrics_mod, v, vq, sc, sq, q, library))
+    out.update(time_select_kernels(scan, metrics_mod, v, vb, vq, sc, sq, valid, q, library,
+                                   errs))
     return out
 
 
-def time_core_kernels(scan, metrics_mod, v, vq, sc, sq, q, library) -> dict:
-    """Phase 2b, the CUDA-core K1 and K2 (lists past 2,048: no path of the
-    main shape hands them one) at the small shape, 65,536 x 384 rows of
-    the main ones and 64 queries, lists of CORE_K over CORE_TILE-row tiles,
-    beside the plain version and the library path; outputs held."""
+def time_select_kernels(scan, metrics_mod, v, vb, vq, sc, sq, valid, q, library,
+                        errs: dict) -> dict:
+    """Phase 2b, the radix select's entries: at the paths' shapes (the
+    main-path rows, B 256, on the tiles exact_tile grows: K1 over f32 rows
+    at k_pad 4,096, approx=False at k 2,049-4,096, at 8,192, the next rung,
+    and at k 300 and 1,000's k_pad of 1,024; over bf16 rows and K2 at the
+    pool of 4,096, the memory-optimized and quantized exact paths at k
+    1,025-2,048, and at k 200's pool of 512 (bf16) and k 300 and k 500's
+    pool of 1,024 (K2)), then at 65,536 x 384, B 64, k 2,100 over
+    4,096-row tiles (the retired CUDA-core entries' 324.93 / 338.54 ms
+    there, PERF.md), each beside its plain version and the library path,
+    outputs held, merge_topk's sort of the paths' lists apart. The bound
+    counts what the function must move and compute: the rows, their side
+    arrays, the queries and the [B, T, k] lists. The scratch is this
+    design's, so a second bound, design_bound_ms, adds its scores written
+    and read once where a group of them outgrows L2."""
     SM = metrics_mod.SimilarityMetric
-    n, b, k, tile_n = 65536, 64, CORE_K, CORE_TILE
-    qs, sqs = q[:b].contiguous(), sq[:n]
-    qsq = (qs * qs).sum(-1, keepdim=True)
-    valid = torch.ones(n, dtype=torch.bool, device=v.device)
+    n = v.shape[0]
     out = {}
-    side = n * 4 + n * 1 + b * D * 4
-    tiles = b * (n // tile_n) * k * 8
-    for name, rows, scales, op_type, passes, row_bytes in (
-            (K1_CORE, v[:n], None, "tf32", 3, n * D * 4),
-            (K2_CORE, vq[:n], sc[:n], "int8", 1, n * D + n * 4)):
-        def kern(rows=rows, scales=scales):
-            return scan.tile_topk_cuda(rows, scales, sqs, valid, qs, metric=SM.COSINE,
-                                       k_tile=k, tile_n=tile_n)
+    small = 65536
+    specs = [(K1_SELECT, v, None, "tf32", 3, 4096, 2048, B),
+             (K1_SELECT + " k8192", v, None, "tf32", 3, 8192, 2048, B),
+             (K1_SELECT + " k1024", v, None, "tf32", 3, 1024, 2048, B),
+             (K1_SELECT + " k300", v, None, "tf32", 3, 300, 2048, B),
+             (K1_SELECT_BF16, vb, None, "bf16", 1, 4096, 4096, B),
+             (K1_SELECT_BF16 + " k512", vb, None, "bf16", 1, 512, 4096, B),
+             (K2_SELECT, vq, sc, "int8", 1, 4096, 2048, B),
+             (K2_SELECT + " k1024", vq, sc, "int8", 1, 1024, 2048, B),
+             (K2_SELECT + " k300", vq, sc, "int8", 1, 300, 2048, B),
+             (K1_SELECT + " old shape", v[:small], None, "tf32", 3, OLD_K, OLD_TILE, 64),
+             (K1_SELECT_BF16 + " old shape", vb[:small], None, "bf16", 1, OLD_K, OLD_TILE, 64),
+             (K2_SELECT + " old shape", vq[:small], sc[:small], "int8", 1, OLD_K, OLD_TILE, 64)]
+    for key, rows, scales, op_type, passes, k, caller_tile, b in specs:
+        name = key.split()[0]
+        m = rows.shape[0]
+        tile_n = OLD_TILE if key.endswith("old shape") else scan.exact_tile(m, caller_tile, k)
+        qs, sqs, vs = q[:b].contiguous(), sq[:m], valid[:m]
+        qsq = (qs * qs).sum(-1, keepdim=True)
 
-        def plain(rows=rows, scales=scales):
-            return scan.tile_topk_plain(rows, scales, sqs, valid, qs, metric=SM.COSINE,
+        def kern(rows=rows, scales=scales, k=k, tile_n=tile_n, qs=qs, sqs=sqs, vs=vs):
+            return scan.tile_topk_cuda(rows, scales, sqs, vs, qs, metric=SM.COSINE, k_tile=k,
+                                       tile_n=tile_n)
+
+        def plain(rows=rows, scales=scales, k=k, tile_n=tile_n, qs=qs, sqs=sqs, vs=vs):
+            return scan.tile_topk_plain(rows, scales, sqs, vs, qs, metric=SM.COSINE,
                                         k_tile=k + 1, tile_n=tile_n)
-        ms, plain_ms = interleaved_ms(kern, plain, reps=2, plain_reps=2)
+        ms, plain_ms = interleaved_ms(kern, plain, reps=10, plain_reps=2)
         lib = library(rows.to(torch.float32), scales, k, SM.COSINE, qs, qsq, sqs)
         lib_ms = cuda_time_ms(lib, 5)
-        compare(f"{name} at {n} x {D}, B {b} (top {k}, tiles of {tile_n})",
-                merged(scan, kern(), b, k), merged(scan, plain(), b, k + 1))
-        t = out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         **bound(row_bytes + side + tiles, passes * 2.0 * b * n * D, op_type)}
-        log(f"  {name:22s} {n} x {D}, B {b}, k {k}, tiles of {tile_n}: kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}, {op_type} rate)")
+        err = compare(f"{key} at {m} x {D}, B {b} (top {k}, tiles of {tile_n})",
+                      merged(scan, kern(), b, k), merged(scan, plain(), b, k + 1))
+        errs[name] = max(errs.get(name, 0.0), err)
+        row_bytes = m * D * rows.element_size() + (m * 4 if scales is not None else 0)
+        nbytes = row_bytes + m * 4 + m + b * D * 4 + b * (m // tile_n) * k * 8
+        ops = passes * 2.0 * b * m * D
+        group = scan.select_group_rows(m, b, tile_n)
+        spills = 4 * b * group > L2_BYTES
+        scratch_bytes = 2 * 4 * b * m if spills else 0  # the scores written and read once
+        t = out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        **bound(nbytes, ops, op_type),
+                        "design_bound_ms": bound(nbytes + scratch_bytes, ops, op_type)["bound_ms"]}
+        s_, i_ = kern()
+        merge_ms = cuda_time_ms(lambda: scan.merge_topk(s_.reshape(b, -1), i_.reshape(b, -1),
+                                                        k), 3)
+        del s_, i_
+        log(f"  {key:34s} {m} x {D}, B {b}, k {k}, tiles of {tile_n} (groups of "
+            f"{group // tile_n}, scratch {4 * b * group / 2**20:.0f} MiB"
+            f"{', past L2' if spills else ''}): kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{op_type} rate; with the scratch {t['design_bound_ms']:.4f} ms); merge_topk "
+            f"sort {merge_ms:.4f} ms")
     return out
 
 
@@ -1561,17 +1582,26 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     wide_breakdown(wide, exact, queries, times, n_batches // 2, build, card)
     dclient.delete_collection("default")
     # lists past 256 (k_pad 1,024; the 2x pools of 512 over bf16 rows and
-    # 1,024 over int8 rows) run on the tensor-core body's deep mode, on the
-    # tiles exact_tile grows
-    deep = [(f"exact approx=False, k {K_DEEP['f32']} (K1, deep lists)", client, K1_DEEP,
+    # 1,024 over int8 rows) run on the radix select, on the tiles
+    # exact_tile grows
+    deep = [(f"exact approx=False, k {K_DEEP['f32']} (K1, deep lists)", client, K1_SELECT,
              K_DEEP["f32"]),
             (f"memory-optimized exact, k {K_DEEP['bf16']} (K1 over bf16 rows, deep lists)",
-             mclient, K1_DEEP_BF16, K_DEEP["bf16"]),
-            (f"quantized exact, k {K_DEEP['int8']} (K2, deep lists)", qclient, K2_DEEP,
+             mclient, K1_SELECT_BF16, K_DEEP["bf16"]),
+            (f"quantized exact, k {K_DEEP['int8']} (K2, deep lists)", qclient, K2_SELECT,
              K_DEEP["int8"])]
     deep_paths(build, SM, deep, rows, queries, dev, card, n_batches)
+    # lists past 2,048 (k_pad 4,096; the 2x pools of 4,096 over bf16 and
+    # int8 rows), in batches of 64
+    select = [(f"exact approx=False, k {K_SELECT['f32']} (K1, radix select)", client,
+               K1_SELECT, K_SELECT["f32"]),
+              (f"memory-optimized exact, k {K_SELECT['bf16']} (K1 over bf16 rows, radix "
+               f"select)", mclient, K1_SELECT_BF16, K_SELECT["bf16"]),
+              (f"quantized exact, k {K_SELECT['int8']} (K2, radix select)", qclient, K2_SELECT,
+               K_SELECT["int8"])]
+    deep_paths(build, SM, select, rows, queries[:SELECT_BATCH], dev, card, n_batches)
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
-    for sym in (K1_DEEP, K1_DEEP_BF16, K2_DEEP):
+    for sym in (K1_SELECT, K1_SELECT_BF16, K2_SELECT):
         if not launches[sym]:
             raise AssertionError(f"{sym} was never launched on the main path")
 
@@ -1633,11 +1663,12 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
 def deep_paths(build, SM, clients, rows, queries, dev, card: str, n_batches: int) -> None:
     """Phase 3's lists past 256, each (name, client, kernel, k) on its
     collection: one object-returning call (search_batch, approx=False)
-    whose launches must be the deep entry's and no CUDA-core entry's, then
-    n_batches timed calls of search_batch_arrays (256 x k result objects a
-    call would time the host), the device stage (the index's _device_topk
-    to torch.cuda.synchronize()) timed apart, the same route, and every
-    query's ids held against float64 truth beyond 1e-5 near-ties."""
+    whose K1 / K2 launches must be the named kernel's alone, then n_batches
+    timed calls of search_batch_arrays (B x k result objects a call would
+    time the host), the device stage (the index's _device_topk to
+    torch.cuda.synchronize()) timed apart and the host remainder (the batch
+    p50 less the device stage's), the same route, and every query's ids
+    held against float64 truth beyond 1e-5 near-ties."""
     for name, client, sym, k in clients:
         with client.get_collection("main").index_read() as index:
             pass
@@ -1658,15 +1689,17 @@ def deep_paths(build, SM, clients, rows, queries, dev, card: str, n_batches: int
         if set(moved_all[name]) & {*K1_SYMBOLS, *K2_SYMBOLS} != {sym}:
             raise AssertionError(f"{name}: launched {moved_all[name]}, not {sym}")
         dev_ms = np.asarray(spent["device"][1:])  # past the warm call
-        log(f"    {name}: device stage p50 {np.percentile(dev_ms, 50):.3f} ms p99 "
-            f"{np.percentile(dev_ms, 99):.3f} ms; batch p50 {np.percentile(times[name], 50):.3f} "
-            f"ms p99 {np.percentile(times[name], 99):.3f} ms [{card}]")
+        p50, dev50 = np.percentile(times[name], 50), np.percentile(dev_ms, 50)
+        log(f"    {name}: device stage p50 {dev50:.3f} ms p99 "
+            f"{np.percentile(dev_ms, 99):.3f} ms; batch p50 {p50:.3f} "
+            f"ms p99 {np.percentile(times[name], 99):.3f} ms; host remainder {p50 - dev50:.3f} "
+            f"ms; launches {moved_all[name]} [{card}]")
         bad, err = 0, 0.0
-        for lo in range(0, B, 64):  # float64 truth, 64 queries at a time
+        for lo in range(0, len(queries), 64):  # float64 truth, 64 queries at a time
             t_s, t_ids = truth_topk(rows, queries[lo:lo + 64], "cosine", dev, k)
             bad += ids_match(t_s, t_ids, scores[lo:lo + 64], ids[lo:lo + 64])
             err = max(err, float(np.max(np.abs(scores[lo:lo + 64] - t_s[:, :k]))))
-        log(f"    {name} vs f64 truth ({B} queries, top {k}): id mismatches beyond ties "
+        log(f"    {name} vs f64 truth ({len(queries)} queries, top {k}): id mismatches beyond ties "
             f"{bad}, max score err {err:.3g}")
         if bad or err > 1e-5:
             raise AssertionError(f"{name} disagrees with float64 truth")
@@ -2255,7 +2288,7 @@ def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
             name, search(metric), qb, ["gather_score"], [*K1_SYMBOLS, *K3_SYMBOLS])
         k6 += counts["gather_score"]
     run_path("exact approx=False (K1, brute)", exact, qb, [K1_TF32],
-             ["gather_score", K1_CORE])
+             ["gather_score", K1_SELECT])
     # what the default call runs on this collection without the layout:
     # the speed path (K3), or K1 where the precision guard refuses it.
     # The layout stays built (VECTORLITE_IVF=0 would drop it)
@@ -2374,7 +2407,7 @@ def ivf_path(vl, build, ivf, native, dev, args, card: str) -> int:
     if native.calls == calls:
         raise AssertionError("the native f64 re-score never served the quantized IVF path")
     run_path("quantized exact approx=False (K2)", qexact, qb,
-             [K2_S8], ["gather_score", K2_CORE])
+             [K2_S8], ["gather_score", K2_SELECT])
     r = recall(ids_of(in_batches(qsearch, queries, batch)),
                ids_of(in_batches(qexact, queries, batch)))
     log(f"  recall@10 quantized ivf vs its exact K2 ({B} queries): {r:.5f}")
@@ -3940,8 +3973,6 @@ def main() -> int:
     log(f"    built {sources} in {time.perf_counter() - t0:.2f} s")
     for key, plan in wide_plans(_build).items():
         log(f"    wide mode plan, {key}: {plan}")
-    for key, plan in deep_plans(_build).items():
-        log(f"    deep mode plan, {key}: {plan}")
     for name, text in _build.build_logs.items():
         for line in _build.ptxas_report(name):
             log(f"    {name} ptxas:", line)

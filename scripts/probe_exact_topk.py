@@ -1,34 +1,30 @@
 """K1 and K2 on the tensor-core body's per-query top-k modes
-(vectorlite_tpu_torch/csrc/exact.cu, k <= 32, csrc/wide.cu, 32 < k <= 256,
-and csrc/deep.cu, 256 < k <= 2,048, all on csrc/scan_mma.cuh) on one CUDA
-card: held, timed and taken apart.
+(vectorlite_tpu_torch/csrc/exact.cu, k <= 32, and csrc/wide.cu, 32 < k <=
+256, both on csrc/scan_mma.cuh) and on its scores into the radix select
+(csrc/select.cu, past k 256 or tiles of 32,768 rows) on one CUDA card:
+held, timed and taken apart.
 
     env PYTHONPATH=. python3 scripts/probe_exact_topk.py [--seed S] [--check-only]
-        [--wide-only | --deep-only | --deep-precision]
+        [--wide-only | --select-only | --precision]
 
-Builds csrc/exact.cu, csrc/wide.cu and csrc/scan.cu and prints ptxas's
-registers and spills of the six entries, each TOPK launch's ring at D 100,
-384 and 768 (stages; the query terms resident or streamed) and each wide
-launch's shared-memory plan there at k 128 and 256 (stages of the shared
-ring, bytes of the ring, the score tiles and the lists). Holds each
-entry's lists, tile by tile, against tile_topk_plain's under the 1e-5 rule
-(scores within rtol/atol 1e-5, ids equal beyond 1e-5 near-ties, -inf slots
-naming the same rows) at small shapes: k 1, 10, 16 and 32 (TOPK) and 33,
-64, 100, 128 and 256 (wide), three metrics, duplicate rows, an all-invalid
-tile; the deep entries at k 257, 300, 512, 1,024 and 2,048 (k up to the
-tile; dot products only where k is under half the tile: longer lists
-reach dots near 0, where the plain f32 product is itself further than
-1e-5 from float64). With --check-only it stops there; --wide-only leaves out the TOPK
-and deep entries, --deep-only the TOPK and wide ones. Then, at the
-main-path shapes (2^20 x 384, B 256: f32 rows at k
-16 and tile 2,048, bf16 rows at k 32 and tile 4,096, int8 rows at k 32 and
-tile 2,048; the wide entries at k 100's lists: f32 rows at 128 and tile
-2,048, bf16 rows at 256 and tile 4,096, int8 rows at 256 and tile 2,048),
-holds each entry once more and times it with CUDA events beside the
-CUDA-core entry of the same call (scan_topk_exact, scan_topk_exact_int8;
-old, new, new, old), and beside variants of the body built from edited
-copies of scan_mma.cuh, instruments that compute wrong results. For the
-TOPK entries:
+Builds csrc/exact.cu and csrc/wide.cu and prints ptxas's registers and
+spills of the six entries, each TOPK launch's ring at D 100, 384 and 768
+(stages; the query terms resident or streamed) and each wide launch's
+shared-memory plan there at k 128 and 256 (stages of the shared ring,
+bytes of the ring, the score tiles and the lists). Holds each entry's
+lists, tile by tile, against tile_topk_plain's under the 1e-5 rule
+(scores within rtol/atol 1e-5, ids equal beyond 1e-5 near-ties, -inf
+slots naming the same rows) at small shapes: k 1, 10, 16 and 32 (TOPK)
+and 33, 64, 100, 128 and 256 (wide), three metrics, duplicate rows, an
+all-invalid tile. With --check-only it stops there; --wide-only leaves
+out the TOPK entries. Then, at the main-path shapes (2^20 x 384, B 256:
+f32 rows at k 16 and tile 2,048, bf16 rows at k 32 and tile 4,096, int8
+rows at k 32 and tile 2,048; the wide entries at k 100's lists: f32 rows
+at 128 and tile 2,048, bf16 rows at 256 and tile 4,096, int8 rows at 256
+and tile 2,048), holds each entry once more and times it with CUDA
+events, twice, and beside variants of the body built from edited copies
+of scan_mma.cuh, instruments that compute wrong results. For the TOPK
+entries:
 
 * no merge: the chunk's scores reach the score tile, no list takes them
   (what the per-query merge costs);
@@ -50,28 +46,35 @@ For the wide entries:
   its epilogue's metric; no merge - no scores: the score tiles' round
   trip and barriers).
 
-For the deep entries (K1 over f32 rows at k 300 and 1,024, over bf16 rows
-at 512, K2 at 300 and 1,024, on the tiles kernels/scan.py exact_tile
-grows them to at 2^20 rows, and f32 k 300 / 1,024 on 32,768 / 16,384-row
-tiles; no CUDA-core comparison), the body and three edits of it, each
+--select-only builds csrc/select.cu alone, prints ptxas's registers,
+stack frames and spills of its kernels, holds the select entries at small
+shapes (k 257, 300, 1,024, 2,048, 2,049, 4,096 and k = tile_n, k 33 and
+300 over a 65,536-row tile; D 99, 100, 384, 768), then times them at the
+paths' shapes (2^20 x 384, B 256, on the tiles exact_tile grows: K1 over
+f32 rows at k 300 and k_pad 1,024, 4,096 and 8,192, over bf16 rows at
+the pools of 512 and 4,096, K2 at k 300 and the pools of 1,024 and
+4,096), the tile choice (k 300 over 16,384-row tiles, k 4,096 over
+65,536- and 131,072-row ones) and the scratch (K1 f32 at 64 MiB and 1 GiB
+of it, beside the package's 256 MiB). Four builds of select.cu, each
 timed in a process of its own (in one process beside other builds of the
-same kernel the body read 3.5x fast, with no error against the plain
-version, where no process with one build repeats either):
+same kernel a build can read fast with no error against the plain
+version, where no process with one build repeats it):
 
-* contraction alone: no row is staged or merged (the deep passes off:
-  the contraction, its epilogue and the score tiles' round trip);
-* selection alone: no wgmma is issued and each score is a hash of its
-  (row, query), a float in [1, 2) in random order (the ring's copies, the
-  score tiles, the ballots, the staging and the merges, as a random
-  corpus drives them);
-* profile: the body with device counters (merges, rows merged, rows
-  staged, clock64 cycles in the merges, in the deep passes and in the
-  whole kernel), held against the plain version like the body.
+* entry: the package's build, held against the plain version first;
+* scores alone: the select's launches edited out;
+* select alone: the scores' launches edited out; the probe fills a
+  scratch of its own with the first group's plain scores and launches
+  the entry over it (every group then selects over those scores; the
+  first group's lists are held against the plain top k of them);
+* profile: clock64 cycles of each block's thread 0 in the digit passes
+  (the keys' loads included), the gather of the survivors, the sort and
+  the write of the list, and the passes a block took.
 
---deep-precision does only this: the deep entries' dot-product lists of
-k 2,048 at D 100, 384 and 768 (scores near 0 included) against float64,
-beside the plain f32 product, for the body and for its f32 and bf16 forms
-without the slice-at-a-time sums of the large term (~1 min).
+--precision does only this: the select entries' dot-product lists of k
+2,048 at D 100, 384 and 768 (scores near 0 included) against float64,
+beside the plain f32 product, for the package's build and for its f32 and
+bf16 forms without the slice-at-a-time sums of the large term, each in a
+process of its own (~1 min).
 
 Prints a line a measurement, the card's name and power limit, and a JSON
 object last. Exits 1 without a CUDA device, and raises if an entry
@@ -141,70 +144,9 @@ WIDE_VARIANTS = {
 }
 
 
-DEEP_VARIANTS = {
-    "contraction alone": [
-        ("        deep_pass(tile, cl * CHUNK, false);",
-         "        if (false) deep_pass(tile, cl * CHUNK, false);"),
-        ("      deep_pass(tile, 0, true);", "      if (false) deep_pass(tile, 0, true);")],
-    "selection alone": [
-        ("for (int kk = 0; kk < 4; ++kk) acc.mma(ah[kk], al[kk], db, kk);",
-         "for (int kk = 0; kk < 4; ++kk) (void)kk;"),
-        ("for (int kk = 0; kk < 4; ++kk) acc.mma(da, db, kk);",
-         "for (int kk = 0; kk < 4; ++kk) (void)kk;"),
-        ("        if (!ok[h]) s = -CUDART_INF_F;",
-         "        {\n"
-         "          uint32_t x = static_cast<uint32_t>(row + 8 * h) * 0x9E3779B1u ^\n"
-         "                       static_cast<uint32_t>(q0 + ql) * 0x85EBCA77u;\n"
-         "          x ^= x >> 15; x *= 0x2C1B3C6Du; x ^= x >> 12;\n"
-         "          s = __uint_as_float(0x3f800000u | (x >> 9));\n"
-         "        }\n"
-         "        if (!ok[h]) s = -CUDART_INF_F;")],
-}
-
-
-# the deep profile: device counters (merges, rows merged, rows staged,
-# clock64 cycles a warp in the deep passes, in the whole kernel and in the
-# merges), read back through deep_prof_read after one launch
-DEEP_VARIANTS["profile"] = [
-    ("enum Metric { COSINE = 0, EUCLIDEAN = 1, DOT = 2 };",
-     "enum Metric { COSINE = 0, EUCLIDEAN = 1, DOT = 2 };\n"
-     "__device__ unsigned long long deep_prof[8];"),
-    ("  const int len = deep_merge(st_s, st_r, st + 2, st[0], ls, lr, st[1], k, tile_base, lane);",
-     "  const int n_staged = st[0];\n  const long long tm0 = clock64();\n"
-     "  const int len = deep_merge(st_s, st_r, st + 2, st[0], ls, lr, st[1], k, tile_base, lane);\n"
-     "  if (lane == 0) { atomicAdd(&deep_prof[0], 1ull);"
-     " atomicAdd(&deep_prof[1], static_cast<unsigned long long>(n_staged));"
-     " atomicAdd(&deep_prof[5], static_cast<unsigned long long>(clock64() - tm0)); }"),
-    ("  if (lane == 0) st[0] = at;",
-     "  if (lane == 0) {\n"
-     "    atomicAdd(&deep_prof[2], static_cast<unsigned long long>(at - n));\n"
-     "    st[0] = at;\n  }"),
-    ("        deep_pass(tile, cl * CHUNK, false);",
-     "        { const long long t0 = clock64(); deep_pass(tile, cl * CHUNK, false);\n"
-     "          if (lane == 0) atomicAdd(&deep_prof[3], static_cast<unsigned long long>("
-     "clock64() - t0)); }"),
-    ("      deep_pass(tile, 0, true);",
-     "      { const long long t0 = clock64(); deep_pass(tile, 0, true);\n"
-     "        if (lane == 0) atomicAdd(&deep_prof[3], static_cast<unsigned long long>("
-     "clock64() - t0)); }"),
-    ("  const int tid = threadIdx.x;\n  const int wg = tid >> 7;",
-     "  const long long prof_t0 = clock64();\n  const int tid = threadIdx.x;\n"
-     "  const int wg = tid >> 7;"),
-    ("      flush(tile);\n  }\n}\n",
-     "      flush(tile);\n  }\n  if (MODE == DEEP && (threadIdx.x & 31) == 0)\n"
-     "    atomicAdd(&deep_prof[4], static_cast<unsigned long long>(clock64() - prof_t0));\n}\n"),
-    ("}  // namespace scan_mma\n}  // namespace\n",
-     "}  // namespace scan_mma\n}  // namespace\n"
-     "extern \"C\" void deep_prof_read(unsigned long long* out, int reset) {\n"
-     "  cudaMemcpyFromSymbol(out, scan_mma::deep_prof, sizeof(unsigned long long) * 8);\n"
-     "  if (reset) { unsigned long long z[8] = {0}; "
-     "cudaMemcpyToSymbol(scan_mma::deep_prof, z, sizeof(z)); }\n}\n"),
-]
-
-
-# the deep mode's f32 and bf16 forms without the slice-at-a-time sums of
-# the large term (the tensor cores accumulate a chunk's k-steps): for
-# --deep-precision only
+# the select entries' f32 and bf16 scores without the slice-at-a-time
+# sums of the large term (the tensor cores accumulate a chunk's k-steps):
+# for --precision only
 NO_SLICE_SUMS = [("acc.slice_start();", ";"), ("acc.slice_end();", ";"),
                  ("acc.take_sums();", ";")]
 
@@ -272,19 +214,6 @@ def inputs(dev, rng, n, d, b, tile_n):
     return rows, (v * v).sum(-1), valid, q
 
 
-def deep_cases(scan, n, v, vb, v8, sc):
-    """(name, rows, scales, k, tile) of the deep entries at the main-path
-    shape: the paths' lists on the tiles exact_tile grows (f32 k 300 and
-    k_pad 1,024, bf16 pool 512, int8 k 300 and pool 1,024), and f32 k 300
-    on 32,768-row tiles, k 1,024 on 16,384 (the tile's share)."""
-    cases = [(f"K1 f32 deep k{k}", v, None, k, scan.exact_tile(n, 2048, k)) for k in (300, 1024)]
-    cases += [("K1 f32 deep k300 t32768", v, None, 300, 32768),
-              ("K1 f32 deep k1024 t16384", v, None, 1024, 16384),
-              ("K1 bf16 deep k512", vb, None, 512, scan.exact_tile(n, 4096, 512))]
-    cases += [(f"K2 int8 deep k{k}", v8, sc, k, scan.exact_tile(n, 2048, k)) for k in (300, 1024)]
-    return cases
-
-
 def main_inputs(dev, seed):
     """The main-path shape's rows (f32, bf16, int8 + scales), squared norms,
     validity and queries: 2^20 x 384, B 256."""
@@ -300,65 +229,8 @@ def main_inputs(dev, seed):
                                                                            device=dev), q
 
 
-def deep_timings(args) -> int:
-    """``--deep-lib PATH --deep-variant NAME``: one build of csrc/deep.cu (the
-    body or a variant) in a process of its own, no other build of its
-    kernels loaded: each deep case timed twice (20 launches each); the body
-    and the profile held against the plain version first; the profile's
-    counters read over one launch. Prints a JSON object last."""
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs
-    from vectorlite_tpu_torch.core.metrics import SimilarityMetric as SM
-    from vectorlite_tpu_torch.kernels import _build, scan
-
-    lib = ctypes.CDLL(args.deep_lib)
-    _build._libs["deep"] = lib
-    dev = torch.device("cuda", 0)
-    v, vb, v8, sc, sq, valid, q = main_inputs(dev, args.seed)
-    out = {}
-    for name, rows, scales, k, tile_n in deep_cases(scan, v.shape[0], v, vb, v8, sc):
-        def new(rows=rows, scales=scales, k=k, tile_n=tile_n):
-            return scan.tile_topk_cuda(rows, scales, sq, valid, q, metric=SM.COSINE, k_tile=k,
-                                       tile_n=tile_n)
-        res = {}
-        if args.deep_variant in ("body", "profile"):
-            got = new()
-            torch.cuda.synchronize()
-            want = scan.tile_topk_plain(rows, scales, sq, valid, q, metric=SM.COSINE,
-                                        k_tile=k + 1, tile_n=tile_n)
-            res["max_abs_err"] = cs.compare(f"{args.deep_variant} {name}",
-                                            [x.reshape(-1, k) for x in got],
-                                            [x.reshape(-1, k + 1) for x in want])
-            del got, want
-        if args.deep_variant == "profile":
-            fn = lib.deep_prof_read
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
-            fn.restype = None
-            buf = (ctypes.c_ulonglong * 8)()
-            torch.cuda.synchronize()
-            fn(buf, 1)
-            new()
-            torch.cuda.synchronize()
-            fn(buf, 1)
-            n_tiles, q_blocks = rows.shape[0] // tile_n, -(-q.shape[0] // 64)
-            lists = n_tiles * q.shape[0]
-            sms = torch.cuda.get_device_properties(0).multi_processor_count
-            per_block = -(-(n_tiles * q_blocks) // sms)  # csrc/scan_mma.cuh walk_tiles
-            warps = 8 * q_blocks * -(-n_tiles // per_block)
-            res["counts"] = {
-                "merges a list": buf[0] / lists, "rows a merge": buf[1] / max(1, buf[0]),
-                "rows staged a list": buf[2] / lists,
-                "cycles a merge": buf[5] / max(1, buf[0]),
-                "deep-pass cycles a warp": buf[3] / warps,
-                "kernel cycles a warp": buf[4] / warps}
-        res["ms"] = [cs.cuda_time_ms(new, 20), cs.cuda_time_ms(new, 20)]
-        out[name] = res
-    print(json.dumps(out), flush=True)
-    return 0
-
-
-def deep_precision(args) -> int:
-    """``--deep-lib PATH --deep-precision``: one build of csrc/deep.cu in a
+def precision_run(args) -> int:
+    """``--select-lib PATH --precision``: one build of csrc/select.cu in a
     process of its own, its dot-product lists of k = 2,048 (every row of
     2,048-row tiles, half of 4,096-row ones) against float64 beside the
     plain f32 product's: rms of each one's distance from the float64 dot
@@ -369,7 +241,7 @@ def deep_precision(args) -> int:
     from vectorlite_tpu_torch.core.metrics import SimilarityMetric as SM, quantize_rows_int8
     from vectorlite_tpu_torch.kernels import _build, scan
 
-    _build._libs["deep"] = ctypes.CDLL(args.deep_lib)
+    _build._libs["select"] = ctypes.CDLL(args.select_lib)
     dev = torch.device("cuda", 0)
     out = {}
     for n, d, b, tile in ((8192, 100, 5, 2048), (65536, 384, 64, 4096), (16384, 768, 70, 2048)):
@@ -401,25 +273,314 @@ def deep_precision(args) -> int:
     return 0
 
 
+#: --select-only's timed cases: (name, rows, k, tile or None for the tile
+#: exact_tile grows the path's caller tile to, scratch bytes or None for
+#: the package's): the paths' lists past 2,048 and past 256 (k 300, k_pad
+#: 1,024, the pools of 512 and 1,024), then the tile and scratch choices
+SELECT_TIMED = [
+    ("K1 f32 k4096", "f32", 4096, None, None),
+    ("K1 f32 k8192", "f32", 8192, None, None),
+    ("K1 bf16 k4096", "bf16", 4096, None, None),
+    ("K2 int8 k4096", "int8", 4096, None, None),
+    ("K1 f32 k300", "f32", 300, None, None),
+    ("K1 f32 k1024", "f32", 1024, None, None),
+    ("K1 bf16 k512", "bf16", 512, None, None),
+    ("K2 int8 k300", "int8", 300, None, None),
+    ("K2 int8 k1024", "int8", 1024, None, None),
+    ("K1 f32 k300 t16384", "f32", 300, 16384, None),
+    ("K1 f32 k4096 t65536", "f32", 4096, 65536, None),
+    ("K1 f32 k4096 t131072", "f32", 4096, 131072, None),
+    ("K1 bf16 k4096 t65536", "bf16", 4096, 65536, None),
+    ("K2 int8 k4096 t65536", "int8", 4096, 65536, None),
+    ("K1 f32 k4096 scratch 64 MiB", "f32", 4096, None, 64 << 20),
+    ("K1 f32 k4096 scratch 1 GiB", "f32", 4096, None, 1 << 30),
+]
+# csrc/select.cu's two launches a group of tiles, taken apart by editing
+# the source: the scores alone, or the select alone over whatever the
+# caller's scratch holds
+SCORES_LAUNCH = "    int e = scan_mma::launch<T, scan_mma::SCORES, 1>("
+SELECT_LAUNCH = "    if (e == 0)\n      e = launch_select("
+# the select's profile: clock64 cycles of each block's thread 0 in the
+# digit passes (the keys' loads included), the gather of the survivors,
+# the sort and the write of the list, and the passes a block took, read
+# back through sel_prof_read after one launch
+SELECT_PROFILE = [
+    ("namespace sel {\n", "namespace sel {\n__device__ unsigned long long sel_prof[8];\n"),
+    ("  const int tid = threadIdx.x;\n  const int lane = tid & 31;\n  const int warp = tid >> 5;\n"
+     "  const uint32_t lower",
+     "  const long long pf0 = clock64();\n  int pf_passes = 0;\n  long long pf4 = 0;\n"
+     "  const int tid = threadIdx.x;\n  const int lane = tid & 31;\n  const int warp = tid >> 5;\n"
+     "  const uint32_t lower"),
+    ("  for (int shift = 24; shift >= 0; shift -= 8) {\n",
+     "  for (int shift = 24; shift >= 0; shift -= 8) {\n    ++pf_passes;\n"),
+    ("  // the survivors: every key over the prefix",
+     "  const long long pf2 = clock64();\n  // the survivors: every key over the prefix"),
+    ("  // the k survivors by (key descending, row ascending)\n",
+     "  const long long pf3 = clock64();\n  // the k survivors by (key descending, row ascending)\n"),
+    ("    for (int e = tid; e < k; e += THREADS) {\n      const uint64_t v = buf[e];",
+     "    pf4 = clock64();\n    for (int e = tid; e < k; e += THREADS) {\n"
+     "      const uint64_t v = buf[e];"),
+    ("        });\n  }\n}\n\n// The select over one group",
+     "        });\n  }\n  if (threadIdx.x == 0) {\n    const long long pf5 = clock64();\n"
+     "    atomicAdd(&sel_prof[0], 1ull);\n"
+     "    atomicAdd(&sel_prof[1], static_cast<unsigned long long>(pf2 - pf0));\n"
+     "    atomicAdd(&sel_prof[2], static_cast<unsigned long long>(pf3 - pf2));\n"
+     "    atomicAdd(&sel_prof[3], static_cast<unsigned long long>(pf4 - pf3));\n"
+     "    atomicAdd(&sel_prof[4], static_cast<unsigned long long>(pf5 - pf4));\n"
+     "    atomicAdd(&sel_prof[5], static_cast<unsigned long long>(pf_passes));\n  }\n}\n\n"
+     "// The select over one group"),
+    ("}  // extern \"C\"\n",
+     "void sel_prof_read(unsigned long long* out, int reset) {\n"
+     "  cudaMemcpyFromSymbol(out, sel::sel_prof, sizeof(unsigned long long) * 8);\n"
+     "  if (reset) { unsigned long long z[8] = {0}; "
+     "cudaMemcpyToSymbol(sel::sel_prof, z, sizeof(z)); }\n}\n}  // extern \"C\"\n"),
+]
+
+
+def build_source_variant(_build, source, edits):
+    """csrc/<source>.cu itself edited (the headers as they are), built once
+    per edit and flags."""
+    body = (_build.CSRC / f"{source}.cu").read_text()
+    for old, new in edits:
+        if body.count(old) != 1:
+            raise RuntimeError(f"csrc/{source}.cu no longer holds {old!r} once")
+        body = body.replace(old, new)
+    digest = hashlib.sha256(
+        body.encode() + b"".join(h.read_bytes() for h in sorted(_build.CSRC.glob("*.cuh")))
+        + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"lib{source}_probe_{digest}.so"
+    if not out.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+            for src in _build.CSRC.glob("*.cuh"):
+                shutil.copy(src, tmp)
+            Path(tmp, f"{source}.cu").write_text(body)
+            part = out.with_suffix(f".{os.getpid()}.tmp")
+            done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(part),
+                                   str(Path(tmp, f"{source}.cu"))], capture_output=True,
+                                  text=True)
+            if done.returncode != 0:
+                raise RuntimeError(f"{source} variant does not build:\n{done.stdout}"
+                                   f"{done.stderr}")
+            os.replace(part, out)
+    return out
+
+
+SELECT_VARIANTS = {
+    "entry": [],
+    "scores alone": [(SELECT_LAUNCH, "    if (false)\n      e = launch_select(")],
+    "select alone": [(SCORES_LAUNCH, "    int e = 0;\n    if (false) e = scan_mma::launch<T, "
+                                     "scan_mma::SCORES, 1>(")],
+    "profile": SELECT_PROFILE,
+}
+
+
+def select_alone(rows, scales, sq, valid, q, k, tile_n, group):
+    """The select alone, timed apart: the [B, group] f32 scores of the first
+    group of tiles (the plain version's, made once) in a scratch of the
+    probe's own, and a launch of the select entry exact_route names as
+    tile_topk_cuda makes it, over that scratch (cosine; the select-alone
+    build reads the same scores for every group). Returns the launch and
+    the scores."""
+    from vectorlite_tpu_torch.core.metrics import SimilarityMetric as SM
+    from vectorlite_tpu_torch.kernels import scan, scan_mma
+
+    n, d = rows.shape
+    b = q.shape[0]
+    kernel = scan.exact_route(rows.dtype, k, SM.COSINE, tile_n)
+    scratch = scan.tile_scores(rows[:group], scales if scales is None else scales[:group],
+                               sq[:group], valid[:group], q, SM.COSINE).contiguous()
+    qsq = (q * q).sum(-1).contiguous()
+    if rows.dtype == torch.int8:
+        head = (*scan_mma.query_operand_int8(q), qsq, rows, scales)
+    else:
+        head = (scan_mma.query_operand_tf32(q) if rows.dtype == torch.float32
+                else scan_mma.query_operand(q), qsq, rows)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        out_s = torch.empty((b, n // tile_n, k), dtype=torch.float32, device=rows.device)
+        out_i = torch.empty((b, n // tile_n, k), dtype=torch.int32, device=rows.device)
+        kernel.launch(*(t.data_ptr() for t in head), sq.data_ptr(), valid.data_ptr(),
+                      scratch.data_ptr(), group, out_s.data_ptr(), out_i.data_ptr(), n, d, b, k,
+                      tile_n, scan._METRIC_CODE[SM.COSINE], stream)
+        return out_s, out_i
+    return run, scratch
+
+
+def select_timings(args) -> int:
+    """``--select-part NAME --select-lib PATH``: one build of csrc/select.cu
+    (SELECT_VARIANTS) in a process of its own, no other build of it
+    loaded: each SELECT_TIMED case timed twice (20 launches each); the
+    entry held against the plain version first, the select alone's first
+    group of lists against the plain lists of the scores it read; the
+    profile's counters read over one launch. Prints a JSON object last."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from vectorlite_tpu_torch.core.metrics import SimilarityMetric as SM
+    from vectorlite_tpu_torch.kernels import _build, scan
+
+    part = args.select_part
+    _build._libs["select"] = ctypes.CDLL(args.select_lib)
+    if part == "profile":
+        read = _build._libs["select"].sel_prof_read
+        read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        read.restype = None
+    dev = torch.device("cuda", 0)
+    v, vb, v8, sc, sq, valid, q = main_inputs(dev, args.seed)
+    rows_of = {"f32": (v, None, 2048), "bf16": (vb, None, 4096), "int8": (v8, sc, 2048)}
+    default_scratch = scan.SELECT_SCRATCH_BYTES
+    out = {}
+    for name, dtype, k, tile, scratch in SELECT_TIMED:
+        rows, scales, caller = rows_of[dtype]
+        tile_n = tile or scan.exact_tile(rows.shape[0], caller, k)
+        scan.SELECT_SCRATCH_BYTES = scratch or default_scratch
+        group = scan.select_group_rows(rows.shape[0], q.shape[0], tile_n)
+
+        def run(rows=rows, scales=scales, k=k, tile_n=tile_n):
+            return scan.tile_topk_cuda(rows, scales, sq, valid, q, metric=SM.COSINE, k_tile=k,
+                                       tile_n=tile_n)
+        res = {"tile": tile_n, "group_rows": group}
+        if part == "profile":
+            buf = (ctypes.c_ulonglong * 8)()
+            run()
+            torch.cuda.synchronize()
+            read(buf, 1)
+            run()
+            torch.cuda.synchronize()
+            read(buf, 1)
+            blocks = max(1, buf[0])
+            res["cycles a block"] = {
+                "passes (keys' loads included)": buf[1] / blocks, "gather": buf[2] / blocks,
+                "sort": buf[3] / blocks, "write": buf[4] / blocks, "passes a block": buf[5] / blocks}
+            out[name] = res
+            scan.SELECT_SCRATCH_BYTES = default_scratch
+            continue
+        if part == "entry":
+            got = run()
+            torch.cuda.synchronize()
+            want = scan.tile_topk_plain(rows, scales, sq, valid, q, metric=SM.COSINE,
+                                        k_tile=k + 1, tile_n=tile_n)
+            res["max_abs_err"] = cs.compare(f"{name}", [x.reshape(-1, k) for x in got],
+                                            [x.reshape(-1, k + 1) for x in want])
+            del got, want
+        if part == "select alone":
+            run, scores = select_alone(rows, scales, sq, valid, q, k, tile_n, group)
+            got = run()
+            torch.cuda.synchronize()
+            tiles_g = group // tile_n
+            want = torch.topk(scores.view(q.shape[0], tiles_g, tile_n), k + 1, dim=-1)
+            res["max_abs_err"] = cs.compare(
+                f"{name} (select alone, first group)",
+                [x[:, :tiles_g].reshape(-1, k) for x in got],
+                [want.values.reshape(-1, k + 1),
+                 (want.indices + torch.arange(tiles_g, device=dev)[:, None] * tile_n)
+                 .reshape(-1, k + 1)])
+            del got, want
+        res["ms"] = [cs.cuda_time_ms(run, 20), cs.cuda_time_ms(run, 20)]
+        out[name] = res
+        scan.SELECT_SCRATCH_BYTES = default_scratch
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def select_main(args) -> int:
+    """--select-only: the radix select's entries held at small shapes, then
+    timed whole and part by part, each build in a process of its own."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from vectorlite_tpu_torch.core.metrics import SimilarityMetric as SM
+    from vectorlite_tpu_torch.kernels import _build, scan
+
+    card = cs.card_line()
+    _build.build_all(["select"])
+    _build.load("select")
+    ptxas = _build.ptxas_report("select")
+    for line in ptxas:
+        cs.log(f"  select ptxas: {line}")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng([args.seed, 16])
+    errs = {}
+    for n, d, b in ((16384, 100, 5), (8192, 99, 3), (65536, 384, 256), (16384, 768, 70)):
+        rows, sq, valid, q = inputs(dev, rng, n, d, b, 4096)
+        cases = [(257, 2048), (300, n), (1024, 4096), (2048, 2048), (2049, n), (4096, n),
+                 (n, n), (2049, 4096), (4096, 4096)]
+        cases += [(33, 65536), (300, 65536)] if n >= 65536 else []
+        for dtype, (v, scales) in rows.items():
+            for metric in (SM.COSINE, SM.EUCLIDEAN, SM.DOT_PRODUCT):
+                for k, tile_n in cases:
+                    if metric is SM.DOT_PRODUCT and 2 * k >= tile_n:
+                        continue  # dots near 0 (the card test holds them to float64)
+                    kernel = scan.exact_route(v.dtype, k, metric, tile_n)
+                    if kernel.library != "select":
+                        raise AssertionError(f"k {k}, tile {tile_n}: routed to {kernel.symbol}")
+                    got = scan.tile_topk_cuda(v, scales, sq, valid, q, metric=metric, k_tile=k,
+                                              tile_n=tile_n)
+                    torch.cuda.synchronize()
+                    kw = min(k + 1, tile_n)
+                    want = scan.tile_topk_plain(v, scales, sq, valid, q, metric=metric,
+                                                k_tile=kw, tile_n=tile_n)
+                    err = cs.compare(f"{kernel.symbol} {dtype} {n}x{d} B{b} t{tile_n} k{k} "
+                                     f"{metric.name}", [x.reshape(-1, k) for x in got],
+                                     [x.reshape(-1, kw) for x in want])
+                    errs[dtype] = max(errs.get(dtype, 0.0), err)
+    cs.log(f"  small shapes: every select entry agrees (max |score diff| {errs}) [{card}]")
+    if args.check_only:
+        print(card, flush=True)
+        print(json.dumps({"card": card, "ptxas": ptxas, "max_abs_err": errs}), flush=True)
+        return 0
+    libs = {"entry": _build._target("select")}
+    with concurrent.futures.ThreadPoolExecutor(len(SELECT_VARIANTS) - 1) as pool:  # one nvcc each
+        built = {part: pool.submit(build_source_variant, _build, "select", edits)
+                 for part, edits in SELECT_VARIANTS.items() if edits}
+    libs.update({part: path.result() for part, path in built.items()})
+    out = {}
+    for part, path in libs.items():
+        done = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--select-part", part,
+             "--select-lib", str(path), "--seed", str(args.seed)],
+            capture_output=True, text=True, env={**os.environ, "PYTHONPATH": str(ROOT)})
+        if done.returncode != 0:
+            raise RuntimeError(f"select {part}: exit {done.returncode}\n{done.stdout}"
+                               f"{done.stderr}")
+        for line in done.stdout.splitlines()[:-1]:
+            cs.log(line)
+        for name, res in json.loads(done.stdout.splitlines()[-1]).items():
+            out.setdefault(name, {})[part] = res
+    for name, res in out.items():
+        cs.log(f"  {name} (tile {res['entry']['tile']}, groups of {res['entry']['group_rows']} "
+               "rows): " + "; ".join(f"{part} {' / '.join(f'{t:.4f}' for t in r['ms'])} ms"
+                                     for part, r in res.items() if "ms" in r)
+               + f"; profile {res['profile']['cycles a block']} [{card}]")
+    print(card, flush=True)
+    print(json.dumps({"card": card, "ptxas": ptxas, "max_abs_err": errs, "ms": out}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--check-only", action="store_true")
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--wide-only", action="store_true")
-    only.add_argument("--deep-only", action="store_true")
-    ap.add_argument("--deep-lib", help=argparse.SUPPRESS)
-    ap.add_argument("--deep-variant", help=argparse.SUPPRESS)
-    ap.add_argument("--deep-precision", action="store_true",
-                    help="only the deep entries' dot products near 0 against float64, with "
-                         "and without the slice-at-a-time sums")
+    only.add_argument("--select-only", action="store_true")
+    only.add_argument("--precision", action="store_true",
+                      help="only the select entries' dot products near 0 against float64, "
+                           "with and without the slice-at-a-time sums")
+    ap.add_argument("--select-part", help=argparse.SUPPRESS)
+    ap.add_argument("--select-lib", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_exact_topk: no CUDA device is available", file=sys.stderr)
         return 1
-    if args.deep_lib:
-        return deep_precision(args) if args.deep_precision else deep_timings(args)
-    if args.deep_precision:
+    if args.select_part:
+        return select_timings(args)
+    if args.select_lib:
+        return precision_run(args)
+    if args.select_only:
+        return select_main(args)
+    if args.precision:
         return precision_main(args)
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -427,22 +588,18 @@ def main() -> int:
     from vectorlite_tpu_torch.kernels import _build, scan
 
     card = cs.card_line()
-    sources = (["wide", "scan"] if args.wide_only else ["deep"] if args.deep_only
-               else ["exact", "wide", "deep", "scan"])
+    sources = ["wide"] if args.wide_only else ["exact", "wide"]
     _build.build_all(sources)
     for name in sources:
         _build.load(name)
         for line in _build.ptxas_report(name):
             cs.log(f"  {name} ptxas: {line}")
-    plans = {} if args.wide_only or args.deep_only else ring_plans(_build)
+    plans = {} if args.wide_only else ring_plans(_build)
     for key, plan in plans.items():
         cs.log(f"  TOPK ring, {key}: {plan}")
-    wide_plans = {} if args.deep_only else cs.wide_plans(_build)
+    wide_plans = cs.wide_plans(_build)
     for key, plan in wide_plans.items():
         cs.log(f"  wide plan, {key}: {plan}")
-    deep_plans = {} if args.wide_only else cs.deep_plans(_build)
-    for key, plan in deep_plans.items():
-        cs.log(f"  deep plan, {key}: {plan}")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng([args.seed, 9])
     SM = SimilarityMetric
@@ -466,46 +623,32 @@ def main() -> int:
                           [x.reshape(-1, want[0].shape[-1]) for x in want])
 
     errs = {}
-    deep_ks = () if args.wide_only else (257, 300, 512, 1024, 2048)
-    ks = (33, 64, 100, 128, 256) if args.wide_only else () if args.deep_only else (
-        1, 10, 16, 32, 33, 64, 100, 128, 256)
+    ks = (33, 64, 100, 128, 256) if args.wide_only else (1, 10, 16, 32, 33, 64, 100, 128, 256)
     # D 99: every row type on the plain-load staging (TMA refuses the stride)
     for n, d, b, tile_n in ((16384, 100, 5, 2048), (8192, 99, 3, 1024),
                             (65536, 384, 256, 4096), (16384, 768, 70, 2048)):
         rows, sq, valid, q = inputs(dev, rng, n, d, b, tile_n)
         for dtype, (v, sc) in rows.items():
             for metric in metrics:
-                for k in (*ks, *(k for k in deep_ks if k <= tile_n)):
-                    if metric is SM.DOT_PRODUCT and 2 * k >= tile_n:
-                        # dots near 0, where the plain f32 product is itself
-                        # further than 1e-5 from float64 (tests/test_torch_scan.py
-                        # holds these lists to float64 instead)
-                        continue
+                for k in ks:
                     err = check(f"{dtype} {n}x{d} B{b} t{tile_n} k{k} {metric.name}",
                                 v, sc, sq, valid, q, metric, k, tile_n)
-                    mode = ("deep" if k > scan.WIDE_MAX_K else "wide" if k > scan.MMA_MAX_K
-                            else "topk")
+                    mode = "wide" if k > scan.MMA_MAX_K else "topk"
                     errs[f"{dtype} {mode}"] = max(errs.get(f"{dtype} {mode}", 0.0), err)
     cs.log(f"  small shapes: every entry agrees (max |score diff| {errs}) [{card}]")
     if args.check_only:
         print(card, flush=True)
         print(json.dumps({"card": card, "plans": plans, "wide_plans": wide_plans,
-                          "deep_plans": deep_plans, "max_abs_err": errs}), flush=True)
+                          "max_abs_err": errs}), flush=True)
         return 0
 
-    variants = {} if args.wide_only or args.deep_only else {
+    variants = {} if args.wide_only else {
         name: ("exact", edits) for name, edits in VARIANTS.items()}
-    if not args.deep_only:
-        variants.update({f"wide {name}": ("wide", edits) for name, edits in WIDE_VARIANTS.items()})
-    deep_variants = {} if args.wide_only else DEEP_VARIANTS
-    with concurrent.futures.ThreadPoolExecutor(max(1, len(variants) + len(deep_variants))) as pool:
-        # one nvcc each
+    variants.update({f"wide {name}": ("wide", edits) for name, edits in WIDE_VARIANTS.items()})
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:  # one nvcc each
         built = {name: (source, pool.submit(build_variant, _build, name, edits, source))
                  for name, (source, edits) in variants.items()}
-        deep_built = {name: pool.submit(build_variant, _build, name, edits, "deep")
-                      for name, edits in deep_variants.items()}
-    libs = {source: {"body": _build.load(source)} for source in ("exact", "wide")
-            if source in sources}
+    libs = {source: {"body": _build.load(source)} for source in sources}
     for name, (source, path) in built.items():
         libs[source][name] = ctypes.CDLL(str(path.result()))
     v, vb, v8, sc, sq, valid, q = main_inputs(dev, args.seed)
@@ -524,20 +667,9 @@ def main() -> int:
         def new(rows=rows, scales=scales, k=k, tile_n=tile_n):
             return run(rows, scales, sq, valid, q, SM.COSINE, k, tile_n)
 
-        def old(rows=rows, scales=scales, k=k, tile_n=tile_n):
-            # the CUDA-core route
-            saved = scan.MMA_MAX_K, scan.WIDE_MAX_K, scan.DEEP_MAX_K
-            scan.MMA_MAX_K, scan.WIDE_MAX_K, scan.DEEP_MAX_K = 0, 0, 0
-            try:
-                return new(rows, scales, k, tile_n)
-            finally:
-                scan.MMA_MAX_K, scan.WIDE_MAX_K, scan.DEEP_MAX_K = saved
-
-        o1 = cs.cuda_time_ms(old, 5)
         n1 = cs.cuda_time_ms(new, 20)
         n2 = cs.cuda_time_ms(new, 20)
-        o2 = cs.cuda_time_ms(old, 5)
-        ms = {"new": [n1, n2], "cuda_core": [o1, o2]}
+        ms = {"new": [n1, n2]}
         for variant, lib in libs[source].items():
             _build._libs[source] = lib
             ms[variant] = cs.cuda_time_ms(new, 20)
@@ -553,58 +685,36 @@ def main() -> int:
                 cs.log(f"    {variant} (means a warp): {ms[f'{variant}: per warp']}")
         _build._libs[source] = libs[source]["body"]
         out[name] = ms
-        cs.log(f"  {name} (k {k}, tile {tile_n}): tensor-core body {n1:.4f} / {n2:.4f} ms, "
-               f"CUDA-core body {o1:.4f} / {o2:.4f} ms; "
+        cs.log(f"  {name} (k {k}, tile {tile_n}): tensor-core body {n1:.4f} / {n2:.4f} ms; "
                + ", ".join(f"{var} {t:.4f}" for var, t in ms.items()
                            if isinstance(t, float)) + f" [{card}]")
-    # the deep entries: each build in a process of its own (several builds of
-    # one kernel loaded into one process gave readings of the body that no
-    # process with one build repeats)
-    deep_libs = {"body": _build._target("deep")} if "deep" in sources else {}
-    deep_libs.update({name: path.result() for name, path in deep_built.items()})
-    deep_ms = {}
-    for label, path in deep_libs.items():
-        done = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--deep-lib", str(path),
-             "--deep-variant", label, "--seed", str(args.seed)],
-            capture_output=True, text=True, env={**os.environ, "PYTHONPATH": str(ROOT)})
-        if done.returncode != 0:
-            raise RuntimeError(f"deep {label}: exit {done.returncode}\n{done.stdout}{done.stderr}")
-        for line in done.stdout.splitlines()[:-1]:
-            cs.log(line)
-        for name, res in json.loads(done.stdout.splitlines()[-1]).items():
-            deep_ms.setdefault(name, {})[label] = res
-    for name, res in deep_ms.items():
-        out[name] = res
-        cs.log(f"  {name}: " + "; ".join(
-            f"{label} {' / '.join(f'{t:.4f}' for t in r['ms'])} ms"
-            + (f" {r['counts']}" if "counts" in r else "") for label, r in res.items())
-            + f" [{card}]")
     print(card, flush=True)
     print(json.dumps({"card": card, "plans": plans, "wide_plans": wide_plans,
-                      "deep_plans": deep_plans, "max_abs_err": errs, "ms": out}), flush=True)
+                      "max_abs_err": errs, "ms": out}), flush=True)
     return 0
 
 
 def precision_main(args) -> int:
-    """--deep-precision: the body and its form without the slice sums, each
-    built and measured in a process of its own (deep_precision)."""
+    """--precision: the select entries and their form without the slice
+    sums, each built and measured in a process of its own
+    (precision_run)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from vectorlite_tpu_torch.kernels import _build
 
     card = cs.card_line()
-    _build.build_all(["deep"])
-    libs = {"body": _build._target("deep"),
-            "no slice sums": build_variant(_build, "no slice sums", NO_SLICE_SUMS, "deep")}
+    _build.build_all(["select"])
+    libs = {"body": _build._target("select"),
+            "no slice sums": build_variant(_build, "no slice sums", NO_SLICE_SUMS, "select")}
     out = {}
     for label, path in libs.items():
         done = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--deep-lib", str(path),
-             "--deep-precision", "--seed", str(args.seed)],
+            [sys.executable, str(Path(__file__).resolve()), "--select-lib", str(path),
+             "--precision", "--seed", str(args.seed)],
             capture_output=True, text=True, env={**os.environ, "PYTHONPATH": str(ROOT)})
         if done.returncode != 0:
-            raise RuntimeError(f"deep {label}: exit {done.returncode}\n{done.stdout}{done.stderr}")
+            raise RuntimeError(f"select {label}: exit {done.returncode}\n{done.stdout}"
+                               f"{done.stderr}")
         out[label] = json.loads(done.stdout.splitlines()[-1])
         for shape, res in out[label].items():
             cs.log(f"  {label}, {shape}: " + "; ".join(

@@ -96,10 +96,10 @@ def test_exact_wide_k_matches_pallas(dtype, rng):
     check(jout, tout)
 
 
-@pytest.mark.parametrize("k", [300, 512, 1000])
+@pytest.mark.parametrize("k", [300, 512, 1000, 2049, 4096])
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 def test_exact_deep_k_matches_pallas(dtype, k, rng):
-    """k past 256 (the deep mode's range on the card): the JAX K1 / K2 in
+    """k past 256 (the radix select's range on the card): the JAX K1 / K2 in
     interpret mode at tile_n 256 (each tile's top 256, merged) against the
     port at the same tile_n, which grows its own tile with k (exact_tile:
     the whole 8,192 rows here, one list of k). Cosine, 10% invalid rows;
@@ -707,13 +707,12 @@ def test_topk_mode_model_matches_tile_topk_plain(k):
     assert np.array_equal(got_s, want_s.numpy())
 
 
-def tensor_core_entry(dtype, k):
-    """The symbol of K1 / K2's tensor-core entry for rows of ``dtype`` and
-    lists of ``k`` (the TOPK mode to k 32, the wide mode to k 256, the deep
-    mode to k 2,048), or None past them."""
-    if k > 2048:
-        return None
-    mode = "exact" if k <= 32 else "wide" if k <= 256 else "deep"
+def tensor_core_entry(dtype, k, tile_n=2048):
+    """The symbol of K1 / K2's entry for rows of ``dtype``, lists of ``k``
+    and tiles of ``tile_n`` rows: the tensor-core body's TOPK mode to k 32
+    (any tile), its wide mode to k 256 (tiles up to 32,768 rows), else its
+    scores into the radix select."""
+    mode = "exact" if k <= 32 else "wide" if k <= 256 and tile_n <= 32768 else "select"
     return f"scan_topk_{mode}_" + {"f32": "tf32", "bf16": "bf16", "int8": "s8"}[dtype]
 
 
@@ -831,142 +830,186 @@ def test_wide_mode_model_matches_tile_topk_plain(k, tile_n):
         assert set(batches) == {32, 64, 128}
 
 
-#: the deep mode's staging buffer (a query's candidates between merges) and
-#: an empty entry's row (csrc/scan_mma.cuh DEEP_STAGE, NO_ROW)
-DEEP_STAGE = 256
-NO_ROW = 0x7FFFFFFF
+# csrc/select.cu's radix select, step for step: the order-preserving keys,
+# 8-bit digit passes that stop once a whole bin is taken, the survivors
+# (ties at the threshold to the lowest rows), and the bitonic network over
+# key << 32 | ~offset with the entries past n missing.
+SELECT_THREADS = 1024
 
 
-def _deep_rank(bs, br, s, r):
-    """deep_rank for every (s, r) at once: the batch entries (sorted) that
-    precede it, by the binary search's steps of 256, 128, ..., 1."""
-    lo = np.zeros(len(s), np.int64)
-    step = DEEP_STAGE
-    while step:
-        j = lo + step - 1
-        ok = j < len(bs)
-        jj = np.minimum(j, len(bs) - 1)
-        lo += np.where(ok & _precedes(bs[jj], br[jj], s, r), step, 0)
-        step //= 2
-    return lo
+def select_keys(s):
+    """key_of: larger score, larger uint32 key; -0 as +0, NaN as one NaN."""
+    s = np.where(s == 0, np.float32(0), s).astype(np.float32)
+    u = s.view(np.uint32).copy()
+    u[np.isnan(s)] = 0x7FC00000
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
 
 
-def _deep_merge(ls, lr, bs, br, k):
-    """deep_merge: the batch sorted by the bitonic network (256 slots, empty
-    ones (-inf, NO_ROW)); list entry i moves to i + c(i), c(i) the batch
-    entries that precede it (_deep_rank), and the batch entries j in [c(i -
-    1), c(i)) land at j + i; those past the list's last entry at j + len;
-    what lands at or past k drops. The kernel stops at the first group of
-    runs whose lowest entry stays (c 0), below which every c is 0 and no
-    batch entry lands: the same arrays."""
-    n = len(bs)
-    ps = np.full(DEEP_STAGE, -np.inf, np.float32)
-    pr = np.full(DEEP_STAGE, NO_ROW, np.int64)
-    ps[:n], pr[:n] = bs, br
-    ps, pr = _bitonic_sort(ps, pr)
-    bs, br = ps[:n], pr[:n]
-    c = _deep_rank(bs, br, ls, lr)
-    to_batch = np.empty(n, np.int64)
-    prev = 0
-    for i, ci in enumerate(c):
-        to_batch[prev:ci] = np.arange(prev, ci) + i
-        prev = ci
-    to_batch[prev:] = np.arange(prev, n) + len(ls)
-    size = min(k, len(ls) + n)
-    out_s = np.full(size, np.nan, np.float32)
-    out_r = np.full(size, -1, np.int64)
-    for src_s, src_r, to in ((ls, lr, np.arange(len(ls)) + c), (bs, br, to_batch)):
-        keep = to < k
-        assert np.all(np.isnan(out_s[to[keep]]))  # every slot written once
-        out_s[to[keep]], out_r[to[keep]] = src_s[keep], src_r[keep]
-    assert not np.isnan(out_s).any()
-    return out_s, out_r
+def select_key_scores(keys):
+    """score_of_key: the inverse of select_keys."""
+    keys = keys.astype(np.uint32)
+    u = np.where(keys & 0x80000000, keys & 0x7FFFFFFF, ~keys).astype(np.uint32)
+    return u.view(np.float32)
 
 
-def deep_mode_model(s, tile_n, k, merges=None):
-    """A NumPy model of the deep mode's selection over a [B, N] score
-    matrix, step for step: per tile and query a list of up to k entries (the
-    output row) and a staging buffer of 256; each 128-row chunk's rows that
-    precede the k-th entry ((-inf, NO_ROW) while the list is short of k:
-    every row) staged in row order, the buffer merged first (_deep_merge)
-    when the chunk's rows would overflow it, and the ballot taken again
-    against the new k-th entry; at the tile's end the staged rows merged.
-    Order: (score descending, row ascending). Returns ([B, T, k] scores,
-    int32 rows); ``merges`` counts the merges by batch size."""
+def select_bitonic(v, n):
+    """The kernel's bitonic network: larger values first, the entries past
+    n of the power-of-two network missing (a comparison that reaches one
+    is skipped); the flip, then the half-cleaners, for each size."""
+    v = v.copy()
+    full = 1 << max(0, n - 1).bit_length()
+    p = np.arange(full // 2)
+    size = 2
+    while size <= full:
+        stride = size // 2
+        while stride:
+            if stride == size // 2:
+                blk, w = p // stride, p % stride
+                i, l = blk * size + w, blk * size + size - 1 - w
+            else:
+                i = (p // stride) * 2 * stride + p % stride
+                l = i + stride
+            ok = l < n
+            i, l = i[ok], l[ok]
+            a, c = v[i], v[l]
+            swap = a < c
+            v[i[swap]], v[l[swap]] = c[swap], a[swap]
+            stride //= 2
+        size *= 2
+    return v
+
+
+def select_one(scores, k):
+    """One block: a tile's scores -> its top k (scores, offsets in the
+    tile) and the digit passes it took."""
+    keys = select_keys(scores)
+    t = len(keys)
+    # warp w holds rows [w S, (w + 1) S), lane l rows w S + l + 32 j: the
+    # (warp, j, lane) order the ranks are taken in is row order
+    seg = -(-t // SELECT_THREADS) * 32
+    order = np.array([w * seg + j * 32 + lane for w in range(32) for j in range(seg // 32)
+                      for lane in range(32)])
+    assert np.array_equal(order[order < t], np.arange(t))
+    prefix, mask, need, passes = 0, 0, k, 0
+    for shift in (24, 16, 8, 0):
+        passes += 1
+        match = (keys & mask) == prefix
+        hist = np.bincount((keys[match] >> shift) & 0xFF, minlength=256)
+        above, done = 0, False
+        for b in range(255, -1, -1):
+            if above < need <= above + hist[b]:
+                prefix |= b << shift
+                mask |= 0xFF << shift
+                done = above + hist[b] == need
+                need -= above
+                break
+            above += hist[b]
+        if done:
+            break
+    masked = keys & np.uint32(mask)
+    eq = masked == prefix
+    take = (masked > prefix) | (eq & (np.cumsum(eq) - 1 < need))
+    off = np.flatnonzero(take)
+    assert len(off) == k
+    v = (keys[off].astype(np.uint64) << np.uint64(32)) | (~off.astype(np.uint32)).astype(np.uint64)
+    v = select_bitonic(v, k)
+    return (select_key_scores((v >> np.uint64(32)).astype(np.uint32)),
+            (~(v & np.uint64(0xFFFFFFFF)).astype(np.uint32)).astype(np.int64), passes)
+
+
+def select_model(s, tile_n, k):
+    """[B, N] scores -> ([B, T, k] scores, int64 rows, passes a list)."""
     b, n = s.shape
-    n_tiles = n // tile_n
-    out_s = np.empty((b, n_tiles, k), np.float32)
-    out_i = np.empty((b, n_tiles, k), np.int32)
+    out_s = np.zeros((b, n // tile_n, k), np.float32)
+    out_i = np.zeros((b, n // tile_n, k), np.int64)
+    passes = []
     for q in range(b):
-        for t in range(n_tiles):
-            base = t * tile_n
-            ls, lr = np.empty(0, np.float32), np.empty(0, np.int64)
-            st_s, st_r = np.empty(0, np.float32), np.empty(0, np.int64)
-            kth = (-np.inf, NO_ROW)
+        for t in range(n // tile_n):
+            sc, off, p = select_one(s[q, t * tile_n:(t + 1) * tile_n], k)
+            out_s[q, t], out_i[q, t] = sc, off + t * tile_n
+            passes.append(p)
+    return out_s, out_i, passes
 
-            def merge(ls, lr, st_s, st_r):
-                if merges is not None:
-                    merges[len(st_s)] = merges.get(len(st_s), 0) + 1
-                ls, lr = _deep_merge(ls, lr, st_s, st_r, k)
-                return ls, lr, (ls[k - 1], lr[k - 1]) if len(ls) == k else (-np.inf, NO_ROW)
-            for c in range(tile_n // 128):
-                cs = s[q, base + c * 128:base + (c + 1) * 128]
-                cr = np.arange(c * 128, (c + 1) * 128)
-                cand = _precedes(cs, cr, *kth)
-                if not cand.any():
-                    continue
-                if len(st_s) + int(cand.sum()) > DEEP_STAGE:
-                    ls, lr, kth = merge(ls, lr, st_s, st_r)
-                    st_s, st_r = np.empty(0, np.float32), np.empty(0, np.int64)
-                    cand = _precedes(cs, cr, *kth)
-                st_s = np.concatenate([st_s, cs[cand]])
-                st_r = np.concatenate([st_r, cr[cand]])
-            if len(st_s):
-                ls, lr, kth = merge(ls, lr, st_s, st_r)
-            out_s[q, t] = ls
-            out_i[q, t] = lr + base
-    return out_s, out_i
+
+def test_select_keys_keep_the_order_of_scores(rng):
+    """select_keys orders every float as a descending sort does: -inf
+    lowest, -0 and +0 one key, +inf below NaN; score_of_key inverts it
+    (but for -0, which comes back +0)."""
+    x = np.concatenate([
+        rng.normal(size=2000).astype(np.float32) * 10.0 ** rng.integers(-30, 30, 2000),
+        np.array([-np.inf, np.inf, 0.0, -0.0, 1e-45, -1e-45, np.finfo(np.float32).max,
+                  -np.finfo(np.float32).max], np.float32)]).astype(np.float32)
+    keys = select_keys(x)
+    order = np.argsort(x, kind="stable")
+    assert np.all(np.diff(keys[order].astype(np.int64)) >= 0)
+    assert np.array_equal(keys[x == 0], np.full((x == 0).sum(), keys[x == 0][0]))
+    assert select_keys(np.array([np.nan], np.float32))[0] > select_keys(
+        np.array([np.inf], np.float32))[0]
+    back = select_key_scores(keys)
+    assert np.array_equal(back, np.where(x == 0, np.float32(0), x))
+
+
+def tie_heavy_rows(rng, n, invalid_frac, dead_tile=None, tile_n=None):
+    """int8-valued f32 rows of 4 dimensions from {-1, 0, 1} (dot products
+    with a query of ones take 9 values: ties everywhere), some invalid."""
+    v = rng.integers(-1, 2, size=(n, 4)).astype(np.float32)
+    valid = rng.random(n) >= invalid_frac
+    if dead_tile is not None:
+        valid[dead_tile * tile_n:(dead_tile + 1) * tile_n] = False
+    return torch.from_numpy(v), torch.from_numpy(valid)
 
 
 @pytest.mark.parametrize("k, tile_n", [
-    (257, 512), (300, 2048), (512, 2048), (1024, 4096), (2048, 2048), (300, 16384),
-    (1024, 32768), (2048, 32768),
+    (1, 128), (7, 128), (127, 128), (128, 128), (33, 1152), (300, 1152), (1151, 1152),
+    (1152, 1152), (2049, 4096), (4095, 4096), (4096, 4096), (257, 512), (300, 2048),
+    (512, 2048), (1024, 4096), (2048, 2048), (300, 16384), (1024, 32768), (2048, 32768),
 ])
-def test_deep_mode_model_matches_tile_topk_plain(k, tile_n):
-    """The deep mode's selection (candidates staged 256 a query, merged into
-    a list in the output by ranks) gives tile_topk_plain's ids and scores
-    exactly on integer-valued scores with many ties, an all-invalid tile, a
-    tile invalid but for one row, a tile whose rows rise (every chunk's rows
-    all enter) and one whose rows fall, and k up to tile_n; batches past
-    128 rows occur, and (tiles of 2,048 rows and more past k) partial ones."""
-    g = np.random.default_rng([k, tile_n, 1])
-    b, n = 3, 5 * tile_n
-    s = g.integers(-4, 5, size=(b, n)).astype(np.float32)
-    s[:, tile_n:3 * tile_n] = -np.inf  # tile 1: no valid row
-    s[:, 2 * tile_n + 100] = 2.0  # tile 2: one valid row
-    s[0, 3 * tile_n:4 * tile_n] = np.arange(tile_n) // 3  # rising, in ties of three
-    s[1, 3 * tile_n:4 * tile_n] = -np.arange(tile_n) // 5  # falling, in ties of five
-    s[2, 3 * tile_n:4 * tile_n] = g.normal(size=tile_n)
-    merges = {}
-    got_s, got_i = deep_mode_model(s, tile_n, k, merges)
-    want_s, want_i = scan.stable_topk(torch.from_numpy(s).view(b, n // tile_n, tile_n), k)
-    want_i = want_i + torch.arange(n // tile_n)[None, :, None] * tile_n
-    assert np.array_equal(got_i, want_i.numpy())
-    assert np.array_equal(got_s, want_s.numpy())
-    assert max(merges) > 128
-    if k < tile_n >= 2048:
-        assert min(merges) < DEEP_STAGE
+def test_select_model_matches_tile_topk_plain(k, tile_n, rng):
+    """The radix select (select_model, csrc/select.cu's steps) against
+    tile_topk_plain on tie-heavy scores (9 values a query, every tie broken
+    toward the lowest row), 10% invalid rows, an all-invalid tile, k_tile
+    = tile_n and tile_n - 1, tiles not a multiple of 1,024 rows (a warp's
+    last rows past the tile): scores and rows exactly equal."""
+    n, b = 3 * tile_n, 3
+    v, valid = tie_heavy_rows(rng, n, 0.1, dead_tile=1, tile_n=tile_n)
+    q = torch.ones((b, 4))
+    q[2] = torch.tensor([1.0, -2.0, 0.5, 0.0])
+    sq = (v * v).sum(-1)
+    for metric in (SimilarityMetric.DOT_PRODUCT, SimilarityMetric.EUCLIDEAN):
+        want_s, want_i = scan.tile_topk_plain(v, None, sq, valid, q, metric=metric, k_tile=k,
+                                              tile_n=tile_n)
+        s = scan.tile_scores(v, None, sq, valid, q, metric).numpy()
+        got_s, got_i, passes = select_model(s, tile_n, k)
+        assert np.array_equal(got_i, want_i.numpy())
+        assert np.array_equal(got_s, want_s.numpy())
+        assert max(passes) == 4 if k < tile_n else min(passes) >= 1
+
+
+def test_select_model_orders_signed_zeros_and_random_scores(rng):
+    """Random scores (where a pass stops early once a bin resolves the
+    rank) and scores of only -0, +0 and -inf: the model's lists equal
+    stable_topk's (ties, -0 with +0, to the lowest row)."""
+    tile_n, k = 2048, 700
+    s = rng.normal(size=(2, 2 * tile_n)).astype(np.float32)
+    z = rng.choice(np.array([0.0, -0.0, -np.inf], np.float32), size=(2, 2 * tile_n))
+    for scores in (s, z):
+        got_s, got_i, passes = select_model(scores, tile_n, k)
+        want_s, want_i = scan.stable_topk(torch.from_numpy(scores).view(2, 2, tile_n), k)
+        want_i = want_i + torch.arange(2)[None, :, None] * tile_n
+        assert np.array_equal(got_i, want_i.numpy())
+        assert np.array_equal(got_s, np.where(want_s.numpy() == 0, np.float32(0), want_s.numpy()))
+    assert min(select_model(s, tile_n, 1)[2]) <= 3
 
 
 @pytest.mark.parametrize("k, tile_n, want", [
-    (256, 2048, 2048), (257, 2048, 16384), (300, 2048, 16384), (512, 2048, 16384),
+    (256, 2048, 2048), (257, 2048, 32768), (300, 2048, 32768), (512, 2048, 32768),
     (1000, 2048, 32768), (1024, 2048, 32768), (2048, 2048, 32768), (2049, 2048, 32768),
-    (512, 4096, 16384), (1024, 4096, 32768), (300, 65536, 65536),
+    (512, 4096, 32768), (1024, 4096, 32768), (300, 65536, 65536),
 ])
 def test_exact_tile_grows_with_k(k, tile_n, want, rng):
-    """exact_tile at 2^20 rows: tile_n up to k 256; past it the smallest
-    multiple of tile_n dividing the rows with at least 32 k rows, at most
-    32,768 (a tile past that stays as the caller gave it); manhattan keeps
+    """exact_tile at 2^20 rows: tile_n up to k 256; past it the largest
+    multiple of tile_n dividing the rows, at most 32,768 (a tile past that
+    stays as the caller gave it); manhattan keeps
     the caller's tile. At test size the grown tile gives _exact the same
     merged ids and scores as the caller's tile."""
     assert scan.exact_tile(1 << 20, tile_n, k) == want
@@ -996,21 +1039,25 @@ def test_exact_tile_grows_with_k(k, tile_n, want, rng):
 @pytest.mark.parametrize("k", [1, 16, 32, 33, 128, 256, 257, 300, 512, 1024, 2048, 2049])
 def test_exact_route(dtype, k):
     """exact_route: up to k 32 the tensor-core body's TOPK mode by the rows'
-    dtype (f32: 3xTF32, bf16, int8: K2), up to k 256 its wide mode and up to
-    k 2,048 its deep mode (both on tiles of at most 32,768 rows), beyond
-    them the CUDA-core K1 / K2. Manhattan
+    dtype (f32: 3xTF32, bf16, int8: K2), up to k 256 its wide mode (on
+    tiles of at most 32,768 rows), beyond it (and past 32,768-row tiles) its
+    scores into the radix select (csrc/select.cu); no K1 / K2 case reaches
+    the CUDA-core body. Manhattan
     (K4): up to k 32 the FADD stream over f32 and bf16 rows (tiles of a
     multiple of 256 rows), beyond it (and for tiles of 384 rows) the
     CUDA-core scan_topk_l1; over int8 rows the wrapper refuses it."""
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
-    core = scan.SCAN_TOPK_EXACT_INT8 if dtype == "int8" else scan.SCAN_TOPK_EXACT
-    want = tensor_core_entry(dtype, k) or core.symbol
+    want = tensor_core_entry(dtype, k)
+    select = {"f32": scan.SCAN_TOPK_SELECT_TF32, "bf16": scan.SCAN_TOPK_SELECT_BF16,
+              "int8": scan.SCAN_TOPK_SELECT_S8}[dtype]
     for metric in METRICS:
         assert scan.exact_route(dt, k, SimilarityMetric[metric]).symbol == want
         for tile_n in (2048, 32768, 65536):
-            listed = 32 < k <= 2048 and tile_n > scan.WIDE_MAX_TILE
-            assert scan.exact_route(dt, k, SimilarityMetric[metric], tile_n).symbol == (
-                core.symbol if listed else want)
+            listed = k > 32 and tile_n > scan.WIDE_MAX_TILE
+            got = scan.exact_route(dt, k, SimilarityMetric[metric], tile_n)
+            assert got.symbol == (select.symbol if listed else want)
+            assert (got is select) == (k > 256 or listed)
+            assert got.library != "scan"
     l1 = {"f32": "scan_topk_l1_fadd", "bf16": "scan_topk_l1_fadd_bf16"}.get(dtype)
     want_l1 = l1 if k <= 32 and l1 else "scan_topk_l1"
     MANHATTAN = SimilarityMetric.MANHATTAN
@@ -1034,19 +1081,19 @@ def test_exact_route(dtype, k):
 def test_exact_wrapper_routes_rows_by_dtype_and_k(dtype, k, tile_n, monkeypatch):
     """tile_topk_cuda launches the kernel exact_route names, once, with its
     own operands: the tf32 / bf16 / int8 query operand (and the int8 term
-    scales) on the tensor-core body (all three modes), the transposed f32
-    queries and a dtype code on the CUDA-core body (k past 2,048, tiles
-    past 32,768 rows). A fake card lets the host side run here."""
+    scales) on every route (the tensor-core body's two list modes, and past
+    k 256 or tiles of 32,768 rows its scores into the radix select, which
+    also takes a [B, group rows] f32 scratch and the group's rows). A fake
+    card lets the host side run here."""
     n, b = 2 * tile_n, 5
     d = 100 if tile_n <= 4096 else 8
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
     rows = torch.zeros((n, d), dtype=dt)
     scales = torch.ones(n) if dtype == "int8" else None
     launched = []
-    kernels = (scan.SCAN_TOPK_EXACT, scan.SCAN_TOPK_EXACT_INT8, scan.SCAN_TOPK_EXACT_TF32,
-               scan.SCAN_TOPK_EXACT_BF16, scan.SCAN_TOPK_EXACT_S8, scan.SCAN_TOPK_WIDE_TF32,
-               scan.SCAN_TOPK_WIDE_BF16, scan.SCAN_TOPK_WIDE_S8, scan.SCAN_TOPK_DEEP_TF32,
-               scan.SCAN_TOPK_DEEP_BF16, scan.SCAN_TOPK_DEEP_S8)
+    kernels = (scan.SCAN_TOPK_EXACT_TF32, scan.SCAN_TOPK_EXACT_BF16, scan.SCAN_TOPK_EXACT_S8,
+               scan.SCAN_TOPK_WIDE_TF32, scan.SCAN_TOPK_WIDE_BF16, scan.SCAN_TOPK_WIDE_S8,
+               scan.SCAN_TOPK_SELECT_TF32, scan.SCAN_TOPK_SELECT_BF16, scan.SCAN_TOPK_SELECT_S8)
     for kern in kernels:
         monkeypatch.setattr(kern, "launch",
                             lambda *a, kern=kern: launched.append((kern.symbol, a)))
@@ -1064,19 +1111,38 @@ def test_exact_wrapper_routes_rows_by_dtype_and_k(dtype, k, tile_n, monkeypatch)
                                k_tile=k, tile_n=tile_n)
     assert s.shape == i.shape == (b, n // tile_n, k)
     want = scan.exact_route(dt, k, SimilarityMetric.EUCLIDEAN, tile_n)
-    core = tile_n > scan.WIDE_MAX_TILE and k > 32 or k > 2048
-    assert want.symbol == (want.symbol if core else tensor_core_entry(dtype, k))
-    assert core == (want in (scan.SCAN_TOPK_EXACT, scan.SCAN_TOPK_EXACT_INT8))
+    select = tile_n > scan.WIDE_MAX_TILE and k > 32 or k > 256
+    assert want.symbol == tensor_core_entry(dtype, k, tile_n)
+    assert select == (want.library == "select")
     assert [sym for sym, _ in launched] == [want.symbol]
+    assert ops == [{"f32": "query_operand_tf32", "bf16": "query_operand",
+                    "int8": "query_operand_int8"}[dtype]]
     args = launched[0][1]
-    if not core:
-        assert ops == [{"f32": "query_operand_tf32", "bf16": "query_operand",
-                        "int8": "query_operand_int8"}[dtype]]
+    if not select:
         tail = args[9:15] if dtype == "int8" else args[7:13]
         assert tail == (n, d, b, k, tile_n, 1)
     else:
-        assert ops == []
-        assert args[-7:-1] == (n, d, b, k, tile_n, 1)
+        group = scan.select_group_rows(n, b, tile_n)
+        assert group == n  # 256 MiB of scratch holds both tiles at B 5
+        at = 8 if dtype == "int8" else 6
+        assert args[at] == group
+        assert args[at + 3:at + 9] == (n, d, b, k, tile_n, 1)
+        assert len(args) == at + 10
+
+
+@pytest.mark.parametrize("b, tile_n, want_tiles", [
+    (256, 32768, 8), (256, 65536, 4), (256, 4096, 64), (64, 32768, 32), (1024, 65536, 1),
+])
+def test_select_group_rows_bounds_the_scratch(b, tile_n, want_tiles):
+    """The radix select's scratch holds a group of whole tiles' [B, rows]
+    f32 scores within SELECT_SCRATCH_BYTES (256 MiB), at least one tile,
+    at most all the rows."""
+    n = 1 << 20
+    group = scan.select_group_rows(n, b, tile_n)
+    assert group == want_tiles * tile_n
+    assert group % tile_n == 0 and n % group == 0
+    assert 4 * b * group <= max(scan.SELECT_SCRATCH_BYTES, 4 * b * tile_n)
+    assert scan.select_group_rows(3 * tile_n, b, tile_n) == min(3, want_tiles) * tile_n
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -1256,9 +1322,9 @@ def assert_topk_matches(got, want):
 def test_exact_kernel_matches_plain_on_the_card(dtype, k, tile_n, shape):
     """K1 on the route exact_route names: the tensor-core body's TOPK mode
     (k <= 32; scan_topk_exact_tf32 over f32 rows, _bf16 over bf16 rows),
-    its wide mode (k 33-256: scan_topk_wide_tf32) and its deep mode (k 300:
-    scan_topk_deep_tf32, on the tile exact_tile grows: 16,384 and 8,192
-    rows here); the plain version at the caller's tile."""
+    its wide mode (k 33-256: scan_topk_wide_tf32) and its scores into the
+    radix select (k 300: scan_topk_select_tf32, on the tile exact_tile
+    grows); the plain version at the caller's tile."""
     rows, sq, valid, q = card_inputs(*shape)
     v, _ = rows[dtype]
     for metric in METRICS:
@@ -1273,7 +1339,7 @@ def test_exact_kernel_matches_plain_on_the_card(dtype, k, tile_n, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", CARD_SHAPES, ids=CARD_IDS)
 def test_exact_int8_kernel_matches_plain_on_the_card(shape):
-    """K2 (scan_topk_exact_int8): int8 rows times their scales."""
+    """K2 (scan_topk_exact_s8 at k 16): int8 rows times their scales."""
     rows, sq, valid, q = card_inputs(*shape)
     v8, sc = rows["int8"]
     for metric in METRICS:
@@ -1292,8 +1358,8 @@ TOPK_SHAPES = [(8192, 100, 5, 2048), (65536, 384, 256, 4096), (16384, 768, 70, 2
                (1 << 19, 384, 256, 2048)]
 TOPK_IDS = ["8192x100-B5-t2048", "65536x384-B256-t4096", "16384x768-B70-t2048",
             "524288x384-B256-t2048"]
-#: the deep mode's lists (k 257-2,048) on those shapes (k = tile_n at 2,048
-#: over 2,048-row tiles) and over tiles of 16,384 and 32,768 rows (the
+#: the radix select's lists of k 257-2,048 on those shapes (k = tile_n at
+#: 2,048 over 2,048-row tiles) and over tiles of 16,384 and 32,768 rows (the
 #: wrapper's grown tiles; 200-byte rows on the plain-load staging)
 DEEP_KS = [257, 300, 512, 1024, 2048]
 DEEP_SHAPES = [(65536, 384, 64, 16384), (131072, 384, 70, 32768), (65536, 100, 5, 32768)]
@@ -1312,8 +1378,9 @@ TOPK_CASES = [
 def test_exact_topk_mode_matches_plain_on_the_card(dtype, k, shape):
     """K1 and K2 on the route exact_route names (k <= 32: the tensor-core
     body's TOPK mode, scan_topk_exact_tf32 / _bf16 / _s8; k 33-256: its wide
-    mode, scan_topk_wide_tf32 / _bf16 / _s8; k 257-2,048: its deep mode,
-    scan_topk_deep_tf32 / _bf16 / _s8), one launch a metric: every tile's
+    mode, scan_topk_wide_tf32 / _bf16 / _s8; k 257-2,048: its scores into
+    the radix select, scan_topk_select_tf32 / _bf16 / _s8), one launch a
+    metric: every tile's
     list held against tile_topk_plain's under the 1e-5 rule, with 5%
     invalid rows, rows 7, 300 and 900 one row (ties to the lowest), query 0
     near them, and tile 1 without a valid row.
@@ -1385,6 +1452,69 @@ def assert_dots_match_f64(got, want, v, scales, valid, q):
     assert bool((mine[fin] >= kth.expand_as(mine)[fin] - top[1]).all())
     inf = ~torch.isfinite(got[0])
     assert torch.equal(got[1][inf], want[1][inf])
+
+
+#: the radix select's card shapes (rows, D, B, tile) and lists: k past
+#: 2,048 to k = tile_n over 32,768-row tiles at D 100, 384 and 768, and
+#: 65,536-row tiles (past the wide mode's) at k 33, 300 and 4,096 (the sort
+#: in registers) and 40,000 and 65,536 (the sort in the output)
+SELECT_CASES = [
+    pytest.param(shape, k, id=f"k{k}-{sid}")
+    for shape, sid, ks in (
+        ((131072, 384, 64, 32768), "131072x384-B64-t32768", [2049, 4096, 8192, 32768]),
+        ((65536, 100, 5, 32768), "65536x100-B5-t32768", [2049, 4096, 32768]),
+        ((65536, 768, 70, 32768), "65536x768-B70-t32768", [2049, 4096]),
+        ((131072, 384, 70, 65536), "131072x384-B70-t65536", [33, 300, 4096, 40000, 65536]))
+    for k in ks
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, k", SELECT_CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_select_entries_match_plain_on_the_card(dtype, k, shape):
+    """K1 and K2 on the radix select (csrc/select.cu scan_topk_select_tf32 /
+    _bf16 / _s8: the tensor-core body's scores into a select a (query,
+    tile)), one launch a metric: every tile's list held against
+    tile_topk_plain's under the 1e-5 rule, with 10% invalid rows, every
+    ninth row a copy of row 4 (ties to the lowest row), query 0 near it,
+    and tile 1 without a valid row. Dot-product lists of half a tile or
+    more reach dots near 0 and are held to float64 (assert_dots_match_f64),
+    as those of k 257-2,048 are."""
+    n, d, b, tile_n = shape
+    rows, sq, valid, q = card_inputs(n, d, b, seed=16)
+    for name, (v, _) in rows.items():
+        if name != "int8":
+            v[13::9] = v[4].clone()
+    v8, sc = rows["int8"]
+    v8[13::9] = v8[4].clone()
+    sc[13::9] = sc[4].clone()
+    sq[13::9] = sq[4].clone()
+    valid[::10] = False
+    valid[4] = True
+    valid[tile_n:2 * tile_n] = False
+    q[0] = rows["f32"][0][4] + 0.5 * q[0]
+    v, scales = rows[dtype]
+    kernel = scan.exact_route(v.dtype, k, SimilarityMetric.COSINE, tile_n)
+    assert kernel.symbol == tensor_core_entry(dtype, k, tile_n)
+    assert kernel.library == "select"
+    for metric in METRICS:
+        m = SimilarityMetric[metric]
+        before = kernel.launches
+        s_, i_ = scan.tile_topk_cuda(v, scales, sq, valid, q, metric=m, k_tile=k,
+                                     tile_n=tile_n)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        kw = min(k + 1, tile_n)
+        ws, wi = scan.tile_topk_plain(v, scales, sq, valid, q, metric=m, k_tile=kw,
+                                      tile_n=tile_n)
+        if metric == "DOT_PRODUCT" and 2 * k >= tile_n:
+            assert_dots_match_f64((s_, i_), (ws[..., :k], wi[..., :k]), v, scales, valid, q)
+            continue
+        assert_topk_matches((s_.reshape(-1, k), i_.reshape(-1, k)),
+                            (ws.reshape(-1, kw), wi.reshape(-1, kw)))
+        inf = ~torch.isfinite(s_)
+        assert torch.equal(i_[inf], wi[..., :k][inf])
 
 
 @pytest.mark.cuda

@@ -1787,7 +1787,7 @@ def test_http_search_on_the_card(monkeypatch, tmp_path):
     client.add_vectors_to_collection("c", rows, metadatas=[{"b": i % 4} for i in range(len(rows))])
     queries = rng.standard_normal((64, 384)).round(6)
     where = {"b": {"$gte": 0}}
-    k1 = {scan.SCAN_TOPK_EXACT_TF32.symbol, scan.SCAN_TOPK_EXACT.symbol}
+    k1 = {scan.SCAN_TOPK_EXACT_TF32.symbol}
 
     def launched():
         return {kern.symbol: kern.launches for kern in _build.KERNELS if kern.launches}

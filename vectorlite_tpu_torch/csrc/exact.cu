@@ -12,9 +12,9 @@
 //
 // Each writes tile_topk_plain's [B, n / tile_n, k]: each tile's top k by
 // (score descending, row ascending), invalid rows at -inf. 32 < k <= 256
-// runs on the body's wide mode (csrc/wide.cu), k > 256 on the CUDA-core
-// body (csrc/scan.cu scan_topk_exact / _int8), chosen before any launch
-// (kernels/scan.py exact_route).
+// runs on the body's wide mode (csrc/wide.cu), beyond on its scores into a
+// radix select (csrc/select.cu), chosen before any launch (kernels/scan.py
+// exact_route).
 //
 // Bounds at the main-path shapes (2^20 x 384 rows, B = 256): f32 rows,
 // three tf32 passes of 2 B N D = 206 GFLOP at 494.7 TFLOP/s, 1.25 ms

@@ -1,11 +1,12 @@
 // The CUDA-core body of the scan kernels for Hopper (sm_90a), shared by
-// csrc/scan.cu and csrc/lanes.cu. What it still serves: K1 and K2 past k =
-// 256 (scan_topk_exact, scan_topk_exact_int8, lists in the output), K3 over
-// f32 rows or W above 3 (scan_block_topw), K4 past k = 32 (scan_topk_l1)
-// and K7 over f32 rows (lanes.cu scan_merge_topw). The rest runs
-// elsewhere: K1 and K2 up to k = 256, K3 over bf16 and int8 rows, K7 over
-// bf16 rows and K8 on the tensor-core body (scan_mma.cuh), K4 up to k = 32
-// on the FADD stream of csrc/l1.cu. A tiled f32 contraction of a query
+// csrc/scan.cu and csrc/lanes.cu. What it still serves: K3 over f32 rows
+// or W above 3 (scan_block_topw), K4 past k = 32 (scan_topk_l1, lists in
+// shared memory or, past k 256, in the output) and K7 over f32 rows
+// (lanes.cu scan_merge_topw). The rest runs elsewhere: K1 and K2 on the
+// tensor-core body (scan_mma.cuh; past k 256 its scores into the radix
+// select of csrc/select.cu), K3 over bf16 and int8 rows, K7 over bf16 rows
+// and K8 on the tensor-core body too, K4 up to k = 32 on the FADD stream
+// of csrc/l1.cu. A tiled f32 contraction of a query
 // block against a corpus tile (FMA dots, or |q - v| sums for Manhattan),
 // the similarity metric, the validity mask, and a selection that never
 // leaves the block, chosen at compile time (`Select`). Two translation
@@ -19,7 +20,7 @@
 // memory, by the threads themselves (two block barriers a 32-wide step of
 // D). Rows are read from device memory about once: the B/64 query blocks
 // of one tile are adjacent in the grid and find the tile in L2. Selection
-// stays out of the row stream: K1/K2/K4 merge each 128-row chunk into a
+// stays out of the row stream: K4 merges each 128-row chunk into a
 // per-query sorted list (in shared memory up to SHARED_LIST_MAX, beyond
 // that in the block's own slice of the output), inserting
 // only rows that beat its k-th entry; K3 gives each lane group's 32 rows
@@ -48,13 +49,13 @@ constexpr int DK = 32;             // contraction depth per staging step
 constexpr int VS_STRIDE = RC + 1;  // odd stride: conflict-free transposed stores
 constexpr int LANE_GROUPS = 128;   // K3: lane groups per tile
 constexpr int MAX_GROUP_ROWS = 32; // K3: rows per lane group (tile <= 4096)
-constexpr int SHARED_LIST_MAX = 256;  // K1/K2/K4: 64 lists of k <= 256 in 128 KB
+constexpr int SHARED_LIST_MAX = 256;  // K4: 64 lists of k <= 256 in 128 KB
 constexpr int MAX_WINNERS = 3;     // K7: [3][64][128] (score, row) in 192 KB
 constexpr int GSTRIDE = QB * LANE_GROUPS;  // K7: one rung of the lists
 
 enum Metric { METRIC_COSINE = 0, METRIC_EUCLIDEAN = 1, METRIC_DOT = 2 };
 
-// Selection of a block: K1/K2/K4 keep each query's running top-k in
+// Selection of a block: K4 keeps each query's running top-k in
 // shared memory (k <= SHARED_LIST_MAX) or in the block's rows of the
 // output (any k); K3 keeps the top-W of each lane group. K7 keeps each
 // (query, lane group)'s top W in shared memory (LANE_TOPW).

@@ -6,10 +6,10 @@
 // (scan_merge_topw) and K8 (scan_fold_probe); csrc/exact.cu K1 over f32 and
 // bf16 rows (scan_topk_exact_tf32, scan_topk_exact_bf16) and K2
 // (scan_topk_exact_s8) at k <= 32; csrc/wide.cu the same three at 32 < k
-// <= 256 (scan_topk_wide_tf32, _bf16, _s8); csrc/deep.cu the same three at
-// 256 < k <= 2,048 (scan_topk_deep_tf32, _bf16, _s8). The CUDA-core body
-// of scan_kernel.cuh keeps K1 and K2 past k 2,048 or tiles of 32,768 rows,
-// K4 at k > 32 (csrc/l1.cu serves k <= 32), and K3 and K7 over f32 rows.
+// <= 256 (scan_topk_wide_tf32, _bf16, _s8); csrc/select.cu the scores of
+// the same three past k 256 or tiles of 32,768 rows (SCORES, below;
+// scan_topk_select_tf32, _bf16, _s8, whose radix select lives there). The CUDA-core body of scan_kernel.cuh keeps K4 at k > 32
+// (csrc/l1.cu serves k <= 32), and K3 and K7 over f32 rows.
 //
 // Bounds at the headline shape (2^20 x 384 rows, B = 256). bf16 rows: one
 // bf16 pass is 2 B N D = 206 GFLOP, 0.21 ms at 989 TFLOP/s, and the rows'
@@ -172,32 +172,18 @@
 // each step is a handful of integer and predicate instructions a pair,
 // the SMs' issue of them bounds it, not the shuffles' latency.
 //
-// DEEP (K1, K2: [B, T, k], 256 < k <= 2,048). A list of 2,048 entries a
-// query is 768 KB for the block's 64 queries, past the 227 KB a block may
-// have. The list lives in the query's own row of the output ([B, T, k],
-// absolute rows, sorted), which stays in L2 and is touched only at merges;
-// shared memory keeps the WIDE layout at W 8, its 256-entry list a query
-// now a staging buffer of candidates (score, 16-bit row in the tile), and
-// a query's state (staged, list length, k-th entry). After each chunk's
-// scores are written and a block barrier, each warp stages its 8 queries'
-// rows (deep_stage): a ballot of the chunk's 128 rows against the k-th
-// entry (every row enters until the list holds k), the rows that beat it
-// appended to the buffer. A query whose buffer would overflow, and at the
-// tile's end any query with rows staged, merges (deep_merge_query, after a
-// block barrier; the r-th such query on warp r mod 8, so that a chunk
-// waits for about M / 8 merges, not for the most that one warp's queries
-// need): a bitonic sort of the batch (256 entries, 8 a lane), then one
-// pass over the list from its end in runs of 32, each entry moving up by
-// the batch entries that precede it (binary searches of the batch, a
-// group's together) and writing the batch entries that land between it
-// and the entry below; the pass stops at the first run that no batch entry
-// precedes, and drops what lands past k. In random row order about k (1 +
-// ln(T / k)) rows of a T-row tile enter, so the wrapper grows the tile to
-// 32 k rows where it can (kernels/scan.py exact_tile): after the first k
-// rows few chunks reach a merge, and the merged lists the stable sort
-// takes are 16-64x shorter than at 2,048-row tiles.
+// SCORES (K1, K2 past k 256 or tiles of 32,768 rows: csrc/select.cu).
+// No list: the epilogue writes each (query, row) score, metric and
+// validity applied, to [B, n] f32 (the caller's scratch, n the launch's
+// rows), straight from the accumulators (for one accumulator entry a
+// warp's stores are four runs of eight consecutive rows, 32 bytes each:
+// whole sectors). The contraction sums the large term a slice at a time
+// (HiLo, below: these scores feed lists of any length, which reach dots
+// near 0), on the shared ring; a block walks runs of 128-row chunks
+// (F_WALK with tile_n = CHUNK) so that a launch over one group of select
+// tiles still fills the card.
 //
-// f32 rows (TOPK, WIDE and DEEP). A stage cannot carry the query terms a warpgroup
+// f32 rows (TOPK, WIDE and SCORES). A stage cannot carry the query terms a warpgroup
 // as over bf16 rows: two tf32 terms of 64 queries are 192 KB at D 384, and
 // streamed per warpgroup they would double the L2 reads of the terms. So
 // one ring serves both warpgroups: a stage holds the slice's two query
@@ -245,18 +231,14 @@ constexpr int SCORE_BYTES = WG_ROWS * QN * 4;  // TOPK, WIDE: a warpgroup's scor
 constexpr int WIDE_QUERIES = QN / 8;     // WIDE: queries a warp merges (of the block's 8)
 constexpr int WIDE_MAX_TILE = 1 << 15;   // WIDE: a list names rows by 16-bit offsets in the tile
 constexpr int WIDE_PLACE = 0xFFFF;       // WIDE: an empty slot's row (-inf, after every row)
-constexpr int DEEP_MAX_K = 2048;         // DEEP: the longest list (in the output)
-constexpr int DEEP_STAGE = 256;          // DEEP: a query's staged candidates (WIDE's W 8 list)
-constexpr int DEEP_STATE = 4;            // DEEP: a query's ints: staged, length, k-th score, row
-constexpr int NO_ROW = 0x7fffffff;       // DEEP: an empty entry's row (after every row)
 
 // What a block keeps of each (query, lane group): its top W by (score
 // descending, row ascending) (K3, K7, K8 full), its W largest distinct
 // scores (K8 maxonly), or nothing: the tile's first chunk is written as it
 // is (K8 none; the wgmmas are volatile asm, so every chunk is contracted
 // all the same); or each query's top k of the tile (TOPK: K1, K2, k <= 32;
-// WIDE: k <= 32 W, W 4 or 8; DEEP: k <= 2,048, W 8).
-enum Mode { TOPW = 0, DISTINCT = 1, FIRST = 2, TOPK = 3, WIDE = 4, DEEP = 5 };
+// WIDE: k <= 32 W, W 4 or 8); or every score (SCORES, W 1).
+enum Mode { TOPW = 0, DISTINCT = 1, FIRST = 2, TOPK = 3, WIDE = 4, SCORES = 6 };
 // TMA: rows staged by tensor copies (else by plain loads); RESIDENT: the
 // query terms stay in shared memory (else each stage carries its slice's);
 // GROUP_ROW: an empty TOPW slot names its lane group's first row of the
@@ -299,11 +281,14 @@ struct Rows<float> {
 
 // SHARED: one ring serves both warpgroups, a stage holding the slice's
 // query terms once and each warpgroup's 64 rows (f32 rows, and every row
-// type in the WIDE and DEEP modes, whose lists leave no room for resident
-// terms); else each warpgroup has a ring of its own.
+// type in the WIDE mode, whose lists leave no room for resident terms, and
+// in SCORES, which sums a slice at a time); else each warpgroup has a ring
+// of its own. SUMS: the large term is summed a slice at a time (HiLo,
+// below).
 template <typename T, int MODE>
 struct Ring {
-  static constexpr bool SHARED = Rows<T>::SPLIT || MODE == WIDE || MODE == DEEP;
+  static constexpr bool SHARED = Rows<T>::SPLIT || MODE == WIDE || MODE == SCORES;
+  static constexpr bool SUMS = MODE == SCORES;
 };
 
 // A chunk's three passes and their sums, by row type. bf16: the h term's
@@ -314,14 +299,14 @@ struct Ring {
 template <typename T>
 struct Dots;
 // The bf16 and f32 forms' sums: the large term's passes into hi, the
-// others into lo, both f32 on the tensor cores. DEEP also sums hi a slice
-// at a time (slice_start, slice_end, then take_sums at the chunk's end):
-// the tensor cores' f32 accumulation truncates to the running sum's ulp at
-// each k-step, which over a chunk's k-steps (48 at D 384 over f32 rows)
-// left a deep list's dots near 0 further from float64 than the plain f32
-// product's; summed in registers (round to nearest) a slice's 4 k-steps
-// at a time they lie nearer (scripts/probe_exact_topk.py --deep-precision,
-// PERF.md). The other modes' lists keep scores far from 0.
+// others into lo, both f32 on the tensor cores. SCORES also sums hi a
+// slice at a time (slice_start, slice_end, then take_sums at the chunk's
+// end): the tensor cores' f32 accumulation truncates to the running sum's
+// ulp at each k-step, which over a chunk's k-steps (48 at D 384 over f32
+// rows) left a long list's dots near 0 further from float64 than the plain
+// f32 product's; summed in registers (round to nearest) a slice's 4
+// k-steps at a time they lie nearer (scripts/probe_exact_topk.py
+// --precision, PERF.md). The other modes' lists keep scores far from 0.
 struct HiLo {
   Acc<QN> hi, lo;
   float sums[QN / 2];
@@ -417,9 +402,8 @@ __device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& l
 struct Layout {
   size_t ring;    // offset of warpgroup 0's ring (the resident query terms come first)
   size_t stage;   // bytes of a stage
-  size_t scores;  // TOPK, WIDE, DEEP: [2][QN][WG_ROWS] f32, each warpgroup's score tile
-  size_t lists;   // WIDE: [QN][32 W] f32 scores, then [QN][32 W] u16 rows, a list a query;
-                  // DEEP: the same, a staging buffer a query, then [QN][DEEP_STATE] ints
+  size_t scores;  // TOPK, WIDE: [2][QN][WG_ROWS] f32, each warpgroup's score tile
+  size_t lists;   // WIDE: [QN][32 W] f32 scores, then [QN][32 W] u16 rows, a list a query
   size_t qnorm;   // [3][QN] f32: the block's query squared norms, 1 / the norms, term scales
   size_t bars;    // 2 x stages full barriers (SHARED: stages full, stages empty), then the
                   // query terms' barrier
@@ -441,10 +425,8 @@ __host__ __device__ inline Layout layout_for(int slices, bool resident, int stag
     l.stage = BOX + (resident ? 0 : QBYTES);
     l.scores = l.ring + 2 * stages * l.stage;
   }
-  l.lists = l.scores + (MODE == TOPK || MODE == WIDE || MODE == DEEP ? 2 * SCORE_BYTES : 0);
-  l.qnorm = l.lists + (MODE == WIDE   ? static_cast<size_t>(QN) * 32 * W * 6
-                       : MODE == DEEP ? static_cast<size_t>(QN) * (DEEP_STAGE * 6 + DEEP_STATE * 4) + 16
-                                      : 0);
+  l.lists = l.scores + (MODE == TOPK || MODE == WIDE ? 2 * SCORE_BYTES : 0);
+  l.qnorm = l.lists + (MODE == WIDE ? static_cast<size_t>(QN) * 32 * W * 6 : 0);
   l.bars = l.qnorm + 3 * QN * sizeof(float);
   l.bytes = l.bars + (2 * stages + 1) * 8 + 1024;
   return l;
@@ -650,181 +632,6 @@ __device__ __forceinline__ void wide_merge_query(float* score_tile, float* ls_, 
     int br[2] = {pack_r[lane], lane + 32 < m ? pack_r[lane + 32] : WIDE_PLACE};
     merge_batch<W, 2>(ls_, lr_, bs, br, lane);
   }
-}
-
-// DEEP: for each (s[g], r[g]), how many of the sorted batch's first n
-// entries (rows as offsets from base) precede it: N binary searches in
-// shared memory, taken a step at a time together so that their reads are
-// in flight at once (an empty entry, (-inf, NO_ROW), gets n).
-template <int N>
-__device__ __forceinline__ void deep_ranks(const float* bs, const uint16_t* br, int n, int base,
-                                           const float (&s)[N], const int (&r)[N],
-                                           int (&c)[N]) {
-#pragma unroll
-  for (int g = 0; g < N; ++g) c[g] = 0;
-#pragma unroll
-  for (int step = DEEP_STAGE; step > 0; step >>= 1) {
-#pragma unroll
-    for (int g = 0; g < N; ++g) {
-      const int j = c[g] + step - 1;
-      if (j < n && precedes(bs[j], base + br[j], s[g], r[g])) c[g] += step;
-    }
-  }
-}
-
-// DEEP: a query's n staged candidates (st_s / st_r, rows as offsets from
-// base) merged into its sorted list of len entries in the output (ls / lr,
-// absolute rows), which keeps its first k; returns the new length. The
-// batch is sorted (a bitonic network, 8 entries a lane) and written back
-// in order. Then one pass over the list in runs of 32, G runs at a time
-// from the last: each list entry i moves up by c(i), the batch entries
-// that precede it (a binary search of the batch), and the lane that holds
-// it writes the batch entries j in [c(i - 1), c(i)), which land at j + i
-// (the list entries before them: i); the batch entries past the list's
-// last entry land at j + len, written by every lane. Every read of a group
-// precedes its writes, which land at or above the group's lowest entry, so
-// above every entry still to be read; the first group whose lowest entry
-// no batch entry precedes is the last (what lies below it stays, and no
-// batch entry lands among it). Entries that land past k drop out; the lane
-// that writes entry k - 1 writes it to the query's state (kth: score bits,
-// row offset) too. The list is read through L2 alone (__ldcg): it is
-// written by earlier merges of the same block, and no SM's L1 holds a
-// line of it that a later read could take.
-__device__ __forceinline__ int deep_merge(float* st_s, uint16_t* st_r, int* kth, int n,
-                                          float* ls, int* lr, int len, int k, int base,
-                                          int lane) {
-  constexpr int SB = DEEP_STAGE / 32;
-  constexpr int G = 8;
-  float bs[SB];
-  int br[SB];
-#pragma unroll
-  for (int a = 0; a < SB; ++a) {
-    const int e = a * 32 + lane;
-    bs[a] = e < n ? st_s[e] : -CUDART_INF_F;
-    br[a] = e < n ? base + st_r[e] : NO_ROW;
-  }
-  bitonic_sort<SB>(bs, br, lane);
-  __syncwarp();
-#pragma unroll
-  for (int a = 0; a < SB; ++a) {
-    const int e = a * 32 + lane;
-    if (e < n) {
-      st_s[e] = bs[a];
-      st_r[e] = static_cast<uint16_t>(br[a] - base);
-    }
-  }
-  __syncwarp();
-  // entry `to` of the list becomes (s, r)
-  auto put = [&](int to, float s, int r) {
-    ls[to] = s;
-    lr[to] = r;
-    if (to == k - 1) {
-      kth[0] = __float_as_int(s);
-      kth[1] = r - base;
-    }
-  };
-  int c_last = 0;  // c of the list's last entry: the batch entries that land past it
-  for (int top = (len - 1) >> 5; top >= 0; top -= G) {
-    // entries G runs from the top down, then (lane 0 of the group's
-    // lowest run) the entry below it; an absent one is (-inf, NO_ROW)
-    float s[G + 1];
-    int r[G + 1], c[G + 1];
-    bool have[G];
-    const int i_low = max(top - G + 1, 0) * 32;
-    const bool below = lane == 0 && i_low > 0;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const int i = (top - g) * 32 + lane;
-      have[g] = top - g >= 0 && i < len;
-      s[g] = have[g] ? __ldcg(ls + i) : -CUDART_INF_F;
-      r[g] = have[g] ? __ldcg(lr + i) : NO_ROW;
-    }
-    s[G] = below ? __ldcg(ls + i_low - 1) : -CUDART_INF_F;
-    r[G] = below ? __ldcg(lr + i_low - 1) : NO_ROW;
-    deep_ranks<G + 1>(st_s, st_r, n, base, s, r, c);
-    const int c_below = below ? c[G] : 0;
-    if (top == (len - 1) >> 5) c_last = __shfl_sync(0xffffffffu, c[0], (len - 1) & 31);
-    __syncwarp();
-    int c_low = 0;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      // c of the entry below this lane's: the lane below, lane 31 of the
-      // run below, or (the group's lowest run) c_below
-      const int up = __shfl_up_sync(0xffffffffu, c[g], 1);
-      const int run_below = __shfl_sync(0xffffffffu, g + 1 < G ? c[g + 1 < G ? g + 1 : g] : 0,
-                                        31);
-      const bool lowest = top - g == i_low / 32;
-      const int pc = lane > 0 ? up : (lowest ? c_below : run_below);
-      if (lowest) c_low = __shfl_sync(0xffffffffu, c[g], 0);
-      if (!have[g]) continue;
-      const int i = (top - g) * 32 + lane;
-      if (c[g] > 0 && i + c[g] < k) put(i + c[g], s[g], r[g]);
-      for (int j = pc; j < c[g] && j + i < k; ++j) put(j + i, st_s[j], base + st_r[j]);
-    }
-    if (c_low == 0) break;  // the lowest entry stays: so does every entry below it
-  }
-  for (int j = c_last + lane; j < n && j + len < k; j += 32)
-    put(j + len, st_s[j], base + st_r[j]);
-  __syncwarp();
-  return min(k, len + n);
-}
-
-// DEEP: query ql's rows of the chunk (base: its first row in the tile)
-// staged: those that precede the k-th entry ((-inf, NO_ROW) while the list
-// is short of k: every row), appended in row order to the query's buffer
-// unless they would overflow it. Returns whether they would (the query
-// merges first: deep_merge_query).
-__device__ __forceinline__ bool deep_stage(const float* score_tile, float* st_s,
-                                           uint16_t* st_r, int* st, int ql, int base,
-                                           int lane) {
-  const int n = st[0];
-  const float kth_s = __int_as_float(st[2]);
-  const int kth_r = st[3];
-  float cs[4];
-  int cr[4];
-  unsigned in[4];
-  int m = 0;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    cs[u] = score_tile[(u >> 1) * (QN * WG_ROWS) + score_at(ql, (u & 1) * 32 + lane)];
-    cr[u] = base + u * 32 + lane;
-    in[u] = __ballot_sync(0xffffffffu, precedes(cs[u], cr[u], kth_s, kth_r));
-    m += __popc(in[u]);
-  }
-  if (m == 0) return false;
-  if (n + m > DEEP_STAGE) return true;
-  int at = n;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    if ((in[u] >> lane) & 1) {
-      const int p = at + __popc(in[u] & ((1u << lane) - 1));
-      st_s[p] = cs[u];
-      st_r[p] = static_cast<uint16_t>(cr[u]);
-    }
-    at += __popc(in[u]);
-  }
-  __syncwarp();
-  if (lane == 0) st[0] = at;
-  __syncwarp();
-  return false;
-}
-
-// DEEP: query ql's staged rows merged into its list (ls / lr: the query's
-// k entries of the output; the merge writes the new k-th entry to the
-// state), then, unless at the tile's end (finish), the chunk's rows staged
-// against the new k-th entry (the score tiles still hold them).
-__device__ __forceinline__ void deep_merge_query(const float* score_tile, float* st_s,
-                                                 uint16_t* st_r, int* st, float* ls, int* lr,
-                                                 int ql, int base, int tile_base, int k,
-                                                 bool finish, int lane) {
-  const int len = deep_merge(st_s, st_r, st + 2, st[0], ls, lr, st[1], k, tile_base, lane);
-  __syncwarp();
-  if (lane == 0) {
-    st[0] = 0;
-    st[1] = len;
-  }
-  __syncwarp();
-  if (!finish) deep_stage(score_tile, st_s, st_r, st, ql, base, lane);
 }
 
 // Shared-memory matrix descriptor of a K-major operand in the 128-byte
@@ -1102,14 +909,6 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
   constexpr int KP = 32 * W;
   float* const list_s = reinterpret_cast<float*>(smem + lay.lists);
   uint16_t* const list_r = reinterpret_cast<uint16_t*>(smem + lay.lists + QN * KP * 4);
-  // DEEP: query ql's staged candidates at list_s / list_r + KP ql (KP =
-  // DEEP_STAGE) and its state at deep_state + DEEP_STATE ql, which warp
-  // ql / WIDE_QUERIES alone reads and writes; its list is its row of the
-  // output
-  static_assert(MODE != DEEP || KP == DEEP_STAGE, "DEEP stages 32 W = 256 rows a query");
-  int* const deep_state = reinterpret_cast<int*>(smem + lay.lists + QN * KP * 6);
-  // DEEP: byte w marks which of warp w's 8 queries merge this chunk
-  uint8_t* const deep_marks = reinterpret_cast<uint8_t*>(deep_state + QN * DEEP_STATE);
   auto reset = [&]() {
     if constexpr (MODE == TOPK) {
 #pragma unroll
@@ -1123,16 +922,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
         list_s[first + e] = -CUDART_INF_F;
         list_r[first + e] = WIDE_PLACE;
       }
-    } else if constexpr (MODE == DEEP) {
-      if (lane < WIDE_QUERIES) {  // nothing staged, an empty list, every row enters
-        int* st = deep_state + ((tid >> 5) * WIDE_QUERIES + lane) * DEEP_STATE;
-        st[0] = 0;
-        st[1] = 0;
-        st[2] = __float_as_int(-CUDART_INF_F);
-        st[3] = NO_ROW;
-      }
-      __syncwarp();
-    } else {
+    } else if constexpr (MODE != SCORES) {
 #pragma unroll
       for (int L = 0; L < LISTS; ++L) {
 #pragma unroll
@@ -1354,50 +1144,6 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
       }
     }
   };
-  // DEEP: the chunk's rows (from row base of the tile) or, with finish, the
-  // tile's last staged rows into the lists. Each warp stages its 8
-  // queries' rows (deep_stage; finish: marks those with rows staged) and
-  // marks those whose buffer would overflow; after a block barrier the
-  // marked queries merge, the r-th of them on warp r mod 8 (a query's
-  // buffer and state are in shared memory, its list in the output), so
-  // that the chunk waits for about M / 8 merges rather than the most any
-  // one warp's queries need. At the tile's end a barrier before keeps the
-  // marks behind the last chunk's merges (which may stage rows of another
-  // warp's query), and one after keeps the next tile's resets behind the
-  // tile's last merges.
-  auto deep_pass = [&](int tile, int base, bool finish) {
-    if constexpr (MODE == DEEP) {
-      if (finish) __syncthreads();
-      const int w = tid >> 5;
-      uint32_t need = 0;
-#pragma unroll 1
-      for (int i = 0; i < WIDE_QUERIES; ++i) {
-        const int ql = w * WIDE_QUERIES + i;
-        if (q0 + ql >= b) break;  // warp-uniform
-        int* st = deep_state + ql * DEEP_STATE;
-        const bool full = finish ? st[0] > 0
-                                 : deep_stage(score_tile, list_s + ql * KP, list_r + ql * KP, st,
-                                              ql, base, lane);
-        need |= static_cast<uint32_t>(full) << i;
-      }
-      if (lane == 0) deep_marks[w] = static_cast<uint8_t>(need);
-      __syncthreads();
-      unsigned long long marks = 0;
-#pragma unroll
-      for (int v = 0; v < 8; ++v) marks |= static_cast<unsigned long long>(deep_marks[v]) << (8 * v);
-      const int tile_base = tile * tile_n;  // the wrapper keeps rows below 2^31
-      for (int r = 0; marks != 0; ++r) {
-        const int ql = __ffsll(static_cast<long long>(marks)) - 1;
-        marks &= marks - 1;
-        if ((r & 7) != w) continue;
-        const size_t o = (static_cast<size_t>(q0 + ql) * n_tiles + tile) * k;
-        deep_merge_query(score_tile, list_s + ql * KP, list_r + ql * KP,
-                         deep_state + ql * DEEP_STATE, out_s + o, out_i + o, ql, base, tile_base,
-                         k, finish, lane);
-      }
-      if (finish) __syncthreads();
-    }
-  };
 
   const uint32_t img_s = smem_addr(smem);
   Dots<T> acc;
@@ -1423,7 +1169,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
             // the next step's during this step's wgmmas, took ~90 more
             // registers and ran slower)
             uint32_t ah[4][4], al[4][4];
-            if constexpr (MODE == DEEP) acc.slice_start();
+            if constexpr (Ring<T, MODE>::SUMS) acc.slice_start();
             load_a(j, ah, al);
             acc.hold_all();
 #pragma unroll
@@ -1438,14 +1184,14 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
             for (int kk = 0; kk < 4; ++kk) acc.mma(ah[kk], al[kk], db, kk);
             wgmma_commit();
             wgmma_wait<0>();  // the A words are live until the group completes
-            if constexpr (MODE == DEEP) {
+            if constexpr (Ring<T, MODE>::SUMS) {
               acc.hold_all();
               acc.slice_end();
             }
           } else {
             // this warpgroup's rows of the stage (the terms come first)
             if (!tma) copy_rows(j);
-            if constexpr (MODE == DEEP && sizeof(T) == 2) acc.slice_start();
+            if constexpr (Ring<T, MODE>::SUMS && sizeof(T) == 2) acc.slice_start();
             uint64_t da = sw128_desc(smem_addr(rows_at(st)));
             hold(da);
             acc.hold_all();
@@ -1454,7 +1200,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
             for (int kk = 0; kk < 4; ++kk) acc.mma(da, db, kk);
             wgmma_commit();
             wgmma_wait<0>();
-            if constexpr (MODE == DEEP && sizeof(T) == 2) {
+            if constexpr (Ring<T, MODE>::SUMS && sizeof(T) == 2) {
               acc.hold_all();
               acc.slice_end();
             }
@@ -1484,7 +1230,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
       }
       wgmma_wait<0>();
       acc.hold_all();
-      if constexpr (MODE == DEEP && sizeof(T) != 1) acc.take_sums();
+      if constexpr (Ring<T, MODE>::SUMS && sizeof(T) != 1) acc.take_sums();
 
       const long long row = run_base + static_cast<long long>(c) * CHUNK + lg;
       float rscale[2] = {1.0f, 1.0f};
@@ -1522,7 +1268,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
       const float inv[2] = {inv_norm(sq[0]), inv_norm(sq[1])};
       float* sc = score_tile + wg * (QN * WG_ROWS);
       // the last chunk's merges are done
-      if constexpr (MODE == WIDE || MODE == DEEP) __syncthreads();
+      if constexpr (MODE == WIDE) __syncthreads();
 #pragma unroll
       for (int L = 0; L < LISTS; ++L) {
         const int h = (L >> 1) & 1;
@@ -1530,18 +1276,18 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
         float s = dot[L];
         if (metric != DOT) s = score_of(s, qn[ql], qn[QN + ql], sq[h], inv[h], metric);
         if (!ok[h]) s = -CUDART_INF_F;
-        if constexpr (MODE == TOPK || MODE == WIDE || MODE == DEEP)
+        if constexpr (MODE == TOPK || MODE == WIDE) {
           sc[score_at(ql, warp * 16 + g + 8 * h)] = s;
-        else
+        } else if constexpr (MODE == SCORES) {
+          if (q0 + ql < b)
+            out_s[static_cast<size_t>(q0 + ql) * n_tiles * tile_n + row + 8 * h] = s;
+        } else {
           list_update<MODE, W>(ls, ids, L, s, static_cast<uint32_t>(cl));
+        }
       }
       if constexpr (MODE == WIDE) {
         __syncthreads();  // both score tiles are written
         wide_merge(cl * CHUNK);
-      }
-      if constexpr (MODE == DEEP) {
-        __syncthreads();  // both score tiles are written
-        deep_pass(tile, cl * CHUNK, false);
       }
       if constexpr (MODE == TOPK) {
         asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
@@ -1554,9 +1300,7 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
       topk_flush(tile);
     else if constexpr (MODE == WIDE)
       wide_flush(tile);
-    else if constexpr (MODE == DEEP)
-      deep_pass(tile, 0, true);  // the lists are the output
-    else if constexpr (MODE != FIRST)
+    else if constexpr (MODE != FIRST && MODE != SCORES)
       flush(tile);
   }
 }
@@ -1603,17 +1347,15 @@ int launch(const void* values, const void* q_img, const float* q_scale, const fl
            const float* scales, const float* sqnorms, const uint8_t* valid, float* out_s,
            int* out_i, int n, int d, int b, int tile_n, int metric, int flags,
            cudaStream_t stream, int k = 0) {
-  static_assert(!Rows<T>::SPLIT || MODE == TOPK || MODE == WIDE || MODE == DEEP,
+  static_assert(!Rows<T>::SPLIT || MODE == TOPK || MODE == WIDE || MODE == SCORES,
                 "f32 rows have the per-query modes only");
   if (n <= 0 || d <= 0 || b <= 0 || tile_n <= 0 || tile_n % CHUNK || n % tile_n)
     return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (MODE != FIRST && MODE != TOPK && MODE != WIDE && MODE != DEEP && W > 1) {
+  if constexpr (MODE != FIRST && MODE != TOPK && MODE != WIDE && MODE != SCORES && W > 1) {
     if (tile_n / CHUNK > (1 << Ids<W>::BITS)) return static_cast<int>(cudaErrorInvalidValue);
   }
   if (MODE == TOPK && (k < 1 || k > TOPK_MAX)) return static_cast<int>(cudaErrorInvalidValue);
   if (MODE == WIDE && (k < 1 || k > 32 * W || k > tile_n || tile_n > WIDE_MAX_TILE))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (MODE == DEEP && (k < 1 || k > DEEP_MAX_K || k > tile_n || tile_n > WIDE_MAX_TILE))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int BYTES = Rows<T>::BYTES;
   const int slices = (d * BYTES + SLICE_BYTES - 1) / SLICE_BYTES;

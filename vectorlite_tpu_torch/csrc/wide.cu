@@ -11,9 +11,9 @@
 //
 // Each writes tile_topk_plain's [B, n / tile_n, k]: each tile's top k by
 // (score descending, row ascending), invalid rows at -inf. k <= 32 keeps
-// exact.cu's entries, k > 256 the CUDA-core body (csrc/scan.cu), chosen
-// before any launch (kernels/scan.py exact_route); tiles hold at most
-// 32,768 rows (a list names its rows by 16-bit offsets in the tile).
+// exact.cu's entries, k > 256 (and tiles past 32,768 rows) select.cu's,
+// chosen before any launch (kernels/scan.py exact_route); tiles hold at
+// most 32,768 rows (a list names its rows by 16-bit offsets in the tile).
 //
 // Bounds at the main-path shapes (2^20 x 384 rows, B = 256, tile 2,048):
 // K1 over f32 rows at k_pad 128, three tf32 passes of 2 B N D = 206 GFLOP

@@ -12,13 +12,14 @@ reference's names and contracts so the two packages read side by side:
   rows; bf16 rows ``scan_topk_exact_bf16``; int8 rows
   ``scan_topk_exact_s8``), up to k = 256 on its wide mode (``csrc/wide.cu``
   ``scan_topk_wide_tf32`` / ``_bf16`` / ``_s8``: lists in shared memory,
-  merged a chunk at a time by bitonic networks), up to k = 2,048 on its
-  deep mode (``csrc/deep.cu`` ``scan_topk_deep_tf32`` / ``_bf16`` /
-  ``_s8``: lists in the output, candidates staged in shared memory and
-  merged a batch at a time), beyond it on the CUDA-core body
-  (``csrc/scan.cu`` ``scan_topk_exact`` / ``scan_topk_exact_int8``): the
-  route is decided before any launch (``exact_route``). Past k = 256 the
-  tiles grow with k (``exact_tile``).
+  merged a chunk at a time by bitonic networks), beyond it, and at any k
+  past 32 over tiles of more than 32,768 rows, on its scores into a radix
+  select
+  (``csrc/select.cu`` ``scan_topk_select_tf32`` / ``_bf16`` / ``_s8``: the
+  tensor-core body writes a group of tiles' scores to a scratch buffer,
+  then a block a (query, tile) selects and sorts its list): the route is
+  decided before any launch (``exact_route``). Past k = 256 the tiles grow
+  to 32,768 rows where the rows allow (``exact_tile``).
 * ``pallas_search_block_topk`` / ``pallas_search_block_topk_int8`` —
   lane-group top-W candidate selection: kernel K3 keeps, per tile and per
   lane group l (the rows ``l mod 128`` of the tile), the W best rows; a
@@ -86,14 +87,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-SCAN_TOPK_EXACT = _build.Kernel(
-    "scan", "scan_topk_exact",
-    [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-)
-SCAN_TOPK_EXACT_INT8 = _build.Kernel(
-    "scan", "scan_topk_exact_int8",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-)
 SCAN_BLOCK_TOPW = _build.Kernel(
     "scan", "scan_block_topw",
     [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -142,17 +135,17 @@ SCAN_TOPK_WIDE_S8 = _build.Kernel(
     "wide", "scan_topk_wide_s8",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
-SCAN_TOPK_DEEP_TF32 = _build.Kernel(
-    "deep", "scan_topk_deep_tf32",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+SCAN_TOPK_SELECT_TF32 = _build.Kernel(
+    "select", "scan_topk_select_tf32",
+    [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
-SCAN_TOPK_DEEP_BF16 = _build.Kernel(
-    "deep", "scan_topk_deep_bf16",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+SCAN_TOPK_SELECT_BF16 = _build.Kernel(
+    "select", "scan_topk_select_bf16",
+    [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
-SCAN_TOPK_DEEP_S8 = _build.Kernel(
-    "deep", "scan_topk_deep_s8",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+SCAN_TOPK_SELECT_S8 = _build.Kernel(
+    "select", "scan_topk_select_s8",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
 
 
@@ -274,11 +267,12 @@ MMA_MAX_K = 32
 #: 16-bit offsets in the tile)
 WIDE_MAX_K = 256
 WIDE_MAX_TILE = 1 << 15
-#: the longest per-tile list its deep mode keeps (in the output; tiles up
-#: to WIDE_MAX_TILE), and the rows a tile grows to for each entry of a list
-#: past WIDE_MAX_K (about k ln(T / k) of a tile's T rows enter its list)
-DEEP_MAX_K = 2048
-DEEP_TILE_PER_K = 32
+#: past WIDE_MAX_K (or WIDE_MAX_TILE) the radix select: the tile
+#: exact_tile grows K1/K2's tile to (a tile's keys fill shared memory: past
+#: it every digit pass reads them again from the scratch), and the bytes of
+#: the scratch its scores go through (a group of whole tiles, at least one)
+SELECT_MAX_TILE = 1 << 15
+SELECT_SCRATCH_BYTES = 256 << 20
 
 
 #: the longest per-tile list K4's FADD stream keeps (one entry a lane), and
@@ -309,8 +303,8 @@ def exact_route(dtype, k, metric=SimilarityMetric.COSINE, tile_n=DEFAULT_TILE_N)
     stream (f32/bf16 rows), else on the CUDA-core body; up to
     ``MMA_MAX_K`` the tensor-core body's TOPK mode (f32 rows: 3xTF32, bf16
     rows, int8 rows: K2); up to ``WIDE_MAX_K`` (and tiles up to
-    ``WIDE_MAX_TILE``) its wide mode, up to ``DEEP_MAX_K`` (the same
-    tiles) its deep mode; beyond them the CUDA-core K1 (f32/bf16) or K2."""
+    ``WIDE_MAX_TILE``) its wide mode; beyond them (any tile) its scores
+    into the radix select."""
     if metric is SimilarityMetric.MANHATTAN:
         if k <= L1_MAX_K and tile_n % L1_CHUNK == 0:
             return _L1_FADD.get(dtype, SCAN_TOPK_L1)
@@ -321,29 +315,31 @@ def exact_route(dtype, k, metric=SimilarityMetric.COSINE, tile_n=DEFAULT_TILE_N)
     if k <= WIDE_MAX_K and tile_n <= WIDE_MAX_TILE:
         return {torch.float32: SCAN_TOPK_WIDE_TF32, torch.bfloat16: SCAN_TOPK_WIDE_BF16,
                 torch.int8: SCAN_TOPK_WIDE_S8}[dtype]
-    if k <= DEEP_MAX_K and tile_n <= WIDE_MAX_TILE:
-        return {torch.float32: SCAN_TOPK_DEEP_TF32, torch.bfloat16: SCAN_TOPK_DEEP_BF16,
-                torch.int8: SCAN_TOPK_DEEP_S8}[dtype]
-    return SCAN_TOPK_EXACT_INT8 if dtype == torch.int8 else SCAN_TOPK_EXACT
+    return {torch.float32: SCAN_TOPK_SELECT_TF32, torch.bfloat16: SCAN_TOPK_SELECT_BF16,
+            torch.int8: SCAN_TOPK_SELECT_S8}[dtype]
 
 
 def exact_tile(n, tile_n, k, metric=SimilarityMetric.COSINE):
     """The tile K1 / K2 scan ``n`` rows at for lists of ``k``: the
     caller's ``tile_n`` up to k ``WIDE_MAX_K`` (and for manhattan, K4);
-    past it the smallest multiple of ``tile_n`` that divides ``n``, holds
-    at most ``WIDE_MAX_TILE`` rows and at least ``DEEP_TILE_PER_K`` k, else
-    the largest such multiple. Per-tile lists are ordered by (score
-    descending, row ascending) and the merge is stable, so the merged top
-    k is the same at any tile."""
-    if k <= WIDE_MAX_K or metric is SimilarityMetric.MANHATTAN or tile_n > WIDE_MAX_TILE:
+    past it, on the radix select, the largest multiple of ``tile_n`` that
+    divides ``n`` and holds at most ``SELECT_MAX_TILE`` rows (the select's
+    time is linear in a tile's rows, and fewer tiles give fewer lists to
+    sort and merge). Per-tile lists are ordered by (score descending, row
+    ascending) and the merge is stable, so the merged top k is the same at
+    any tile."""
+    if k <= WIDE_MAX_K or metric is SimilarityMetric.MANHATTAN or tile_n > SELECT_MAX_TILE:
         return tile_n
-    best = tile_n
-    for m in range(2, WIDE_MAX_TILE // tile_n + 1):
-        if best >= DEEP_TILE_PER_K * k:
-            break
-        if n % (tile_n * m) == 0:
-            best = tile_n * m
-    return best
+    return max(tile_n * m for m in range(1, SELECT_MAX_TILE // tile_n + 1)
+               if n % (tile_n * m) == 0)
+
+
+def select_group_rows(n, b, tile_n):
+    """Rows of a group of the radix select's tiles: as many whole tiles
+    as ``SELECT_SCRATCH_BYTES`` of [b, rows] f32 scores hold, at least
+    one, at most all ``n`` rows."""
+    tiles = max(1, SELECT_SCRATCH_BYTES // (4 * b * tile_n))
+    return min(n, tiles * tile_n)
 
 
 def tile_topk_cuda(
@@ -382,7 +378,29 @@ def tile_topk_cuda(
                 n, d, b, k_tile, tile_n, _stream(dev),
             )
         return out_s, out_i
-    if kernel in (SCAN_TOPK_EXACT_S8, SCAN_TOPK_WIDE_S8, SCAN_TOPK_DEEP_S8):
+    if kernel.library == "select":
+        group = select_group_rows(n, b, tile_n)
+        scratch = torch.empty((b, group), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            if kernel is SCAN_TOPK_SELECT_S8:
+                q_op, q_scale = scan_mma.query_operand_int8(queries)
+                kernel.launch(
+                    q_op.data_ptr(), q_scale.data_ptr(), qsq.data_ptr(), values.data_ptr(),
+                    scales.data_ptr(), sqnorms.data_ptr(), valid.data_ptr(),
+                    scratch.data_ptr(), group, out_s.data_ptr(), out_i.data_ptr(),
+                    n, d, b, k_tile, tile_n, metric_code, _stream(dev),
+                )
+            else:
+                q_op = (scan_mma.query_operand_tf32(queries) if values.dtype == torch.float32
+                        else scan_mma.query_operand(queries))
+                kernel.launch(
+                    q_op.data_ptr(), qsq.data_ptr(), values.data_ptr(), sqnorms.data_ptr(),
+                    valid.data_ptr(), scratch.data_ptr(), group,
+                    out_s.data_ptr(), out_i.data_ptr(),
+                    n, d, b, k_tile, tile_n, metric_code, _stream(dev),
+                )
+        return out_s, out_i
+    if kernel in (SCAN_TOPK_EXACT_S8, SCAN_TOPK_WIDE_S8):
         q_op, q_scale = scan_mma.query_operand_int8(queries)
         with torch.cuda.device(dev):
             kernel.launch(
@@ -393,7 +411,7 @@ def tile_topk_cuda(
             )
         return out_s, out_i
     if kernel in (SCAN_TOPK_EXACT_TF32, SCAN_TOPK_EXACT_BF16, SCAN_TOPK_WIDE_TF32,
-                  SCAN_TOPK_WIDE_BF16, SCAN_TOPK_DEEP_TF32, SCAN_TOPK_DEEP_BF16):
+                  SCAN_TOPK_WIDE_BF16):
         if values.dtype == torch.float32:
             q_op = scan_mma.query_operand_tf32(queries)
         else:
@@ -406,28 +424,12 @@ def tile_topk_cuda(
             )
         return out_s, out_i
     with torch.cuda.device(dev):
-        if l1:
-            SCAN_TOPK_L1.launch(
-                q_t.data_ptr(), values.data_ptr(),
-                int(values.dtype == torch.bfloat16), valid.data_ptr(),
-                out_s.data_ptr(), out_i.data_ptr(),
-                n, d, b, k_tile, tile_n, _stream(dev),
-            )
-        elif int8:
-            SCAN_TOPK_EXACT_INT8.launch(
-                q_t.data_ptr(), qsq.data_ptr(), values.data_ptr(),
-                scales.data_ptr(), sqnorms.data_ptr(), valid.data_ptr(),
-                out_s.data_ptr(), out_i.data_ptr(),
-                n, d, b, k_tile, tile_n, metric_code, _stream(dev),
-            )
-        else:
-            SCAN_TOPK_EXACT.launch(
-                q_t.data_ptr(), qsq.data_ptr(), values.data_ptr(),
-                int(values.dtype == torch.bfloat16),
-                sqnorms.data_ptr(), valid.data_ptr(),
-                out_s.data_ptr(), out_i.data_ptr(),
-                n, d, b, k_tile, tile_n, metric_code, _stream(dev),
-            )
+        SCAN_TOPK_L1.launch(
+            q_t.data_ptr(), values.data_ptr(),
+            int(values.dtype == torch.bfloat16), valid.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(),
+            n, d, b, k_tile, tile_n, _stream(dev),
+        )
     return out_s, out_i
 
 
