@@ -22,21 +22,27 @@ Phases (any failure raises and the exit code is not 0):
    k 300 over 65,536), K3 on its three routes (int8 rows: scan_block_topw_s8, the
    tensor-core body's int8 form; bf16 rows: scan_block_topw_bf16; f32 rows:
    scan_block_topw, the CUDA-core body; three metrics), K4 on the route
-   exact_route names (k <= 32: the FADD stream, scan_topk_l1_fadd over f32
-   rows, _bf16 over bf16 rows; k 1, 16, 32; k > 32: the CUDA-core
-   scan_topk_l1, k 300), at N=65,536 x 384, B=64, and at an odd shape
-   (8,192 x 100, B=5).
+   exact_route names (k <= 32: the FADD stream's lists, scan_topk_l1_fadd
+   over f32 rows, _bf16 over bf16 rows; k 1, 16, 32; k > 32: its scores
+   into the radix select, scan_topk_l1_select / _bf16, k 33, 100, 300 and
+   1,024 on the tiles exact_tile grows), at N=65,536 x 384, B=64, and at
+   an odd shape (8,192 x 100, B=5: 200-byte bf16 rows, which TMA refuses,
+   take the plain-load staging).
    Then each kernel at the main-path shape (2^20 x 384, B=256, four query
    blocks; K1 over f32 rows at k 16 and bf16 rows at k 32, K2 at k 32, and
    the wide mode at k 100's lists: K1 over f32 rows at 128, over bf16 rows
    at 256, K2 at 256; K3 on each route;
    K4 over f32 rows at k 16, over bf16 rows at the memory-optimized pool of
-   32 and at k 16, the CUDA-core K4 at k 300): timed
+   32 and at k 16, and its select entries at the paths' lists on the tiles
+   exact_tile grows: over f32 rows at k 100's k_pad of 128 and at k 300 and
+   1,000's k_pad of 1,024, over bf16 rows at k 100's pool of 256): timed
    beside its plain version and the PyTorch library path (K3's: one torch.mm, bf16 over the int8 or bf16
    values cast outside the timing, TF32-off f32 over f32 rows, then
    torch.topk of each lane group; K4's: 1 / (1 + torch.cdist(p=1)) and
    torch.topk), and its output held against the plain
-   version's. The radix select's entries at the paths' shapes, on the
+   version's; K3 over f32 rows priced, as K1 over f32 rows is, at the three
+   tf32 passes of an exact f32 dot, K4 at two FADDs a (query, row,
+   dimension). The radix select's entries at the paths' shapes, on the
    tiles exact_tile grows (K1 over f32 rows at k 300 and at k_pad 1,024,
    4,096 and 8,192, over bf16 rows at the pools of 512 and 4,096, K2 at k
    300 and the pools of 1,024 and 4,096; the bound counts the function's
@@ -73,8 +79,8 @@ Phases (any failure raises and the exit code is not 0):
    ids beside their bound. Tolerance: |diff| <= 1e-5
    * max(1, max |out|) (f32 sums of the same products taken in another
    order).
-   K7 (scan_merge_topw) against merge_topw_plain: f32 rows (the CUDA-core
-   body) and bf16 rows (the tensor-core body), three metrics, W 1-3, 5%
+   K7 (scan_merge_topw) against merge_topw_plain: f32 rows (3xTF32) and
+   bf16 rows, both on the tensor-core body, three metrics, W 1-3, 5%
    invalid rows and a lane group with one live row, at 65,536 x 384, B 64
    (tile 16,384), 8,192 x 100, B 5 (tile 2,048: 200-byte rows, which TMA
    refuses, take the plain-load staging) and 8,192 x 768, B 70 (tile
@@ -84,12 +90,16 @@ Phases (any failure raises and the exit code is not 0):
    (65,536 x 384, B 64; 16,384 x 100, B 5; 16,384 x 768, B 70). Then both at
    the headline shape (2^20 x 384 bf16 rows, B 256): K7 at W 2 and 3,
    tile 16,384 (cosine), beside a bf16 torch.mm + per-lane-group
-   torch.topk; K8 in every mode at both tiles beside a bf16 torch.mm +
+   torch.topk, and over the f32 rows at W 2 beside a TF32-off f32 torch.mm
+   + the same top-k (priced at three tf32 passes); K8 in every mode at both tiles beside a bf16 torch.mm +
    row max; each line with the bound (one bf16 pass, the table's) and the
    tensor work of the design's three bf16 passes. Tolerance: the same -inf
-   pattern, scores within rtol/atol 1e-5, ids equal per lane group except
-   among scores within 1e-5 (K8 maxonly: a list may differ where it holds
-   two scores within 1e-5); K8 none's raw dots as K6's.
+   pattern, scores within rtol/atol 1e-5 (K7's dot lists over f32 rows,
+   which reach dots near 0 in the lane group with one live row, against
+   float64: no farther from it than the plain version's, in rms and near
+   0), ids equal per lane group except among scores within 1e-5 (K8
+   maxonly: a list may differ where it holds two scores within 1e-5); K8
+   none's raw dots as K6's.
 3. Main path through the SDK at 2^20 x 384 (random rows from the seed),
    batches of 256, k=10: the default call with the precision guard on
    (whichever kernel it picks on this corpus), then with the guard off
@@ -117,7 +127,15 @@ Phases (any failure raises and the exit code is not 0):
    truth beyond 1e-5 near-ties. Then lists past 2,048, batches of 64:
    approx=False at k 3,000 (K1, k_pad 4,096), the memory-optimized exact
    path at k 2,000 and the quantized one at k 2,000 (pools of 4,096), the
-   same way, with the host remainder and the launches printed.
+   same way, with the host remainder and the launches printed. Then
+   manhattan past k 32 on K4's radix select: the f32 collection at k 100
+   (k_pad 128) and k 1,000 (k_pad 1,024), and the memory-optimized one at
+   k 100 (K4 over bf16 rows at the pool of 256, then the f64 re-score): the
+   same way (one search_batch call whose K4 launches must be the select
+   entry's alone, then p50 / p99 and the device stage), each query of the
+   32 the cosine check takes held to float64 truth beyond 1e-5 near-ties
+   (one f64 manhattan scan at k 1,000 serves these paths and the k 10
+   check).
 3b. The device mesh (dist/), after the phase-3 collections are freed, on
    phase 3's rows and queries: cuda:0 repeated 4 times (2^18 rows a shard).
    (a) FlatIndex(mesh=...) beside a one-card FlatIndex of the same rows,
@@ -277,8 +295,8 @@ Phases (any failure raises and the exit code is not 0):
    /collections with index_type "hnsw", POST /text and POST /search/text
    with ef, held against the SDK. Launch counts are zeroed just before
    each counted run and read just after; the kernels line adds them.
-10. A `kernels` JSON line, the card line, and last
-   {"ok": true, "device": {...}}.
+10. Each phase's seconds and the total, a `kernels` JSON line, the card
+   line, and last {"ok": true, "device": {...}}.
 
 The native sources build into vectorlite_tpu_torch/csrc/build/
 (git-ignored).
@@ -319,8 +337,9 @@ L2_BYTES = 50e6
 #: NVIDIA H100 SXM data sheet (dense, 700 W): device-memory bandwidth and
 #: the peak rate of each operand type the functions need. The reference
 #: contracts f32 rows in full f32 (Precision.HIGHEST); on the tensor cores
-#: that is three tf32 passes (3xTF32, the rate K1 over f32 rows is priced
-#: at; CUDA-core f32 FMAs would take 3.08 ms at the headline shape), int8
+#: that is three tf32 passes (3xTF32, the rate K1, K3 and K7 over f32 rows
+#: are priced at, whichever body computes them; CUDA-core f32 FMAs would
+#: take 3.08 ms at the headline shape), int8
 #: or bf16 rows at DEFAULT precision (one pass). Manhattan has no matmul
 #: form: |q - v| + acc is two FADD instructions (a subtract, then an add
 #: with |.| as a source modifier; sm_90 has no packed f32 add), and an FADD
@@ -344,9 +363,10 @@ REPLACES = {
     "scan_block_topw": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_block_topw_s8": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_block_topw_bf16": "vectorlite_tpu/kernels/pallas_scan.py:159",
-    "scan_topk_l1": "vectorlite_tpu/kernels/pallas_l1.py:44",
     "scan_topk_l1_fadd": "vectorlite_tpu/kernels/pallas_l1.py:44",
     "scan_topk_l1_fadd_bf16": "vectorlite_tpu/kernels/pallas_l1.py:44",
+    "scan_topk_l1_select": "vectorlite_tpu/kernels/pallas_l1.py:44",
+    "scan_topk_l1_select_bf16": "vectorlite_tpu/kernels/pallas_l1.py:44",
     "pq_rank_mma": "vectorlite_tpu/kernels/pq.py:291",
     "pq_rank": "vectorlite_tpu/kernels/pq.py:291",
     "gather_score": "vectorlite_tpu/kernels/ivf.py:290",
@@ -375,10 +395,14 @@ K2_SYMBOLS = (K2_S8, K2_WIDE, K2_SELECT)
 #: radix select replaced (324.93 / 338.54 ms at 65,536 x 384, B 64;
 #: PERF.md): the radix select's checks and its timing at that shape
 OLD_K, OLD_TILE = 2100, 4096
-#: K4's routes (exact_route, manhattan): k <= 32 on the FADD stream (f32 and
-#: bf16 rows), k > 32 on the CUDA-core body
-K4_F32, K4_BF16, K4_CORE = "scan_topk_l1_fadd", "scan_topk_l1_fadd_bf16", "scan_topk_l1"
-K4_SYMBOLS = (K4_F32, K4_BF16, K4_CORE)
+#: K4's routes (exact_route, manhattan): k <= 32 on the FADD stream's lists
+#: (f32 and bf16 rows), k > 32 on its scores into the radix select
+K4_F32, K4_BF16 = "scan_topk_l1_fadd", "scan_topk_l1_fadd_bf16"
+K4_SELECT, K4_SELECT_BF16 = "scan_topk_l1_select", "scan_topk_l1_select_bf16"
+K4_SYMBOLS = (K4_F32, K4_BF16, K4_SELECT, K4_SELECT_BF16)
+#: phase 3's manhattan searches past k 32: k 100 (k_pad 128) and 1,000
+#: (k_pad 1,024) over f32 rows, k 100 over bf16 rows (the 2x pool of 256)
+K_L1 = (100, 1000)
 
 #: the SMs' shared-memory rate: 128 bytes a clock an SM, 132 SMs at 1.755
 #: GHz (H100 SXM); what K5's look-up entry reads its LUT entries at
@@ -557,7 +581,8 @@ def variants(scan, SM):
         (None, "f32", (SM.MANHATTAN,), *exact(2048), 16),
         (None, "f32 k1", (SM.MANHATTAN,), *exact(2048), 1),
         (None, "f32 k32", (SM.MANHATTAN,), *exact(2048), 32),
-        (None, "f32 k300", (SM.MANHATTAN,), *exact(2048), 300),
+        *((None, f"{dt} k{k}", (SM.MANHATTAN,), *exact(2048), k)
+          for dt in ("f32", "bf16") for k in (33, 100, 300, 1024)),
         (None, "bf16", (SM.MANHATTAN,), *exact(2048), 16),
         (None, "bf16 k32", (SM.MANHATTAN,), *exact(2048), 32),
     ]
@@ -662,17 +687,23 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     # 4096-row tiles, W = 2, pool 128 (and its two other routes: a bf16 scan
     # copy, f32 rows without a copy); K4 over f32 rows at k_pad 16, over
     # bf16 rows (the memory-optimized profile) at the 2x pool of 32 (and at
-    # k 16, logged only), the CUDA-core K4 (lists past 32, on no path here)
-    # at k 300. K1 over f32 rows is priced at three tf32 passes (the
-    # reference's HIGHEST on the tensor cores), K2 at one int8 pass, K1 over
-    # bf16 rows at one bf16 pass, K4 at two FADD instructions a (query,
-    # row, dimension).
+    # k 16, logged only), and past k 32 on its scores into the radix select
+    # at the tiles exact_tile grows (k 100's k_pad of 128 and k 1,000's of
+    # 1,024 over f32 rows, k 300 beside the CUDA-core lists' 230 ms there
+    # (PERF.md), k 100's pool of 256 over bf16 rows). K1 and K3 over f32
+    # rows are priced at three tf32 passes (the reference's HIGHEST on the
+    # tensor cores, whichever body computes it), K2 at one int8 pass, K1
+    # over bf16 rows at one bf16 pass, K4 at two FADD instructions a
+    # (query, row, dimension).
     k3_out = B * (n // 4096) * 256 * 8
     l1_ops = 2.0 * B * n * D  # FADD instructions
     l1_side = n * 1 + B * D * 4  # validity, queries
 
     def tiles_out(tile_n, k):
         return B * (n // tile_n) * k * 8
+
+    def l1_tile(k):  # K4's tile past k 32, as the path's caller tile grows
+        return scan.exact_tile(n, 2048, k, SM.MANHATTAN)
 
     specs = [
         (K1_TF32, SM.COSINE, v, None, 16, 2048, None, "tf32",
@@ -691,16 +722,19 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
          dot_ops, n * D + n * 4 + side + k3_out),
         (K3_BF16, SM.COSINE, vb, None, 128, 4096, 2, "bf16",
          dot_ops, n * D * 2 + side + k3_out),
-        (K3_F32, SM.COSINE, v, None, 128, 4096, 2, "f32",
-         dot_ops, n * D * 4 + side + k3_out),
+        (K3_F32, SM.COSINE, v, None, 128, 4096, 2, "tf32",
+         3 * dot_ops, n * D * 4 + side + k3_out),
         (K4_F32, SM.MANHATTAN, v, None, 16, 2048, None, "f32_add",
          l1_ops, n * D * 4 + l1_side + tiles_out(2048, 16)),
         (K4_BF16, SM.MANHATTAN, vb, None, 32, 2048, None, "f32_add",
          l1_ops, n * D * 2 + l1_side + tiles_out(2048, 32)),
         (K4_BF16 + " k16", SM.MANHATTAN, vb, None, 16, 2048, None, "f32_add",
          l1_ops, n * D * 2 + l1_side + tiles_out(2048, 16)),
-        (K4_CORE, SM.MANHATTAN, v, None, 300, 2048, None, "f32_add",
-         l1_ops, n * D * 4 + l1_side + tiles_out(2048, 300)),
+        *((K4_SELECT + suffix, SM.MANHATTAN, v, None, k, l1_tile(k), None, "f32_add",
+           l1_ops, n * D * 4 + l1_side + tiles_out(l1_tile(k), k))
+          for suffix, k in (("", 128), (" k300", 300), (" k1024", 1024))),
+        (K4_SELECT_BF16, SM.MANHATTAN, vb, None, 256, l1_tile(256), None, "f32_add",
+         l1_ops, n * D * 2 + l1_side + tiles_out(l1_tile(256), 256)),
     ]
     out = {}
     for key, metric, rows, scales, k, tile_n, winners, op_type, ops, nbytes in specs:
@@ -730,10 +764,9 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
             def lib(tile_n=tile_n, winners=winners, lq=lq, lrows=lrows):
                 return torch.topk(torch.mm(lq, lrows.T).view(
                     B, n // tile_n, tile_n // 128, 128), winners, dim=2)
-        plain_reps = 2 if metric is SM.MANHATTAN else 5
-        reps = 5 if name == K4_CORE else 20  # ~0.25 s a call
-        ms, plain_ms = interleaved_ms(kern, plain, reps=reps, plain_reps=plain_reps)
-        lib_ms = cuda_time_ms(lib, 10)
+        l1 = metric is SM.MANHATTAN  # its plain version and library call ~0.45-0.9 s each
+        ms, plain_ms = interleaved_ms(kern, plain, reps=20, plain_reps=2 if l1 else 5)
+        lib_ms = cuda_time_ms(lib, 3 if l1 else 10)
         err = compare(f"{key} at the main-path shape (top {k})",
                       merged(scan, kern(), B, k), merged(scan, plain(), B, k + 1))
         errs[name] = max(errs.get(name, 0.0), err)
@@ -743,7 +776,14 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
                      f"ms (3 int8 passes)")
         work = {K3_INT8: int8_work, K2_S8: int8_work, K2_WIDE: int8_work,
                 K3_BF16: f"; {design_work(n)}", K1_BF16: f"; {design_work(n)}",
-                K1_WIDE_BF16: f"; {design_work(n)}"}.get(name, "")
+                K1_WIDE_BF16: f"; {design_work(n)}",
+                K3_F32: f"; f32 FMAs {dot_ops / PEAK_OPS_PER_S['f32'] * 1e3:.4f} ms (the "
+                        f"CUDA-core body's own least time)"}.get(name, "")
+        if name in (K4_SELECT, K4_SELECT_BF16):
+            group = scan.select_group_rows(n, B, tile_n)
+            work = (f"; tiles of {tile_n}, groups of {group // tile_n}, scratch "
+                    f"{4 * B * group / 2**20:.0f} MiB written and read once: "
+                    f"{2 * 4 * B * n / PEAK_BYTES_PER_S * 1e3:.4f} ms of device memory")
         log(f"  {key:22s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"library {lib_ms:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{op_type} rate){work}")
@@ -1132,13 +1172,21 @@ def lane_lists(s, i, winners: int):
             i.reshape(-1, winners).cpu().numpy())
 
 
-def compare_lanes(label, kern, plain, winners: int, distinct=False) -> float:
+def compare_lanes(label, kern, plain, winners: int, distinct=False, exact=None) -> float:
     """Lane-group lists of a kernel against the plain version's lists of
     W + 1: the same -inf pattern, finite scores within rtol/atol 1e-5, ids
     equal except among scores within 1e-5 of each other. ``distinct``
     (K8 maxonly, ids 0): a list whose scores differ beyond that is excused
     where either list holds two scores within 1e-5 (one side may hold
-    them as one value). Returns the largest score difference."""
+    them as one value). ``exact`` (K7's [W, B, 128] lists over f32 rows
+    under the dot metric: [B, N] float64 dots, -inf where invalid): a lane
+    group with few live rows lists dots near 0, where two f32 orders of the
+    same sum differ by more than 1e-5 at D 768 (3xTF32 against the plain
+    product), so the scores are held to float64 instead: each within
+    rtol/atol 1e-5 of its row's float64 dot plus the plain version's own
+    largest distance from float64 in the same lists
+    (tests/test_torch_merge.py card_lanes). Returns the largest score
+    difference."""
     ks, ki = lane_lists(*kern, winners)
     ps, pi = lane_lists(*plain, winners + 1)
     pw = ps[:, :winners]
@@ -1147,6 +1195,25 @@ def compare_lanes(label, kern, plain, winners: int, distinct=False) -> float:
     diff = np.where(fin, np.abs(ks - np.where(fin, pw, 0.0)), 0.0)
     err = float(diff.max()) if fin.any() else 0.0
     off = (diff > 1e-5 + 1e-5 * np.abs(np.where(fin, pw, 0.0))).any(axis=1)
+    if exact is not None:
+        # the [M, W] lists are query-major (lane_lists): M = B x 128
+        ex = exact.cpu().numpy()
+        b = ex.shape[0]
+
+        def f64_of(i_):
+            return np.take_along_axis(ex, i_.reshape(b, -1).astype(np.int64),
+                                      axis=1).reshape(i_.shape)
+        dk, dp = f64_of(ki), f64_of(pi[:, :winners])
+        kf = ~np.isneginf(ks)
+        ek = np.abs(ks.astype(np.float64) - dk)[kf]
+        slack = float(np.abs(pw.astype(np.float64) - dp)[~np.isneginf(pw)].max(initial=0.0))
+        over = ek > 1e-5 + 1e-5 * np.abs(dk[kf]) + slack
+        log(f"  {label:48s} against float64: largest {ek.max(initial=0.0):.3g} (rms "
+            f"{np.sqrt(np.mean(ek ** 2)) if ek.size else 0.0:.3g}), the plain version's "
+            f"largest {slack:.3g}; beyond the rule {int(over.sum())}")
+        off[:] = False
+        if over.any():
+            raise AssertionError(f"{label} lies farther from float64 than the rule allows")
     excused = 0
     if distinct and off.any():
         def near(a):
@@ -1172,7 +1239,8 @@ def compare_lanes(label, kern, plain, winners: int, distinct=False) -> float:
 
 def check_merge_kernel(merge, SM, dev, rng) -> float:
     """Phase 2g: K7 against merge_topw_plain: f32 and bf16 rows, three
-    metrics, W 1-3, 5% invalid rows and one lane group with one live row."""
+    metrics, W 1-3, 5% invalid rows and one lane group with one live row;
+    the dot lists over f32 rows against float64 (compare_lanes' exact)."""
     err = 0.0
     for n, d, b, tile_n in ((65536, D, 64, 16384), (8192, 100, 5, 2048),
                             (8192, 768, 70, 2048)):
@@ -1182,6 +1250,7 @@ def check_merge_kernel(merge, SM, dev, rng) -> float:
         valid[3 + 128 * 5] = True
         q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
         sq = (v * v).sum(-1)
+        exact = torch.where(valid[None, :], q.double() @ v.double().T, float("-inf"))
         for label, rows in (("f32", v), ("bf16", v.to(torch.bfloat16))):
             for metric in (SM.COSINE, SM.EUCLIDEAN, SM.DOT_PRODUCT):
                 for w in (1, 2, 3):
@@ -1190,9 +1259,10 @@ def check_merge_kernel(merge, SM, dev, rng) -> float:
                     torch.cuda.synchronize()
                     want = merge.merge_topw_plain(rows, sq, valid, q, metric=metric,
                                                   winners=w + 1)
+                    f64 = label == "f32" and metric is SM.DOT_PRODUCT
                     err = max(err, compare_lanes(
                         f"scan_merge_topw {label} {n}x{d} B{b} {metric.name} W{w}",
-                        got, want, w))
+                        got, want, w, exact=exact if f64 else None))
     return err
 
 
@@ -1240,9 +1310,9 @@ def time_merge_kernel(merge, SM, dev, rng, n: int, errs: dict) -> dict:
     """Phase 2i: K7 at the headline shape (2^20 x 384 bf16 rows, B 256,
     cosine, tile 16384) for W 2 and 3, held against the plain version and
     timed beside it and a bf16 torch.mm + per-lane-group torch.topk; the
-    W 2 line is the kernel line's. Then its route over f32 rows (the
-    CUDA-core body) at W 2, beside a TF32-off f32 torch.mm + the same
-    top-k, priced at the f32 FMA rate as K3 over f32 rows is."""
+    W 2 line is the kernel line's. Then over f32 rows (3xTF32 on the same
+    body) at W 2, beside a TF32-off f32 torch.mm + the same top-k, priced
+    at three tf32 passes as K1 and K3 over f32 rows are."""
     v = torch.from_numpy(rng.standard_normal((n, D), dtype=np.float32)).to(dev)
     sq = (v * v).sum(-1)
     vb = v.to(torch.bfloat16)
@@ -1285,15 +1355,16 @@ def time_merge_kernel(merge, SM, dev, rng, n: int, errs: dict) -> dict:
     err = compare_lanes("scan_merge_topw over f32 rows at the headline shape, W 2", kern32(),
                         merge.merge_topw_plain(v, sq, valid, q, metric=SM.COSINE, winners=3), 2)
     errs["scan_merge_topw"] = max(errs["scan_merge_topw"], err)
-    ms, plain_ms = interleaved_ms(kern32, plain32, reps=5, plain_reps=2)
+    ms, plain_ms = interleaved_ms(kern32, plain32, reps=20, plain_reps=2)
     lib_ms = cuda_time_ms(
         lambda: torch.topk(torch.mm(q, v.T).view(B, n // 128, 128), 2, dim=1), 5)
     t = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-         **bound(n * D * 4 + n * 4 + n + B * D * 4 + 2 * B * 128 * 8, 2.0 * B * n * D, "f32")}
-    log(f"  scan_merge_topw over f32 rows (W 2, tile {merge.DEFAULT_TILE_N}, the CUDA-core "
-        f"body) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library (TF32 off: "
+         **bound(n * D * 4 + n * 4 + n + B * D * 4 + 2 * B * 128 * 8, 3 * 2.0 * B * n * D,
+                 "tf32")}
+    log(f"  scan_merge_topw over f32 rows (W 2, tile {merge.DEFAULT_TILE_N}, 3xTF32 on the "
+        f"tensor-core body) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library (TF32 off: "
         f"{not torch.backends.cuda.matmul.allow_tf32}) {lib_ms:.4f} ms  bound "
-        f"{t['bound_ms']:.4f} ms ({t['bound_by']}, f32 rate)")
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}, tf32 rate: three passes)")
     del v
     torch.cuda.empty_cache()
     return out[2]
@@ -1600,8 +1671,19 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
               (f"quantized exact, k {K_SELECT['int8']} (K2, radix select)", qclient, K2_SELECT,
                K_SELECT["int8"])]
     deep_paths(build, SM, select, rows, queries[:SELECT_BATCH], dev, card, n_batches)
+    # manhattan past k 32 (k_pad 128 and 1,024; the bf16 rows' 2x pool of
+    # 256) on K4's scores into the radix select, held on the 32 queries
+    # below to one f64 manhattan scan at the larger k, which the k 10 check
+    # reads too
+    pick = slice(0, B, B // 32)
+    l1_truth = truth_topk(rows, queries[pick], "manhattan", dev, max(K_L1))
+    l1 = [(f"manhattan, k {k} (K4, radix select)", client, K4_SELECT, k) for k in K_L1]
+    l1.append((f"memory-optimized manhattan, k {K_L1[0]} (K4 over bf16 rows, radix select, "
+               f"+ f64 re-score)", mclient, K4_SELECT_BF16, K_L1[0]))
+    deep_paths(build, SM, l1, rows, queries, dev, card, n_batches, SM.MANHATTAN,
+               (pick, *l1_truth))
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
-    for sym in (K1_SELECT, K1_SELECT_BF16, K2_SELECT):
+    for sym in (K1_SELECT, K1_SELECT_BF16, K2_SELECT, K4_SELECT, K4_SELECT_BF16):
         if not launches[sym]:
             raise AssertionError(f"{sym} was never launched on the main path")
 
@@ -1641,10 +1723,10 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     mclient.delete_collection("main")
 
     # exact paths against float64 truth on 32 queries from all 4 blocks
-    pick = slice(0, B, B // 32)
     for metric_name, path in (("cosine", "exact approx=False (K1)"),
                               ("manhattan", "manhattan (K4)")):
-        t_s, t_ids = truth_topk(rows, queries[pick], metric_name, dev)
+        t_s, t_ids = (truth_topk(rows, queries[pick], metric_name, dev)
+                      if metric_name == "cosine" else l1_truth)
         got = results[path][pick]
         bad = ids_match(t_s, t_ids, scores_of(got), ids_of(got))  # ids are slots here
         err = float(np.max(np.abs(scores_of(got) - t_s[:, :K])))
@@ -1660,33 +1742,38 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     return launches, exact_ids
 
 
-def deep_paths(build, SM, clients, rows, queries, dev, card: str, n_batches: int) -> None:
-    """Phase 3's lists past 256, each (name, client, kernel, k) on its
-    collection: one object-returning call (search_batch, approx=False)
-    whose K1 / K2 launches must be the named kernel's alone, then n_batches
-    timed calls of search_batch_arrays (B x k result objects a call would
-    time the host), the device stage (the index's _device_topk to
-    torch.cuda.synchronize()) timed apart and the host remainder (the batch
-    p50 less the device stage's), the same route, and every query's ids
-    held against float64 truth beyond 1e-5 near-ties."""
+def deep_paths(build, SM, clients, rows, queries, dev, card: str, n_batches: int,
+               metric=None, truth=None) -> None:
+    """Phase 3's lists past 256 (cosine) or past 32 (manhattan), each
+    (name, client, kernel, k) on its collection: one object-returning call
+    (search_batch, approx=False) whose K1 / K2 / K4 launches must be the
+    named kernel's alone, then n_batches timed calls of search_batch_arrays
+    (B x k result objects a call would time the host), the device stage
+    (the index's _device_topk to torch.cuda.synchronize()) timed apart and
+    the host remainder (the batch p50 less the device stage's), the same
+    route, and the ids held against float64 truth beyond 1e-5 near-ties:
+    every query's (64 at a time), or, with ``truth`` (the queries picked,
+    their f64 top scores and rows at k or more), the picked ones'."""
+    metric = metric or SM.COSINE
+    listed = {*K1_SYMBOLS, *K2_SYMBOLS, *K4_SYMBOLS}
     for name, client, sym, k in clients:
         with client.get_collection("main").index_read() as index:
             pass
         before = {kk.symbol: kk.launches for kk in build.KERNELS}
-        index.search_batch(queries, k, SM.COSINE, approx=False)
+        index.search_batch(queries, k, metric, approx=False)
         moved = {kk.symbol for kk in build.KERNELS if kk.launches != before[kk.symbol]}
-        if moved & {*K1_SYMBOLS, *K2_SYMBOLS} != {sym}:
+        if moved & listed != {sym}:
             raise AssertionError(f"{name}: launched {moved}, not {sym}")
         spent = {"device": []}
         index._device_topk = timed(spent, "device", index._device_topk, True)
         try:
             _, moved_all, times = drive(
                 [(name, lambda qs, index=index, k=k: index.search_batch_arrays(
-                    qs, k, SM.COSINE, approx=False))], queries, n_batches, build, card)
-            ids, scores = index.search_batch_arrays(queries, k, SM.COSINE, approx=False)
+                    qs, k, metric, approx=False))], queries, n_batches, build, card)
+            ids, scores = index.search_batch_arrays(queries, k, metric, approx=False)
         finally:
             del index._device_topk
-        if set(moved_all[name]) & {*K1_SYMBOLS, *K2_SYMBOLS} != {sym}:
+        if set(moved_all[name]) & listed != {sym}:
             raise AssertionError(f"{name}: launched {moved_all[name]}, not {sym}")
         dev_ms = np.asarray(spent["device"][1:])  # past the warm call
         p50, dev50 = np.percentile(times[name], 50), np.percentile(dev_ms, 50)
@@ -1695,11 +1782,18 @@ def deep_paths(build, SM, clients, rows, queries, dev, card: str, n_batches: int
             f"ms p99 {np.percentile(times[name], 99):.3f} ms; host remainder {p50 - dev50:.3f} "
             f"ms; launches {moved_all[name]} [{card}]")
         bad, err = 0, 0.0
-        for lo in range(0, len(queries), 64):  # float64 truth, 64 queries at a time
-            t_s, t_ids = truth_topk(rows, queries[lo:lo + 64], "cosine", dev, k)
-            bad += ids_match(t_s, t_ids, scores[lo:lo + 64], ids[lo:lo + 64])
-            err = max(err, float(np.max(np.abs(scores[lo:lo + 64] - t_s[:, :k]))))
-        log(f"    {name} vs f64 truth ({len(queries)} queries, top {k}): id mismatches beyond ties "
+        if truth is not None:
+            pick, t_s, t_ids = truth
+            bad = ids_match(t_s, t_ids, scores[pick], ids[pick])
+            err = float(np.max(np.abs(scores[pick] - t_s[:, :k])))
+            held = len(scores[pick])
+        else:
+            for lo in range(0, len(queries), 64):  # float64 truth, 64 queries at a time
+                t_s, t_ids = truth_topk(rows, queries[lo:lo + 64], "cosine", dev, k)
+                bad += ids_match(t_s, t_ids, scores[lo:lo + 64], ids[lo:lo + 64])
+                err = max(err, float(np.max(np.abs(scores[lo:lo + 64] - t_s[:, :k]))))
+            held = len(queries)
+        log(f"    {name} vs f64 truth ({held} queries, top {k}): id mismatches beyond ties "
             f"{bad}, max score err {err:.3g}")
         if bad or err > 1e-5:
             raise AssertionError(f"{name} disagrees with float64 truth")
@@ -3980,8 +4074,15 @@ def main() -> int:
         if fences:
             log(f"    {name} ptxas: warpgroup.arrive injected {fences} times")
 
+    phase_s = {"1": time.perf_counter() - started}  # each phase's seconds
+
+    def phase_done(name, t0):
+        phase_s[name] = time.perf_counter() - t0
+        log(f"  phase {name} done: {phase_s[name]:.1f} s")
+
     rng = np.random.default_rng(args.seed)
     log("[2] kernels against their plain versions")
+    t0 = time.perf_counter()
     errs = check_kernels(scan, metrics_mod, dev, rng)
     check_pq_kernel(pq, vl.SimilarityMetric, dev, rng, errs)
     # K6's operands come from a stream of their own: the corpus of phases
@@ -4002,6 +4103,7 @@ def main() -> int:
         merge, vl.SimilarityMetric, dev, merge_rng, args.rows, errs)
     timing["scan_fold_probe"] = time_fold_kernel(decompose, dev, merge_rng, args.rows, errs)
     torch.cuda.empty_cache()
+    phase_done("2", t0)
 
     log(f"[3] main path through the SDK (N={args.rows}, D={D}, B={B}, k={K})")
     t0 = time.perf_counter()
@@ -4013,14 +4115,17 @@ def main() -> int:
     log(f"  host peak RSS after phase 3: {peak_rss_gb():.2f} GB")
     gc.collect()  # the phase-3 collections go before the pq collection comes
     torch.cuda.empty_cache()
+    phase_done("3", t0)
 
     log(f"[3b] the device mesh: cuda:0 x {P3B_SHARDS} (N={args.rows}, D={D}, B={B}) [{card}]")
     t0 = time.perf_counter()
     for sym, c in mesh_path(vl, _build, ivf, dev, rows, queries, card, args.seed).items():
         launches[sym] = launches.get(sym, 0) + c
-    log(f"  phase 3b {time.perf_counter() - t0:.1f} s; host peak RSS {peak_rss_gb():.2f} GB")
+    log(f"  host peak RSS after phase 3b {peak_rss_gb():.2f} GB")
+    phase_done("3b", t0)
 
     log(f"[4] the pq profile through the SDK (N={args.rows}, D={D}, B={B}, k={K})")
+    t0 = time.perf_counter()
     for sym, c in pq_path(vl, _build, pq, native.RESCORE, dev, rows, queries, exact_ids,
                           card, args.batches, rng).items():
         launches[sym] = launches.get(sym, 0) + c
@@ -4028,41 +4133,53 @@ def main() -> int:
     del queries, exact_ids  # phase 7 serves the rows again
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("4", t0)
 
     log(f"[5] the IVF rung through the SDK (N={args.ivf_rows}, D={D}, k={K})")
+    t0 = time.perf_counter()
     launches["gather_score"] = launches.get("gather_score", 0) + ivf_path(
         vl, _build, ivf, native.RESCORE, dev, args, card)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("5", t0)
 
     log(f"[6] the merge-engine probe (N={args.rows}, D={D}, B={B}, k={HEADLINE_K})")
+    t0 = time.perf_counter()
     six = headline_path(merge, decompose, scan, _build, vl.SimilarityMetric, dev, args, card)
     for sym in ("scan_merge_topw", "scan_fold_probe", K3_BF16, K3_F32):
         launches[sym] = launches.get(sym, 0) + six[sym]
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("6", t0)
 
     log(f"[7] the collection surface and persistence through the SDK (N={args.rows}, D={D}, "
         f"k={K}) [{card}]")
+    t0 = time.perf_counter()
     seven, client, sdk = collection_path(vl, _build, dev, rows, card, args.seed)
     for sym, c in seven.items():
         launches[sym] = launches.get(sym, 0) + c
     gc.collect()
+    phase_done("7", t0)
 
     log(f"[8] HTTP on the card (N={args.rows}, D={D}, k={K}) [{card}]")
+    t0 = time.perf_counter()
     for sym, c in http_path(vl, _build, dev, client, rows, card, args.seed, sdk).items():
         launches[sym] = launches.get(sym, 0) + c
     del rows, client
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("8", t0)
 
     log(f"[9] the MiniLM embedder and HNSW on the card [{card}]")
+    t0 = time.perf_counter()
     p9_launches, scan_err = text_hnsw_path(vl, _build, dev, card, args.seed)
     for sym, c in p9_launches.items():
         launches[sym] = launches.get(sym, 0) + c
     errs[K1_WIDE] = max(errs[K1_WIDE], scan_err)
-    log(f"  smoke run {time.perf_counter() - started:.1f} s, builds included; host "
-        f"peak RSS {peak_rss_gb():.2f} GB")
+    phase_done("9", t0)
+    log(f"  phase seconds {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}; smoke "
+        f"run {time.perf_counter() - started:.1f} s, builds included; host peak RSS "
+        f"{peak_rss_gb():.2f} GB")
 
     by_symbol = {kern.symbol: kern for kern in _build.KERNELS}
     if set(by_symbol) != set(REPLACES):

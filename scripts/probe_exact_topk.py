@@ -303,24 +303,26 @@ SELECT_LAUNCH = "    if (e == 0)\n      e = launch_select("
 # the select's profile: clock64 cycles of each block's thread 0 in the
 # digit passes (the keys' loads included), the gather of the survivors,
 # the sort and the write of the list, and the passes a block took, read
-# back through sel_prof_read after one launch
+# back through sel_prof_read after one launch (the select lives in
+# select.cuh: those edits name it)
 SELECT_PROFILE = [
-    ("namespace sel {\n", "namespace sel {\n__device__ unsigned long long sel_prof[8];\n"),
-    ("  const int tid = threadIdx.x;\n  const int lane = tid & 31;\n  const int warp = tid >> 5;\n"
+    ("select.cuh", "namespace sel {\n",
+     "namespace sel {\n__device__ unsigned long long sel_prof[8];\n"),
+    ("select.cuh", "  const int tid = threadIdx.x;\n  const int lane = tid & 31;\n  const int warp = tid >> 5;\n"
      "  const uint32_t lower",
      "  const long long pf0 = clock64();\n  int pf_passes = 0;\n  long long pf4 = 0;\n"
      "  const int tid = threadIdx.x;\n  const int lane = tid & 31;\n  const int warp = tid >> 5;\n"
      "  const uint32_t lower"),
-    ("  for (int shift = 24; shift >= 0; shift -= 8) {\n",
+    ("select.cuh", "  for (int shift = 24; shift >= 0; shift -= 8) {\n",
      "  for (int shift = 24; shift >= 0; shift -= 8) {\n    ++pf_passes;\n"),
-    ("  // the survivors: every key over the prefix",
+    ("select.cuh", "  // the survivors: every key over the prefix",
      "  const long long pf2 = clock64();\n  // the survivors: every key over the prefix"),
-    ("  // the k survivors by (key descending, row ascending)\n",
+    ("select.cuh", "  // the k survivors by (key descending, row ascending)\n",
      "  const long long pf3 = clock64();\n  // the k survivors by (key descending, row ascending)\n"),
-    ("    for (int e = tid; e < k; e += THREADS) {\n      const uint64_t v = buf[e];",
+    ("select.cuh", "    for (int e = tid; e < k; e += THREADS) {\n      const uint64_t v = buf[e];",
      "    pf4 = clock64();\n    for (int e = tid; e < k; e += THREADS) {\n"
      "      const uint64_t v = buf[e];"),
-    ("        });\n  }\n}\n\n// The select over one group",
+    ("select.cuh", "        });\n  }\n}\n\n// The select over one group",
      "        });\n  }\n  if (threadIdx.x == 0) {\n    const long long pf5 = clock64();\n"
      "    atomicAdd(&sel_prof[0], 1ull);\n"
      "    atomicAdd(&sel_prof[1], static_cast<unsigned long long>(pf2 - pf0));\n"
@@ -338,23 +340,25 @@ SELECT_PROFILE = [
 
 
 def build_source_variant(_build, source, edits):
-    """csrc/<source>.cu itself edited (the headers as they are), built once
-    per edit and flags."""
-    body = (_build.CSRC / f"{source}.cu").read_text()
-    for old, new in edits:
-        if body.count(old) != 1:
-            raise RuntimeError(f"csrc/{source}.cu no longer holds {old!r} once")
-        body = body.replace(old, new)
+    """csrc/<source>.cu edited, built once per edit and flags: each edit is
+    (old, new) on the source itself or (header, old, new) on one of the
+    csrc/*.cuh headers it includes (the others as they are)."""
+    texts = {h.name: h.read_text() for h in sorted(_build.CSRC.glob("*.cuh"))}
+    texts[f"{source}.cu"] = (_build.CSRC / f"{source}.cu").read_text()
+    for edit in edits:
+        name, old, new = edit if len(edit) == 3 else (f"{source}.cu", *edit)
+        if texts[name].count(old) != 1:
+            raise RuntimeError(f"csrc/{name} no longer holds {old!r} once")
+        texts[name] = texts[name].replace(old, new)
     digest = hashlib.sha256(
-        body.encode() + b"".join(h.read_bytes() for h in sorted(_build.CSRC.glob("*.cuh")))
+        b"".join(texts[name].encode() for name in sorted(texts))
         + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
     out = _build.BUILD_DIR / f"lib{source}_probe_{digest}.so"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-            for src in _build.CSRC.glob("*.cuh"):
-                shutil.copy(src, tmp)
-            Path(tmp, f"{source}.cu").write_text(body)
+            for name, text in texts.items():
+                Path(tmp, name).write_text(text)
             part = out.with_suffix(f".{os.getpid()}.tmp")
             done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(part),
                                    str(Path(tmp, f"{source}.cu"))], capture_output=True,
@@ -676,7 +680,7 @@ def main() -> int:
             if variant in VARIANTS and VARIANTS[variant][:1] == PROFILE[:1]:
                 s_out = new()[0]
                 torch.cuda.synchronize()
-                qbs, t = s_out.shape[0] // 64, s_out.shape[1]  # csrc/scan_mma.cuh walk_tiles
+                qbs, t = s_out.shape[0] // 64, s_out.shape[1]  # csrc/hopper.cuh one_wave_run
                 per = -(-(t * qbs) // torch.cuda.get_device_properties(0).multi_processor_count)
                 prof = torch.stack([s_out[qb * 64 + w, t0, :4] for qb in range(qbs)
                                     for t0 in range(0, t, per) for w in range(8)]).double()

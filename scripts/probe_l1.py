@@ -2,9 +2,11 @@
 card: held, counted, timed and taken apart.
 
     env PYTHONPATH=. python3 scripts/probe_l1.py [--seed S] [--check-only]
+    env PYTHONPATH=. python3 scripts/probe_l1.py --select-only [--parent DIR]
+        [--seed S] [--check-only]
 
-Builds csrc/l1.cu and csrc/scan.cu and prints ptxas's registers and spills
-of the two entries, each launch's ring at D 99, 100, 384 and 768 (stages;
+Builds csrc/l1.cu and prints ptxas's registers and spills
+of its entries, each launch's ring at D 99, 100, 384 and 768 (stages;
 the queries resident or riding the stages), and what cuobjdump -sass finds
 in each kernel: its FADDs that add an absolute value (|q - v| + acc), its
 other FADDs, its shared-memory loads and all its instructions, beside the
@@ -19,10 +21,10 @@ stages), B 3 to 256, duplicate rows, an all-invalid tile. With
 --check-only it stops there. Then, at the main-path shape (2^20 x 384, B
 256, tile 2,048; f32 rows at k 16, bf16 rows at k 16 and at the
 memory-optimized profile's pool of 32), holds each entry once more and
-times it with CUDA events beside the CUDA-core scan_topk_l1 of the same
-call (old, new, new, old), the bound 2 B N D / 33.5e12 (two FADDs a
-(query, row, dimension) at the card's FADD issue rate), and variants of
-l1.cu built from edited copies, instruments that compute wrong results:
+times it with CUDA events, twice, beside the bound 2 B N D / 33.5e12 (two
+FADDs a (query, row, dimension) at the card's FADD issue rate), and
+variants of l1.cu built from edited copies, instruments that compute
+wrong results:
 
 * no selection: the chunk's scores are neither computed nor listed (a max
   of the sums keeps the FADDs live): what the scores and lists cost;
@@ -43,6 +45,34 @@ l1.cu built from edited copies, instruments that compute wrong results:
 The SM clock under load (nvidia-smi, read while 200 launches are queued)
 is printed beside each case: the bound assumes the 1.98 GHz boost clock.
 
+--select-only takes the entries past k 32 (scan_topk_l1_select / _bf16:
+the stream's scores of a group of tiles into a scratch, then the radix
+select of csrc/select.cuh) apart as scripts/probe_exact_topk.py
+--select-only takes K1's: it holds them tile by tile against
+tile_topk_plain at small shapes (k 33, 64, 100, 300 and k = tile_n; D 99,
+100, 384, 768; 256- and 384-row tiles), then times them at 2^20 x 384, B
+256, over f32 and bf16 rows at k 33, 100, 300 and 1,024 and over bf16
+rows at k 100's pool of 256, on the tiles exact_tile grows from the
+index's 2,048, and at 65,536 x 384, B 64, k 300 (the old shape), twice
+each (20 launches), in four builds of l1.cu, each in a process of its own:
+
+* entry: the package's build, held against the plain version first;
+* scores alone: the select's launches edited out (the stream, its
+  reciprocals and its stores to the scratch);
+* stream alone: nor the stores (a compare that never holds keeps the
+  scores live);
+* select alone: the scores' launches edited out; the probe fills a
+  scratch of its own with the first group's plain scores and launches
+  the entry over it (the first group's lists held against their plain
+  top k).
+
+With --parent DIR (the parent commit unpacked there by git archive) it
+also builds that tree's csrc/scan.cu and times its CUDA-core scan_topk_l1
+(the lists past k 32 this route replaced) at the same shapes on the
+parent's tile (2,048 rows), held against the plain version once a shape,
+in a process of its own before and after the four (parent, builds,
+parent): the before and the after in one call.
+
 Prints a line a measurement, the card's name and power limit, and a JSON
 object last. Exits 1 without a CUDA device, and raises if an entry
 disagrees with its plain version. The variants build (one nvcc each, all
@@ -59,10 +89,8 @@ import hashlib
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -70,18 +98,18 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
-SELECT = "    if (live) select_chunk(c, ok);\n"
+SELECT = "    if (live) finish_chunk(c, ok);\n"
 SINK = ("    if (live) {\n      float t = 0.0f;\n#pragma unroll\n"
         "      for (int i = 0; i < WQ; ++i)\n#pragma unroll\n"
         "        for (int j = 0; j < RPL; ++j) t = fmaxf(t, acc[i][j]);\n"
         "      if (t == 1.0e30f) out_s[c] = t + ok;\n    }\n")
 # the scores computed, neither seeded nor merged into the lists
-LISTS = "    const int r0 = static_cast<int>(row0);\n    if (c == 0) {\n"
-NO_LISTS = ("    const int r0 = static_cast<int>(row0);\n    {\n      float t = -1.0f;\n"
-            "#pragma unroll\n      for (int i = 0; i < WQ; ++i)\n#pragma unroll\n"
-            "        for (int j = 0; j < RPL; ++j) t = fmaxf(t, acc[i][j]);\n"
-            "      if (t == 1.0e30f) out_s[r0] = t;\n    }\n    if (false) {\n")
-LATER = "    } else {\n      merge_lists<0, false>"
+LISTS = "      const int r0 = static_cast<int>(row0);\n      if (c == 0) {\n"
+NO_LISTS = ("      const int r0 = static_cast<int>(row0);\n      {\n        float t = -1.0f;\n"
+            "#pragma unroll\n        for (int i = 0; i < WQ; ++i)\n#pragma unroll\n"
+            "          for (int j = 0; j < RPL; ++j) t = fmaxf(t, acc[i][j]);\n"
+            "        if (t == 1.0e30f) out_s[r0] = t;\n      }\n      if (false) {\n")
+LATER = "      } else {\n        merge_lists<0, false>"
 # the scores by the exact division (its branches to the slow path kept)
 RCP = "rcp_fast(1.0f + acc[i][j])"
 EXACT_RCP = "__frcp_rn(1.0f + acc[i][j])"
@@ -94,7 +122,8 @@ STATIC_RING = [(WAIT, "        if (j < stages) mbar_wait(full0 + 8 * st, (j / st
 UNROLL = "#pragma unroll 1  // the words of a stage"
 VARIANTS = {
     "no selection": [(SELECT, SINK)],
-    "scores only": [(LISTS, NO_LISTS), (LATER, "    } else if (false) {\n      merge_lists<0, false>")],
+    "scores only": [(LISTS, NO_LISTS),
+                    (LATER, "      } else if (false) {\n        merge_lists<0, false>")],
     "no inserts": [(INSERTS, "    while (false) {\n")],
     "no staging": STATIC_RING,
     "exact division": [(RCP, EXACT_RCP)],
@@ -104,30 +133,28 @@ VARIANTS = {
 #: the FADD bound: 132 SMs x 128 lanes x 1.98 GHz, two FADDs a (query, row, dimension)
 FADD_PER_S = 33.5e12
 
-
-def build_variant(_build, name, edits):
-    """csrc/l1.cu edited, built once per edit and flags."""
-    body = (_build.CSRC / "l1.cu").read_text()
-    for old, new in edits:
-        if old not in body:
-            raise RuntimeError(f"variant {name!r}: l1.cu no longer holds {old!r}")
-        body = body.replace(old, new)
-    digest = hashlib.sha256(
-        body.encode() + (_build.CSRC / "hopper.cuh").read_bytes()
-        + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"libl1_probe_{digest}.so"
-    if not out.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-            shutil.copy(_build.CSRC / "hopper.cuh", tmp)
-            Path(tmp, "l1.cu").write_text(body)
-            part = out.with_suffix(f".{os.getpid()}.tmp")
-            done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(part),
-                                   str(Path(tmp, "l1.cu"))], capture_output=True, text=True)
-            if done.returncode != 0:
-                raise RuntimeError(f"variant {name!r} does not build:\n{done.stdout}{done.stderr}")
-            os.replace(part, out)
-    return out
+# --select-only: l1.cu's two launches a group of tiles, taken apart by
+# editing the source
+SCORES_LAUNCH = "    int e = launch_scores<T>("
+SELECT_LAUNCH = "    if (e == 0)\n      e = sel::launch_select("
+NO_SELECT = (SELECT_LAUNCH, "    if (false)\n      e = sel::launch_select(")
+STORE = "          if (row0 + lane + 32 * j < n_rows) dst[32 * j] = acc[i][j];"
+SELECT_VARIANTS = {
+    "entry": [],
+    "scores alone": [NO_SELECT],
+    "stream alone": [NO_SELECT, (STORE, "          if (acc[i][j] == 1.0e30f) dst[32 * j] = acc[i][j];")],
+    "select alone": [(SCORES_LAUNCH, "    int e = 0;\n    if (false) e = launch_scores<T>(")],
+}
+#: --select-only's timed cases: (name, rows, k, rows of the corpus, queries)
+SELECT_TIMED = [
+    *((f"{dt} k{k}", dt, k, 1 << 20, 256) for dt in ("f32", "bf16") for k in (33, 100, 300, 1024)),
+    ("bf16 k256", "bf16", 256, 1 << 20, 256),
+    ("f32 k300, old shape", "f32", 300, 65536, 64),
+    ("bf16 k300, old shape", "bf16", 300, 65536, 64),
+]
+#: the index's caller tile, which exact_tile grows past k 32 (the parent
+#: scanned at it)
+CALLER_TILE = 2048
 
 
 def sass_counts(_build, lib: Path) -> dict:
@@ -140,9 +167,11 @@ def sass_counts(_build, lib: Path) -> dict:
     name = None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
-        if m:  # the scan's two kernels; the reciprocal's check is not counted
+        if m:  # the scan's kernels (lists; scores); the reciprocal's check is not counted
             fn = m.group(1)
-            name = "f32" if "l1_kernelIfE" in fn else "bf16" if "l1_kernelItE" in fn else None
+            kind = " scores" if "Lb1E" in fn else ""
+            name = ("f32" + kind if "l1_kernelIf" in fn else "bf16" + kind
+                    if "l1_kernelIt" in fn else None)
             if name is not None:
                 out[name] = {"fadd_abs": 0, "fadd_other": 0, "lds": 0, "instructions": 0}
             continue
@@ -173,14 +202,231 @@ def clock_under_load(fn, launches: int = 200) -> str:
     return out
 
 
+def build_parent(_build, parent: Path) -> Path:
+    """The parent tree's csrc/scan.cu (with its own headers), built with
+    this tree's nvcc flags into this tree's build directory."""
+    csrc = parent / "vectorlite_tpu_torch" / "csrc"
+    digest = hashlib.sha256(
+        b"".join(p.read_bytes() for p in sorted((*csrc.glob("*.cuh"), csrc / "scan.cu")))
+        + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"libscan_parent_{digest}.so"
+    if not out.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        part = out.with_suffix(f".{os.getpid()}.tmp")
+        done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(part),
+                               str(csrc / "scan.cu")], capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"the parent's scan.cu does not build:\n{done.stdout}{done.stderr}")
+        os.replace(part, out)
+    return out
+
+
+def select_inputs(dev, seed):
+    """--select-only's operands: 2^20 x 384 N(0, 1) f32 rows and their bf16
+    copy, every row valid, 256 N(0, 1) queries (the main-path shape; the
+    old shape takes the first 65,536 rows and 64 queries)."""
+    import chip_smoke as cs
+
+    n, d, b = 1 << 20, cs.D, cs.B
+    g = np.random.default_rng([seed, 17])
+    v = torch.from_numpy(g.standard_normal((n, d), dtype=np.float32)).to(dev)
+    q = torch.from_numpy(g.standard_normal((b, d), dtype=np.float32)).to(dev)
+    return {"f32": v, "bf16": v.to(torch.bfloat16)}, torch.ones(n, dtype=torch.bool,
+                                                                   device=dev), q
+
+
+def select_part(args) -> int:
+    """``--l1-part NAME --l1-lib PATH``: one build (SELECT_VARIANTS, or the
+    parent's scan.cu) in a process of its own, no other build of it
+    loaded: each SELECT_TIMED case timed twice (20 launches each; the
+    parent's CUDA-core lists 2 each); the entry and the parent held
+    against the plain version first, the select alone's first group of
+    lists against the plain lists of the scores it read. Prints a JSON
+    object last."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from vectorlite_tpu_torch.core.metrics import SimilarityMetric as SM
+    from vectorlite_tpu_torch.kernels import _build, scan
+
+    part = args.l1_part
+    lib = ctypes.CDLL(args.l1_lib)
+    if part != "parent":
+        _build._libs["l1"] = lib
+    dev = torch.device("cuda", 0)
+    rows_of, valid_all, q_all = select_inputs(dev, args.seed)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for name, dtype, k, n, b in SELECT_TIMED:
+        rows, valid, q = rows_of[dtype][:n], valid_all[:n], q_all[:b].contiguous()
+        d = rows.shape[1]
+        tile_n = CALLER_TILE if part == "parent" else scan.exact_tile(n, CALLER_TILE, k,
+                                                                       SM.MANHATTAN)
+        res = {"tile": tile_n}
+        if part == "parent":
+            fn = lib.scan_topk_l1
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 3,
+                           *[ctypes.c_int] * 5, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            q_t = q.T.contiguous()
+
+            def run(rows=rows, valid=valid, q_t=q_t, k=k, n=n, b=b, d=d, tile_n=tile_n):
+                out_s = torch.empty((b, n // tile_n, k), dtype=torch.float32, device=dev)
+                out_i = torch.empty((b, n // tile_n, k), dtype=torch.int32, device=dev)
+                if fn(q_t.data_ptr(), rows.data_ptr(), int(rows.dtype == torch.bfloat16),
+                      valid.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), n, d, b, k, tile_n,
+                      stream) != 0:
+                    raise RuntimeError("the parent's scan_topk_l1 did not launch")
+                return out_s, out_i
+        elif part == "select alone":
+            group = scan.select_group_rows(n, b, tile_n)
+            scores = scan.tile_scores(rows[:group], None, None, valid[:group], q,
+                                      SM.MANHATTAN).contiguous()
+            kernel = scan.exact_route(rows.dtype, k, SM.MANHATTAN, tile_n)
+            q_op = scan.l1_query_operand(q, rows.dtype)
+
+            def run(rows=rows, valid=valid, q_op=q_op, scores=scores, kernel=kernel, k=k, n=n,
+                    b=b, d=d, tile_n=tile_n, group=group):
+                out_s = torch.empty((b, n // tile_n, k), dtype=torch.float32, device=dev)
+                out_i = torch.empty((b, n // tile_n, k), dtype=torch.int32, device=dev)
+                kernel.launch(q_op.data_ptr(), rows.data_ptr(), valid.data_ptr(),
+                              scores.data_ptr(), group, out_s.data_ptr(), out_i.data_ptr(), n, d,
+                              b, k, tile_n, stream)
+                return out_s, out_i
+            got = run()
+            torch.cuda.synchronize()
+            tiles_g = group // tile_n
+            want = torch.topk(scores.view(b, tiles_g, tile_n), k + 1, dim=-1)
+            res["max_abs_err"] = cs.compare(
+                f"{name} (select alone, first group)",
+                [x[:, :tiles_g].reshape(-1, k) for x in got],
+                [want.values.reshape(-1, k + 1),
+                 (want.indices + torch.arange(tiles_g, device=dev)[:, None] * tile_n)
+                 .reshape(-1, k + 1)])
+            del got, want
+        else:
+            def run(rows=rows, valid=valid, q=q, k=k, tile_n=tile_n):
+                return scan.tile_topk_cuda(rows, None, None, valid, q, metric=SM.MANHATTAN,
+                                           k_tile=k, tile_n=tile_n)
+        if part in ("entry", "parent"):
+            got = run()
+            torch.cuda.synchronize()
+            want = scan.tile_topk_plain(rows, None, None, valid, q, metric=SM.MANHATTAN,
+                                        k_tile=k + 1, tile_n=tile_n)
+            res["max_abs_err"] = cs.compare(f"{part} {name}", [x.reshape(-1, k) for x in got],
+                                            [x.reshape(-1, k + 1) for x in want])
+            del got, want
+        reps = 2 if part == "parent" else 20
+        res["ms"] = [cs.cuda_time_ms(run, reps), cs.cuda_time_ms(run, reps)]
+        cs.log(f"  {part}: {name} (tile {tile_n}) {' / '.join(f'{t:.4f}' for t in res['ms'])} ms")
+        out[name] = res
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def select_main(args) -> int:
+    """--select-only: the select entries held at small shapes, then timed
+    whole and part by part (and the parent's CUDA-core lists beside
+    them), each build in a process of its own."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from probe_exact_topk import inputs
+    from vectorlite_tpu_torch.core.metrics import SimilarityMetric as SM
+    from vectorlite_tpu_torch.kernels import _build, scan
+
+    card = cs.card_line()
+    _build.build_all(["l1"])
+    _build.load("l1")
+    ptxas = _build.ptxas_report("l1")
+    for line in ptxas:
+        cs.log(f"  l1 ptxas: {line}")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng([args.seed, 16])
+    errs = {}
+    # (rows, D, B, tile, lists): k = tile_n only where the queries and
+    # tiles are few (compare's near-tie loop runs once an id mismatch)
+    for n, d, b, cases in ((8192, 99, 3, ((2048, (33, 64, 100, 300, 2048)), (8192, (300, 8192)))),
+                           (16384, 100, 5, ((2048, (33, 100, 2048)), (16384, (300, 16384)))),
+                           (65536, 384, 256, ((256, (33, 64, 100)), (32768, (33, 100, 300)))),
+                           (16384, 768, 70, ((4096, (33, 100, 300)),)),
+                           (12288, 384, 64, ((384, (33, 100, 300, 384)), (12288, (100, 300))))):
+        rows, _, valid, q = inputs(dev, rng, n, d, b, 2048)
+        for dtype in ("f32", "bf16"):
+            v = rows[dtype][0]
+            for tile_n, ks in cases:
+                for k in ks:
+                    kernel = scan.exact_route(v.dtype, k, SM.MANHATTAN, tile_n)
+                    if not kernel.symbol.startswith("scan_topk_l1_select"):
+                        raise AssertionError(f"k {k}, tile {tile_n}: routed to {kernel.symbol}")
+                    before = kernel.launches
+                    got = scan.tile_topk_cuda(v, None, None, valid, q, metric=SM.MANHATTAN,
+                                              k_tile=k, tile_n=tile_n)
+                    torch.cuda.synchronize()
+                    if kernel.launches != before + 1:
+                        raise AssertionError(f"{kernel.symbol} did not launch")
+                    kw = min(k + 1, tile_n)
+                    want = scan.tile_topk_plain(v, None, None, valid, q, metric=SM.MANHATTAN,
+                                                k_tile=kw, tile_n=tile_n)
+                    err = cs.compare(f"{kernel.symbol} {dtype} {n}x{d} B{b} t{tile_n} k{k}",
+                                     [x.reshape(-1, k) for x in got],
+                                     [x.reshape(-1, kw) for x in want])
+                    errs[dtype] = max(errs.get(dtype, 0.0), err)
+    cs.log(f"  small shapes: both select entries agree (max |score diff| {errs}) [{card}]")
+    if args.check_only:
+        print(card, flush=True)
+        print(json.dumps({"card": card, "ptxas": ptxas, "max_abs_err": errs}), flush=True)
+        return 0
+    from probe_exact_topk import build_source_variant
+
+    with concurrent.futures.ThreadPoolExecutor(len(SELECT_VARIANTS)) as pool:  # one nvcc each
+        built = {part: pool.submit(build_source_variant, _build, "l1", edits)
+                 for part, edits in SELECT_VARIANTS.items() if edits}
+        parent = pool.submit(build_parent, _build, Path(args.parent)) if args.parent else None
+    libs = [("entry", _build._target("l1"))]
+    libs += [(part, path.result()) for part, path in built.items()]
+    if parent is not None:
+        libs = [("parent", parent.result()), *libs, ("parent", parent.result())]
+    out = {}
+    for part, path in libs:
+        done = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--l1-part", part,
+             "--l1-lib", str(path), "--seed", str(args.seed)],
+            capture_output=True, text=True, env={**os.environ, "PYTHONPATH": str(ROOT)})
+        if done.returncode != 0:
+            raise RuntimeError(f"l1 {part}: exit {done.returncode}\n{done.stdout}{done.stderr}")
+        for line in done.stdout.splitlines()[:-1]:
+            cs.log(line)
+        for name, res in json.loads(done.stdout.splitlines()[-1]).items():
+            slot = out.setdefault(name, {})
+            if part in slot:  # the parent's second process
+                slot[part]["ms"] += res["ms"]
+            else:
+                slot[part] = res
+    for name, res in out.items():
+        cs.log(f"  {name}: " + "; ".join(
+            f"{part} (tile {r['tile']}) {' / '.join(f'{t:.4f}' for t in r['ms'])} ms"
+            for part, r in res.items()) + f" [{card}]")
+    print(card, flush=True)
+    print(json.dumps({"card": card, "ptxas": ptxas, "max_abs_err": errs, "ms": out}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--check-only", action="store_true")
+    ap.add_argument("--select-only", action="store_true")
+    ap.add_argument("--parent", help="a git archive of the parent commit, unpacked")
+    ap.add_argument("--l1-part", help=argparse.SUPPRESS)
+    ap.add_argument("--l1-lib", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_l1: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.l1_part:
+        return select_part(args)
+    if args.select_only:
+        return select_main(args)
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from probe_exact_topk import inputs
@@ -189,9 +435,8 @@ def main() -> int:
 
     SM = SimilarityMetric
     card = cs.card_line()
-    _build.build_all(["l1", "scan"])
-    for name in ("l1", "scan"):
-        _build.load(name)
+    _build.build_all(["l1"])
+    _build.load("l1")
     for line in _build.ptxas_report("l1"):
         cs.log(f"  l1 ptxas: {line}")
     stages_fn = _build.load("l1").scan_topk_l1_fadd_stages
@@ -208,7 +453,7 @@ def main() -> int:
     unroll = int(re.search(r"#pragma unroll (\d+)  // the words of a stage",
                            (_build.CSRC / "l1.cu").read_text()).group(1))
     for dtype, c in sass.items():
-        dims = 4 if dtype == "f32" else 8
+        dims = 4 if dtype.startswith("f32") else 8
         triples = 8 * 8 * dims * unroll
         cs.log(f"  l1 sass, {dtype} rows: {c}; one pass of the word loop covers {triples} "
                f"(query, row, dimension) triples (8 x 8 x {dims} x unroll {unroll})")
@@ -259,8 +504,10 @@ def main() -> int:
               flush=True)
         return 0
 
+    from probe_exact_topk import build_source_variant
+
     with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc each
-        built = {name: pool.submit(build_variant, _build, name, edits)
+        built = {name: pool.submit(build_source_variant, _build, "l1", edits)
                  for name, edits in VARIANTS.items()}
     body = _build.load("l1")
     libs = {name: ctypes.CDLL(str(path.result())) for name, path in built.items()}
@@ -280,19 +527,9 @@ def main() -> int:
             return scan.tile_topk_cuda(rows, None, None, valid, q, metric=SM.MANHATTAN,
                                        k_tile=k, tile_n=2048)
 
-        def old(rows=rows, k=k):  # the CUDA-core route
-            saved = scan.L1_MAX_K
-            scan.L1_MAX_K = 0
-            try:
-                return new(rows, k)
-            finally:
-                scan.L1_MAX_K = saved
-
-        o1 = cs.cuda_time_ms(old, 5)
         n1 = cs.cuda_time_ms(new, 20)
         n2 = cs.cuda_time_ms(new, 20)
-        o2 = cs.cuda_time_ms(old, 5)
-        ms = {"new": [n1, n2], "cuda_core": [o1, o2]}
+        ms = {"new": [n1, n2]}
         for variant, lib in libs.items():
             _build._libs["l1"] = lib
             ms[variant] = cs.cuda_time_ms(new, 20)
@@ -302,7 +539,7 @@ def main() -> int:
                f"{ms['clock under load (MHz, W, W)']}")
         out[name] = ms
         cs.log(f"  {name}: FADD stream {n1:.4f} / {n2:.4f} ms ({bound_ms / n1:.1%} of the "
-               f"bound {bound_ms:.4f}), CUDA-core {o1:.4f} / {o2:.4f} ms; "
+               f"bound {bound_ms:.4f}); "
                + ", ".join(f"{var} {t:.4f} ({bound_ms / t:.1%})" for var, t in ms.items()
                            if isinstance(t, float)) + f" [{card}]")
     print(card, flush=True)

@@ -201,8 +201,9 @@ def test_cuda_wrapper_needs_the_card_and_checks_winners(monkeypatch):
 
 
 def test_shared_header_enters_every_cuda_library_key(tmp_path, monkeypatch):
-    """K7/K8 (lanes.cu) and K1-K4 (scan.cu) share scan_kernel.cuh: an
-    edited header must key both libraries anew, and leave host code's."""
+    """K7's merge pass (lanes.cu) and K3 over f32 rows (scan.cu) share
+    scan_kernel.cuh: an edited header must key both libraries anew, and
+    leave host code's."""
     from vectorlite_tpu_torch.kernels import _build
 
     for name in ("scan.cu", "lanes.cu"):
@@ -322,27 +323,86 @@ def fake_card(monkeypatch, launched, *kernels):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("tile_n", [512, 1024])
 def test_merge_wrapper_routes_rows_by_dtype(dtype, tile_n, monkeypatch):
-    """merge_topw_cuda hands bf16 rows to the tensor-core body (the split
-    query operand, no transposed f32 queries, dtype 1) and f32 rows to the
-    CUDA-core body (the transposed f32 queries, no operand, dtype 0);
-    nothing reaches the plain version."""
+    """merge_topw_cuda hands both row dtypes to the tensor-core body, once:
+    bf16 rows with the three bf16 query terms (query_operand, dtype 1), f32
+    rows with the two tf32 terms (query_operand_tf32, dtype 0: 3xTF32),
+    each on a tile its lists can name; nothing reaches the plain version."""
     n, d, b, w = 2048, 100, 5, 3
     rows = torch.zeros((n, d), dtype=torch.bfloat16 if dtype == "bf16" else torch.float32)
     launched = []
     fake_card(monkeypatch, launched, merge.SCAN_MERGE_TOPW)
     monkeypatch.setattr(merge, "merge_topw_plain", lambda *a, **k: launched.append("plain"))
+    ops = []
+    for name in ("query_operand", "query_operand_tf32"):
+        real = getattr(scan_mma, name)
+        monkeypatch.setattr(scan_mma, name,
+                            lambda q, real=real, name=name: ops.append((name, real(q))) or ops[-1][1])
     s, i = merge.merge_topw_cuda(rows, torch.zeros(n), torch.ones(n, dtype=torch.bool),
                                  torch.zeros((b, d)), metric=SimilarityMetric.EUCLIDEAN,
                                  winners=w, tile_n=tile_n)
     assert s.shape == i.shape == (w, b, merge.LANES)
     assert [sym for sym, _ in launched] == ["scan_merge_topw"]
     args = launched[0][1]
-    q_t, q_op, code = args[0], args[2], args[4]
-    if dtype == "bf16":
-        assert q_t is None and isinstance(q_op, int) and code == 1
+    want = "query_operand" if dtype == "bf16" else "query_operand_tf32"
+    assert [name for name, _ in ops] == [want]
+    assert args[0] == ops[0][1].data_ptr() and args[2] == rows.data_ptr()
+    assert args[3] == int(dtype == "bf16")
+    assert args[10:16] == (n, d, b, scan_mma.list_tile(tile_n, w), w, 1)
+    assert len(args) == 17
+
+
+def tf32_topw(values, sqnorms, valid, queries, metric, winners):
+    """K7 over f32 rows on 3xTF32 (csrc/scan_mma.cuh TOPW), emulated: the
+    queries and the rows split into their tf32 hi and lo terms as the
+    wrapper and the kernel split them, hi.hi + hi.lo + lo.hi summed in
+    float64, the kernel's epilogue (cosine by the norms' reciprocals,
+    euclidean clamped, -inf where invalid), then each lane group's top W by
+    (score descending, row ascending), (-inf, row 0) where it runs short:
+    merge_topw_plain's [W, B, 128] form."""
+    qh, ql = (t.double() for t in scan_mma.split_query_tf32(queries))
+    xh, xl = (t.double() for t in scan_mma.split_query_tf32(values))
+    dot = qh @ xh.T + qh @ xl.T + ql @ xh.T
+    qsq = (queries.double() ** 2).sum(-1, keepdim=True)
+    sq = sqnorms.double()[None, :]
+    if metric is SimilarityMetric.COSINE:
+        inv = lambda x: torch.where(x > 0, 1.0 / torch.sqrt(x), torch.zeros_like(x))  # noqa: E731
+        s = dot * inv(qsq) * inv(sq)
+    elif metric is SimilarityMetric.EUCLIDEAN:
+        s = 1.0 / (1.0 + torch.sqrt(torch.clamp(qsq + sq - 2.0 * dot, min=0.0)))
     else:
-        assert isinstance(q_t, int) and q_op is None and code == 0
-    assert args[11:17] == (n, d, b, tile_n, w, 1)
+        s = dot
+    s = torch.where(valid[None, :], s.float(), float("-inf"))
+    b, n = s.shape
+    s, j = stable_topk(s.view(b, n // merge.LANES, merge.LANES).transpose(1, 2), winners)
+    lane = torch.arange(merge.LANES)[None, :, None]
+    rows = torch.where(s == float("-inf"), 0, lane + merge.LANES * j)
+    return s.permute(2, 0, 1), rows.permute(2, 0, 1).to(torch.int32)
+
+
+@pytest.mark.parametrize("shape", ["tied-2048x64-B8", "random-4096x384-B8"])
+@pytest.mark.parametrize("winners", [1, 2, 3])
+@pytest.mark.parametrize("metric", METRICS)
+def test_tf32_topw_emulation_matches_merge_topw_plain(metric, winners, shape, rng):
+    """K7's 3xTF32 form (tf32_topw: the query split and the row split,
+    summed in float64) gives merge_topw_plain's lane-group top W under the
+    1e-5 rule (card_lanes: the plain lists of W + 1, the same -inf
+    pattern, scores within rtol/atol 1e-5, ids equal beyond 1e-5
+    near-ties), on the tied inputs (rows copied inside and across lane
+    groups, 10% invalid, a lane group with one live row) and on N(0, 1)
+    rows of 384 dimensions scaled into [0.5, 2] with 5% invalid."""
+    if shape.startswith("tied"):
+        _, _, (v, sq, valid, q) = inputs(rng)
+    else:
+        n, d, b = 4096, 384, 8
+        v = torch.from_numpy((rng.normal(size=(n, d)) * rng.uniform(0.5, 2.0, (n, 1)))
+                             .astype(np.float32))
+        valid = torch.from_numpy(rng.random(n) > 0.05)
+        q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+        sq = (v * v).sum(-1)
+    m = SimilarityMetric[metric]
+    got = tf32_topw(v, sq, valid, q, m, winners)
+    card_lanes(got, merge.merge_topw_plain(v, sq, valid, q, metric=m, winners=winners + 1),
+               winners)
 
 
 @pytest.mark.parametrize("change, error", [
@@ -392,15 +452,37 @@ def test_fold_probe_wrapper_launches_the_tensor_core_body(mode, monkeypatch):
 # ---------------------------------------------------------- on the card
 
 
-def card_lanes(got, want, winners):
+def card_lanes(got, want, winners, exact=None):
     """chip_smoke.py's rule for lane lists: the kernel's lists of W against
     the plain lists of W + 1, the same -inf pattern, finite scores within
-    rtol/atol 1e-5, ids equal except among scores within 1e-5."""
+    rtol/atol 1e-5, ids equal except among scores within 1e-5. With
+    ``exact`` ([B, N] float64 dot products of the queries and rows, -inf
+    where invalid: f32 rows under the dot metric) the scores are held to
+    float64 instead of to the plain f32 product: a lane group with few live
+    rows lists dots near 0, where two f32 orders of the same sum differ by
+    more than 1e-5 at D 768 (3.09e-5 at a dot of 1.67 between 3xTF32 and
+    the plain product, PERF.md), and the plain product itself lies up to
+    1.3e-4 from float64 there. Each kernel score must lie within rtol/atol
+    1e-5 of its row's float64 dot plus the plain version's own largest
+    distance from float64 in the same lists."""
     ks, ki = (x.cpu() for x in got)
     ps, pi = (x.cpu() for x in want)
     assert torch.equal(ks == float("-inf"), ps[:winners] == float("-inf"))
     fin = ks != float("-inf")
-    torch.testing.assert_close(ks[fin], ps[:winners][fin], rtol=1e-5, atol=1e-5)
+    if exact is None:
+        torch.testing.assert_close(ks[fin], ps[:winners][fin], rtol=1e-5, atol=1e-5)
+    else:
+        exact = exact.cpu()
+        b = ks.shape[1]
+
+        def f64_of(i_):  # [W, B, 128] rows -> their float64 dots
+            return exact.gather(1, i_.permute(1, 0, 2).reshape(b, -1).long()).view(
+                b, winners, -1).permute(1, 0, 2)
+        dk, dp = f64_of(ki), f64_of(pi[:winners])
+        slack = (ps[:winners].double() - dp)[fin].abs().max().item()
+        err = (ks.double() - dk)[fin].abs()
+        assert bool((err <= 1e-5 + 1e-5 * dk[fin].abs() + slack).all()), (
+            err.max().item(), slack)
     for w, bq, lane in torch.nonzero(ki != pi[:winners]).tolist():
         col = ps[:, bq, lane]
         near = (col - col[w]).abs() <= 1e-5 * max(1.0, abs(float(col[w])))
@@ -415,13 +497,16 @@ CARD_SHAPES = {"8192x100-B5": (8192, 100, 5, 2048), "8192x768-B70": (8192, 768, 
 @pytest.mark.parametrize("shape", ["2048x64-B8", *CARD_SHAPES])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_merge_kernel_matches_plain_on_the_card(dtype, shape, rng):
-    """K7 on both routes (f32 rows: the CUDA-core body; bf16 rows: the
-    tensor-core body, with TMA at D 64, the plain-load staging at D 100,
-    whose 200-byte rows TMA refuses, and the query terms riding each stage
-    at D 768, too wide to stay in shared memory, over two query blocks),
-    W 1-3, three metrics. The tied inputs' ids agree exactly; the other
-    shapes' (random rows, 5% invalid, one lane group with one live row)
-    beyond 1e-5 near-ties."""
+    """K7 on the tensor-core body over both row dtypes (bf16 rows: three
+    bf16 query terms; f32 rows: 3xTF32), with TMA at D 64, the plain-load
+    staging at D 100 (whose 200-byte bf16 rows TMA refuses; f32 rows load
+    their A words from device memory only where D is not a multiple of 4),
+    and at D 768 (bf16: the query terms too wide to stay in shared memory
+    ride each stage) over two query blocks, W 1-3, three metrics. The tied
+    inputs' ids agree exactly over bf16 rows; f32 rows, and the other
+    shapes (random rows, 5% invalid, one lane group with one live row),
+    hold the 1e-5 rule: scores within rtol/atol 1e-5, ids equal beyond
+    1e-5 near-ties."""
     if not torch.cuda.is_available():
         pytest.skip("K7 is CUDA C++ and runs only on an NVIDIA card")
     dev = torch.device("cuda")
@@ -441,10 +526,15 @@ def test_merge_kernel_matches_plain_on_the_card(dtype, shape, rng):
         for winners in (1, 2, 3):
             kw = dict(metric=SimilarityMetric[metric])
             got = merge.merge_topw_cuda(*args, tile_n=tile_n, winners=winners, **kw)
-            if shape == "2048x64-B8":
+            if shape == "2048x64-B8" and dtype == "bf16":
                 want = merge.merge_topw_plain(*args, winners=winners, **kw)
                 assert torch.equal(got[1], want[1])
                 torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
             else:
+                exact = None
+                if dtype == "f32" and metric == "DOT_PRODUCT":
+                    v, _, valid, q = args
+                    exact = torch.where(valid[None, :], q.double() @ v.double().T,
+                                        float("-inf"))
                 card_lanes(got, merge.merge_topw_plain(*args, winners=winners + 1, **kw),
-                           winners)
+                           winners, exact)

@@ -192,9 +192,37 @@ def test_l1_matches_pallas(dtype, rng):
     check(jout, tout)
 
 
+@pytest.mark.parametrize("k", [33, 100, 300])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_l1_select_k_matches_pallas(dtype, k, rng):
+    """Manhattan past k 32 (the FADD stream's scores into the radix select
+    on the card): the JAX K4 in interpret mode at tile_n 256 (each tile's
+    top min(k, 256), merged) against the port at the same tile_n, which
+    grows its tile past k 32 (exact_tile: all 4,096 rows here, one list of
+    k). 10% invalid rows; rows 5, 600, 1000 and 3000 one row, the nearest
+    to query 0 (ties to the lowest row); every 7th row a copy of row 3
+    (ties across tiles). Ids exact, scores within 1e-5."""
+    n, d, b = 4096, 40, 6
+    values, valid = corpus(rng, n, d, invalid_frac=0.1)
+    values[::7] = values[3]
+    for row in (5, 600, 1000, 3000):
+        values[row] = values[0] + 0.01
+    valid[[5, 600, 1000, 3000]] = True
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    q[0] = values[0] + 0.01
+    (jv, _, jvalid), (tv, _, tvalid) = both(values, valid, dtype)
+    assert scan.exact_tile(n, 256, k, SimilarityMetric.MANHATTAN) == n
+    assert scan.exact_route(tv.dtype, k, SimilarityMetric.MANHATTAN, n).symbol == (
+        "scan_topk_l1_select" + ("_bf16" if dtype == "bf16" else ""))
+    jout = jl1(jv, jvalid, jnp.asarray(q), k=k, tile_n=256, interpret=True)
+    tout = scan.pallas_search_topk_l1(tv, tvalid, torch.from_numpy(q), k=k, tile_n=256)
+    assert list(tout[1][0][:4].numpy()) == [5, 600, 1000, 3000]
+    check(jout, tout)
+
+
 def test_l1_tie_break_and_large_k(rng):
-    """Equal rows come back lowest row first; k above the tile and above
-    the shared-list bound keeps the reference's order."""
+    """Equal rows come back lowest row first; k above the tile (and past
+    the FADD stream's lists) keeps the reference's order."""
     n, d, b = 1024, 16, 4
     values, valid = corpus(rng, n, d)
     for row in (5, 600, 1000):
@@ -969,13 +997,17 @@ def test_select_model_matches_tile_topk_plain(k, tile_n, rng):
     tile_topk_plain on tie-heavy scores (9 values a query, every tie broken
     toward the lowest row), 10% invalid rows, an all-invalid tile, k_tile
     = tile_n and tile_n - 1, tiles not a multiple of 1,024 rows (a warp's
-    last rows past the tile): scores and rows exactly equal."""
+    last rows past the tile): scores and rows exactly equal. Manhattan's
+    scores (1 / (1 + L1) in (0, 1], a handful of values a query: K4 past k
+    32 selects them) and euclidean's are positive, the dot products of
+    both signs."""
     n, b = 3 * tile_n, 3
     v, valid = tie_heavy_rows(rng, n, 0.1, dead_tile=1, tile_n=tile_n)
     q = torch.ones((b, 4))
     q[2] = torch.tensor([1.0, -2.0, 0.5, 0.0])
     sq = (v * v).sum(-1)
-    for metric in (SimilarityMetric.DOT_PRODUCT, SimilarityMetric.EUCLIDEAN):
+    for metric in (SimilarityMetric.DOT_PRODUCT, SimilarityMetric.EUCLIDEAN,
+                   SimilarityMetric.MANHATTAN):
         want_s, want_i = scan.tile_topk_plain(v, None, sq, valid, q, metric=metric, k_tile=k,
                                               tile_n=tile_n)
         s = scan.tile_scores(v, None, sq, valid, q, metric).numpy()
@@ -1009,11 +1041,16 @@ def test_select_model_orders_signed_zeros_and_random_scores(rng):
 def test_exact_tile_grows_with_k(k, tile_n, want, rng):
     """exact_tile at 2^20 rows: tile_n up to k 256; past it the largest
     multiple of tile_n dividing the rows, at most 32,768 (a tile past that
-    stays as the caller gave it); manhattan keeps
-    the caller's tile. At test size the grown tile gives _exact the same
-    merged ids and scores as the caller's tile."""
+    stays as the caller gave it); manhattan (K4) grows the same way past
+    k 32, and keeps the caller's tile up to it. At test size the grown
+    tile gives _exact the same merged ids and scores as the caller's
+    tile."""
     assert scan.exact_tile(1 << 20, tile_n, k) == want
-    assert scan.exact_tile(1 << 20, tile_n, k, SimilarityMetric.MANHATTAN) == tile_n
+    M = SimilarityMetric.MANHATTAN
+    assert scan.exact_tile(1 << 20, tile_n, k, M) == (
+        tile_n if tile_n > scan.SELECT_MAX_TILE else scan.SELECT_MAX_TILE)
+    assert scan.exact_tile(1 << 20, tile_n, 32, M) == tile_n
+    assert scan.exact_tile(1 << 20, 2048, 33, M) == scan.SELECT_MAX_TILE
     assert scan.exact_tile(3 * tile_n, tile_n, k) == (
         tile_n if k <= 256 or tile_n > scan.WIDE_MAX_TILE else 3 * tile_n)
     if k <= 256 or k > 2048 or tile_n > 4096:
@@ -1043,9 +1080,10 @@ def test_exact_route(dtype, k):
     tiles of at most 32,768 rows), beyond it (and past 32,768-row tiles) its
     scores into the radix select (csrc/select.cu); no K1 / K2 case reaches
     the CUDA-core body. Manhattan
-    (K4): up to k 32 the FADD stream over f32 and bf16 rows (tiles of a
-    multiple of 256 rows), beyond it (and for tiles of 384 rows) the
-    CUDA-core scan_topk_l1; over int8 rows the wrapper refuses it."""
+    (K4): up to k 32 the FADD stream's lists over f32 and bf16 rows (tiles
+    of a multiple of 256 rows), beyond it (and for tiles of 384 rows) its
+    scores into the radix select (scan_topk_l1_select / _bf16); over int8
+    rows the route and the wrapper refuse it."""
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
     want = tensor_core_entry(dtype, k)
     select = {"f32": scan.SCAN_TOPK_SELECT_TF32, "bf16": scan.SCAN_TOPK_SELECT_BF16,
@@ -1058,14 +1096,18 @@ def test_exact_route(dtype, k):
             assert got.symbol == (select.symbol if listed else want)
             assert (got is select) == (k > 256 or listed)
             assert got.library != "scan"
-    l1 = {"f32": "scan_topk_l1_fadd", "bf16": "scan_topk_l1_fadd_bf16"}.get(dtype)
-    want_l1 = l1 if k <= 32 and l1 else "scan_topk_l1"
     MANHATTAN = SimilarityMetric.MANHATTAN
-    assert scan.exact_route(dt, k, MANHATTAN).symbol == want_l1
-    for tile_n in (256, 2048, 65536):
-        assert scan.exact_route(dt, k, MANHATTAN, tile_n).symbol == want_l1
-    assert scan.exact_route(dt, k, MANHATTAN, 384) is scan.SCAN_TOPK_L1
+    if dtype != "int8":
+        tail = "_bf16" if dtype == "bf16" else ""
+        want_l1 = ("scan_topk_l1_fadd" if k <= 32 else "scan_topk_l1_select") + tail
+        assert scan.exact_route(dt, k, MANHATTAN).symbol == want_l1
+        for tile_n in (256, 2048, 65536):
+            assert scan.exact_route(dt, k, MANHATTAN, tile_n).symbol == want_l1
+        assert scan.exact_route(dt, k, MANHATTAN, 384).symbol == "scan_topk_l1_select" + tail
+        assert scan.exact_route(dt, k, MANHATTAN).library == "l1"
     if dtype == "int8":
+        with pytest.raises(ValueError, match="manhattan"):
+            scan.exact_route(dt, k, MANHATTAN)
         rows, scales = quantize_rows_int8(torch.ones((512, 8)))
         with pytest.raises(ValueError, match="manhattan"):
             scan.tile_topk_cuda(rows, scales, torch.ones(512), torch.ones(512, dtype=torch.bool),
@@ -1149,15 +1191,17 @@ def test_select_group_rows_bounds_the_scratch(b, tile_n, want_tiles):
 @pytest.mark.parametrize("k", [1, 16, 32, 33, 300])
 def test_l1_wrapper_routes_rows_by_dtype_and_k(dtype, k, monkeypatch):
     """Manhattan: tile_topk_cuda launches the kernel exact_route names,
-    once: up to k 32 the FADD stream's entry for the rows' dtype with K4's
-    query image (l1_query_operand), the rows, the validity and the outputs;
-    beyond it the CUDA-core scan_topk_l1 with the transposed queries and a
-    dtype code. A fake card lets the host side run here."""
+    once, with K4's query image (l1_query_operand), the rows and the
+    validity: up to k 32 the FADD stream's entry for the rows' dtype and
+    the outputs; beyond it the select entry, which also takes a [B, group
+    rows] f32 scratch and the group's rows (select_group_rows). A fake
+    card lets the host side run here."""
     n, d, b, tile_n = 1024, 100, 5, 512
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
     rows = torch.zeros((n, d), dtype=dt)
     launched = []
-    for kern in (scan.SCAN_TOPK_L1, scan.SCAN_TOPK_L1_FADD, scan.SCAN_TOPK_L1_FADD_BF16):
+    for kern in (scan.SCAN_TOPK_L1_SELECT, scan.SCAN_TOPK_L1_SELECT_BF16,
+                 scan.SCAN_TOPK_L1_FADD, scan.SCAN_TOPK_L1_FADD_BF16):
         monkeypatch.setattr(kern, "launch",
                             lambda *a, kern=kern: launched.append((kern.symbol, a)))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
@@ -1172,17 +1216,21 @@ def test_l1_wrapper_routes_rows_by_dtype_and_k(dtype, k, monkeypatch):
                                torch.zeros((b, d)), metric=SimilarityMetric.MANHATTAN,
                                k_tile=k, tile_n=tile_n)
     assert s.shape == i.shape == (b, n // tile_n, k)
-    fadd = {"f32": "scan_topk_l1_fadd", "bf16": "scan_topk_l1_fadd_bf16"}[dtype]
-    assert [sym for sym, _ in launched] == [fadd if k <= 32 else "scan_topk_l1"]
+    tail = "_bf16" if dtype == "bf16" else ""
+    want = ("scan_topk_l1_fadd" if k <= 32 else "scan_topk_l1_select") + tail
+    assert [sym for sym, _ in launched] == [want]
     args = launched[0][1]
+    assert len(images) == 1
+    assert images[0].shape == (1, 2 if dtype == "bf16" else 4, 64, 64 if dtype == "bf16" else 32)
+    assert args[0] == images[0].data_ptr() and args[1] == rows.data_ptr()
     if k <= 32:
-        assert len(images) == 1
-        assert images[0].shape == (1, 2 if dtype == "bf16" else 4, 64, 64 if dtype == "bf16" else 32)
-        assert args[0] == images[0].data_ptr() and args[1] == rows.data_ptr()
         assert args[5:10] == (n, d, b, k, tile_n)
+        assert len(args) == 11
     else:
-        assert images == []
-        assert args[2] == int(dtype == "bf16") and args[6:11] == (n, d, b, k, tile_n)
+        group = scan.select_group_rows(n, b, tile_n)
+        assert group == n  # 256 MiB of scratch holds both tiles at B 5
+        assert args[4] == group and args[7:12] == (n, d, b, k, tile_n)
+        assert len(args) == 13
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -1638,8 +1686,8 @@ def check_block_kernel(dtype, shape, winners):
 #: rows (TMA refuses them: the plain-load staging), D 768 (the queries ride
 #: the stages) over two query blocks in 4,096-row tiles, 256-row tiles
 #: (one chunk a tile), 384-row tiles (not a multiple of the FADD stream's
-#: 256-row chunk: the CUDA-core body at every k), and 2^19 rows at the main
-#: path's B and tile
+#: 256-row chunk: its scores into the radix select at every k, the last
+#: chunk of a group ragged), and 2^19 rows at the main path's B and tile
 L1_SHAPES = [(65536, 384, 64, 2048), (8192, 100, 5, 2048), (8192, 99, 3, 2048),
              (16384, 768, 70, 4096), (16384, 384, 64, 256), (12288, 384, 64, 384),
              (1 << 19, 384, 256, 2048)]
@@ -1650,15 +1698,17 @@ L1_IDS = ["65536x384-B64", "8192x100-B5", "8192x99-B3", "16384x768-B70-t4096",
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", L1_SHAPES, ids=L1_IDS)
 @pytest.mark.parametrize("dtype, k", [
-    ("f32", 1), ("f32", 16), ("f32", 32), ("f32", 64), ("f32", 300), ("bf16", 1), ("bf16", 16),
-    ("bf16", 32),
-], ids=["f32-k1", "f32-k16", "f32-k32", "f32-k64", "f32-k300", "bf16-k1", "bf16-k16",
-        "bf16-k32"])
+    ("f32", 1), ("f32", 16), ("f32", 32), ("f32", 33), ("f32", 64), ("f32", 100), ("f32", 300),
+    ("f32", 1024), ("bf16", 1), ("bf16", 16), ("bf16", 32), ("bf16", 33), ("bf16", 256),
+    ("bf16", 300), ("bf16", 1024),
+], ids=["f32-k1", "f32-k16", "f32-k32", "f32-k33", "f32-k64", "f32-k100", "f32-k300",
+        "f32-k1024", "bf16-k1", "bf16-k16", "bf16-k32", "bf16-k33", "bf16-k256", "bf16-k300",
+        "bf16-k1024"])
 def test_l1_kernel_matches_plain_on_the_card(dtype, k, shape):
     """K4, Manhattan 1 / (1 + sum |q - v|), on the route exact_route names
-    (k <= 32 over tiles of a multiple of 256 rows: the FADD stream,
-    scan_topk_l1_fadd / _bf16; else the CUDA-core scan_topk_l1, its lists
-    in shared memory up to k 256, in the output beyond), launched once:
+    (k <= 32 over tiles of a multiple of 256 rows: the FADD stream's lists,
+    scan_topk_l1_fadd / _bf16; else its scores into the radix select,
+    scan_topk_l1_select / _bf16), launched once at the caller's tile:
     every tile's list held against
     tile_topk_plain's under the 1e-5 rule, with 5% invalid rows, rows 7, 300
     and 900 one row (ties to the lowest), query 0 near them and tile 1
@@ -1672,8 +1722,9 @@ def test_l1_kernel_matches_plain_on_the_card(dtype, k, shape):
     q[0] = rows["f32"][0][7] + 0.5 * q[0]
     M = SimilarityMetric.MANHATTAN
     kernel = scan.exact_route(v.dtype, k, M, tile_n)
-    assert kernel.symbol == ({"f32": "scan_topk_l1_fadd", "bf16": "scan_topk_l1_fadd_bf16"}[dtype]
-                             if k <= 32 and tile_n % 256 == 0 else "scan_topk_l1")
+    fadd = k <= 32 and tile_n % 256 == 0
+    assert kernel.symbol == "scan_topk_l1_" + ("fadd" if fadd else "select") + (
+        "_bf16" if dtype == "bf16" else "")
     k_tile = min(k, tile_n)
     before = kernel.launches
     s_, i_ = scan.tile_topk_cuda(v, None, None, valid, q, metric=M, k_tile=k_tile, tile_n=tile_n)

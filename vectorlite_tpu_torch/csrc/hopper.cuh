@@ -264,6 +264,19 @@ __device__ __forceinline__ void wgmma_tf32_rs(Acc<64>& d, const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// The units (a tile or a chunk of rows, times the query blocks) a block
+// of a walking launch takes: the fewest that keep every block's run
+// within one wave of the card's SMs at one block an SM (1 where the count
+// of SMs cannot be read).
+inline int one_wave_run(long long units) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      sms <= 0)
+    return 1;
+  return static_cast<int>((units + sms - 1) / sms);
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave,

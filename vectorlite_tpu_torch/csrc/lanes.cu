@@ -8,7 +8,7 @@
 //                         CUDA-core body (scan.cu scan_block_topw).
 //   scan_merge_topw       (K7) replaces vectorlite_tpu/kernels/pallas_merge.py:66
 //                         _merge_kernel: each lane group's top W over the
-//                         whole corpus.
+//                         whole corpus, over bf16 rows and over f32 rows.
 //   scan_fold_probe       (K8) replaces bench/decompose.py:68 (mk_kernel's
 //                         kern): the contraction alone, or with a lane-group
 //                         fold.
@@ -16,16 +16,19 @@
 // Bounds at their shape (2^20 x 384 rows, B = 256): one bf16 pass is 0.21
 // ms of tensor work, the bf16 rows' 805 MB 0.24 ms at 3.35 TB/s; f32
 // queries against bf16 rows take three bf16 passes, 0.63 ms; against int8
-// rows three int8 passes, 0.31 ms, and the rows are 403 MB (0.12 ms).
+// rows three int8 passes, 0.31 ms, and the rows are 403 MB (0.12 ms); K7
+// over f32 rows, the exact f32 dot the reference takes, three tf32 passes
+// (3xTF32), 1.25 ms, its rows' 1.61 GB 0.48 ms.
 //
 // The tensor-core body (scan_mma.cuh): the f32 queries split into three
-// bf16 or int8 terms, wgmma over TMA-staged row tiles, and each thread's
-// (query, lane group) lists in registers, updated on the accumulators
-// chunk after chunk. K3 blocks walk runs of consecutive tiles and write
-// each tile's lists in K3's own [B, T, W*128] layout. K7 over f32 rows is
-// routed by its dtype to the CUDA-core body of scan_kernel.cuh (staged f32
-// FMA, the lists in shared memory, [W][64][128] a block, one block an SM
-// at W >= 2), whose exactness f32 rows need. The TPU kernel of K7 carries
+// bf16 or int8 terms (two tf32 terms against f32 rows, whose words split
+// into hi and lo in registers), wgmma over TMA-staged row tiles, and each
+// thread's (query, lane group) lists in registers, updated on the
+// accumulators chunk after chunk. K3 blocks walk runs of consecutive tiles
+// and write each tile's lists in K3's own [B, T, W*128] layout. K7 over
+// f32 rows is held to the 1e-5 rule (scores within rtol/atol 1e-5, ids
+// equal beyond 1e-5 near-ties), as K1 over f32 rows is on the same
+// 3xTF32 contraction. The TPU kernel of K7 carries
 // its per-lane-group state across a sequential grid; here a block owns (64
 // queries, one tile), writes its lists as a partial, and a second pass
 // (merge_partials) merges the partials in tile order. K8 is the same block
@@ -36,7 +39,7 @@
 // Each C entry launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
-#include "scan_kernel.cuh"
+#include "scan_kernel.cuh"  // merge_partials: LANE_GROUPS, MAX_WINNERS, lane_insert
 #include "scan_mma.cuh"
 
 namespace {
@@ -112,31 +115,23 @@ int scan_block_topw_bf16(const void* q_img, const void* qsq, const void* values,
 }
 
 // K7: the tiles' lists into part_s/part_i [n / tile_n, B, W*128], then
-// their merge into out_s/out_i [W, B, 128]. dtype 1 (bfloat16 rows): the
-// tensor-core body with the split queries q_img (kernels/scan_mma.py
-// query_operand); dtype 0 (float32 rows): the CUDA-core body with the
-// transposed f32 queries q_t.
-int scan_merge_topw(const void* q_t, const void* qsq, const void* q_img,
-                    const void* values, int dtype, const void* sqnorms,
-                    const void* valid, void* part_s, void* part_i, void* out_s,
-                    void* out_i, int n, int d, int b, int tile_n, int winners,
+// their merge into out_s/out_i [W, B, 128], on the tensor-core body.
+// dtype 1 (bfloat16 rows): the three bf16 query terms q_img
+// (kernels/scan_mma.py query_operand); dtype 0 (float32 rows): the two
+// tf32 query terms (query_operand_tf32), 3xTF32.
+int scan_merge_topw(const void* q_img, const void* qsq, const void* values, int dtype,
+                    const void* sqnorms, const void* valid, void* part_s, void* part_i,
+                    void* out_s, void* out_i, int n, int d, int b, int tile_n, int winners,
                     int metric, void* stream) {
-  if (winners < 1 || winners > MAX_WINNERS)
+  if (winners < 1 || winners > MAX_WINNERS || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  int err;
-  if (dtype == 1)
-    err = scan_mma::launch_w<uint16_t, scan_mma::TOPW>(
-        winners, values, q_img, nullptr, static_cast<const float*>(qsq), nullptr,
-        static_cast<const float*>(sqnorms), static_cast<const uint8_t*>(valid),
-        static_cast<float*>(part_s), static_cast<int*>(part_i), n, d, b, tile_n,
-        metric, 0, st);
-  else
-    err = launch_sel<float, false, LANE_TOPW, false>(
-        static_cast<const float*>(q_t), static_cast<const float*>(qsq), values,
-        nullptr, static_cast<const float*>(sqnorms),
-        static_cast<const uint8_t*>(valid), static_cast<float*>(part_s),
-        static_cast<int*>(part_i), n, d, b, 0, tile_n, winners, metric, st);
+  auto f = dtype == 1 ? scan_mma::launch_w<uint16_t, scan_mma::TOPW>
+                      : scan_mma::launch_w<float, scan_mma::TOPW>;
+  const int err = f(winners, values, q_img, nullptr, static_cast<const float*>(qsq), nullptr,
+                    static_cast<const float*>(sqnorms), static_cast<const uint8_t*>(valid),
+                    static_cast<float*>(part_s), static_cast<int*>(part_i), n, d, b, tile_n,
+                    metric, 0, st);
   if (err != 0) return err;
   const int threads = b * LANE_GROUPS;
   merge_partials<<<(threads + THREADS - 1) / THREADS, THREADS, 0, st>>>(

@@ -2,14 +2,16 @@
 // int8 or f32 rows on wgmma, with a per-(query, lane group) selection that
 // lives on the accumulators, or a per-query top-k (TOPK and WIDE, below).
 // csrc/lanes.cu runs on it K3 over bf16 and int8 rows
-// (scan_block_topw_bf16, scan_block_topw_s8), K7 over bf16 rows
-// (scan_merge_topw) and K8 (scan_fold_probe); csrc/exact.cu K1 over f32 and
-// bf16 rows (scan_topk_exact_tf32, scan_topk_exact_bf16) and K2
-// (scan_topk_exact_s8) at k <= 32; csrc/wide.cu the same three at 32 < k
-// <= 256 (scan_topk_wide_tf32, _bf16, _s8); csrc/select.cu the scores of
-// the same three past k 256 or tiles of 32,768 rows (SCORES, below;
-// scan_topk_select_tf32, _bf16, _s8, whose radix select lives there). The CUDA-core body of scan_kernel.cuh keeps K4 at k > 32
-// (csrc/l1.cu serves k <= 32), and K3 and K7 over f32 rows.
+// (scan_block_topw_bf16, scan_block_topw_s8), K7 over bf16 and f32 rows
+// (scan_merge_topw; f32 rows on 3xTF32, below) and K8 (scan_fold_probe);
+// csrc/exact.cu K1 over f32 and bf16 rows (scan_topk_exact_tf32,
+// scan_topk_exact_bf16) and K2 (scan_topk_exact_s8) at k <= 32;
+// csrc/wide.cu the same three at 32 < k <= 256 (scan_topk_wide_tf32,
+// _bf16, _s8); csrc/select.cu the scores of the same three past k 256 or
+// tiles of 32,768 rows (SCORES, below; scan_topk_select_tf32, _bf16, _s8,
+// whose radix select lives in select.cuh). The CUDA-core body of
+// scan_kernel.cuh keeps K3 over f32 rows alone; K4 runs on csrc/l1.cu's
+// FADD stream (Manhattan has no matrix-product form).
 //
 // Bounds at the headline shape (2^20 x 384 rows, B = 256). bf16 rows: one
 // bf16 pass is 2 B N D = 206 GFLOP, 0.21 ms at 989 TFLOP/s, and the rows'
@@ -49,7 +51,7 @@
 // terms within +-64) leave s1 2^-15, ~1.4e-5 (rms): above that rule for
 // scores near 0.
 //
-// Precision, f32 rows (3xTF32, K1). The wrapper splits each f32 query into
+// Precision, f32 rows (3xTF32: K1, K7). The wrapper splits each f32 query into
 // two tf32 terms, hi = rna(q) and lo = rna(q - hi) (kernels/scan_mma.py
 // split_query_tf32; rna: round to nearest, ties away, to 10 mantissa bits,
 // the low 13 bits zeroed: what cvt.rna.tf32.f32 gives), and the kernel
@@ -183,7 +185,7 @@
 // (F_WALK with tile_n = CHUNK) so that a launch over one group of select
 // tiles still fills the card.
 //
-// f32 rows (TOPK, WIDE and SCORES). A stage cannot carry the query terms a warpgroup
+// f32 rows (TOPK, WIDE, SCORES and TOPW). A stage cannot carry the query terms a warpgroup
 // as over bf16 rows: two tf32 terms of 64 queries are 192 KB at D 384, and
 // streamed per warpgroup they would double the L2 reads of the terms. So
 // one ring serves both warpgroups: a stage holds the slice's two query
@@ -197,7 +199,13 @@
 // A from registers: the rows' split costs no shared-memory traffic, and
 // the tensor cores read only the query terms from shared memory. Over
 // rows TMA refuses (D not a multiple of 4) the words come from device
-// memory instead.
+// memory instead. TOPW over f32 rows (K7) keeps its lists in registers
+// as over bf16 rows, beside the two accumulator sets, the large term's
+// slice sums (HiLo, below: a lane group with few live rows lists dots near
+// 0, where the tensor cores' truncating accumulation over a chunk's 48-96
+// k-steps would leave them farther from float64 than the plain f32
+// product's) and the A words of a k-step (the registers ptxas reports for
+// W 1-3 stand in PERF.md).
 //
 // Numbers: f32 only in the epilogue, IEEE division and sqrt, no fast math;
 // cosine multiplies by the norms' reciprocals (score_of).
@@ -280,15 +288,15 @@ struct Rows<float> {
 };
 
 // SHARED: one ring serves both warpgroups, a stage holding the slice's
-// query terms once and each warpgroup's 64 rows (f32 rows, and every row
+// query terms once and each warpgroup's 64 rows (f32 rows in every mode, and every row
 // type in the WIDE mode, whose lists leave no room for resident terms, and
 // in SCORES, which sums a slice at a time); else each warpgroup has a ring
 // of its own. SUMS: the large term is summed a slice at a time (HiLo,
-// below).
+// below): SCORES, and TOPW over f32 rows.
 template <typename T, int MODE>
 struct Ring {
   static constexpr bool SHARED = Rows<T>::SPLIT || MODE == WIDE || MODE == SCORES;
-  static constexpr bool SUMS = MODE == SCORES;
+  static constexpr bool SUMS = MODE == SCORES || (Rows<T>::SPLIT && MODE == TOPW);
 };
 
 // A chunk's three passes and their sums, by row type. bf16: the h term's
@@ -299,14 +307,15 @@ struct Ring {
 template <typename T>
 struct Dots;
 // The bf16 and f32 forms' sums: the large term's passes into hi, the
-// others into lo, both f32 on the tensor cores. SCORES also sums hi a
-// slice at a time (slice_start, slice_end, then take_sums at the chunk's
-// end): the tensor cores' f32 accumulation truncates to the running sum's
-// ulp at each k-step, which over a chunk's k-steps (48 at D 384 over f32
-// rows) left a long list's dots near 0 further from float64 than the plain
-// f32 product's; summed in registers (round to nearest) a slice's 4
-// k-steps at a time they lie nearer (scripts/probe_exact_topk.py
-// --precision, PERF.md). The other modes' lists keep scores far from 0.
+// others into lo, both f32 on the tensor cores. SCORES (and TOPW over f32
+// rows) also sums hi a slice at a time (slice_start, slice_end, then
+// take_sums at the chunk's end): the tensor cores' f32 accumulation
+// truncates to the running sum's ulp at each k-step, which over a chunk's
+// k-steps (48 at D 384 over f32 rows) left a long list's dots near 0
+// further from float64 than the plain f32 product's; summed in registers
+// (round to nearest) a slice's 4 k-steps at a time they lie nearer
+// (scripts/probe_exact_topk.py --precision, PERF.md). The TOPK and WIDE
+// modes' lists keep scores far from 0.
 struct HiLo {
   Acc<QN> hi, lo;
   float sums[QN / 2];
@@ -1305,18 +1314,6 @@ lanes_kernel(const __grid_constant__ CUtensorMap rows_map,   // [N, D] (F_TMA)
   }
 }
 
-// Tiles a block walks with F_WALK: the fewest that keep every block's run
-// within one wave of the card's SMs (at one block an SM).
-inline int walk_tiles(int n_tiles, int q_blocks) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      sms <= 0)
-    return 1;
-  const long long units = static_cast<long long>(n_tiles) * q_blocks;
-  return static_cast<int>((units + sms - 1) / sms);
-}
-
 // The shared-memory plan of a launch over rows of width d: whether the
 // query terms stay resident (never with the shared ring) and the ring's
 // stages, the most that fit (0 if not even 2 do).
@@ -1338,7 +1335,7 @@ int plan_stages(int d, bool* resident) {
   return stages < 2 ? 0 : stages;
 }
 
-// One launch over bf16 (T = uint16_t), int8 or (TOPK, WIDE only) f32 rows
+// One launch over bf16 (T = uint16_t), int8 or (TOPK, WIDE, SCORES, TOPW) f32 rows
 // [n, d]: mode and W choose the instantiation; metric is applied with
 // qsq/sqnorms (null for a dot); k is TOPK's and WIDE's list length. Returns
 // the CUDA error of the launch.
@@ -1347,8 +1344,9 @@ int launch(const void* values, const void* q_img, const float* q_scale, const fl
            const float* scales, const float* sqnorms, const uint8_t* valid, float* out_s,
            int* out_i, int n, int d, int b, int tile_n, int metric, int flags,
            cudaStream_t stream, int k = 0) {
-  static_assert(!Rows<T>::SPLIT || MODE == TOPK || MODE == WIDE || MODE == SCORES,
-                "f32 rows have the per-query modes only");
+  static_assert(!Rows<T>::SPLIT || MODE == TOPK || MODE == WIDE || MODE == SCORES ||
+                    MODE == TOPW,
+                "f32 rows have the per-query modes and TOPW only");
   if (n <= 0 || d <= 0 || b <= 0 || tile_n <= 0 || tile_n % CHUNK || n % tile_n)
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (MODE != FIRST && MODE != TOPK && MODE != WIDE && MODE != SCORES && W > 1) {
@@ -1382,7 +1380,9 @@ int launch(const void* values, const void* q_img, const float* q_scale, const fl
   flags |= (tma ? F_TMA : 0) | (resident ? F_RESIDENT : 0);
   const int n_tiles = n / tile_n;
   const int q_blocks = (b + QN - 1) / QN;
-  const int per_block = (flags & F_WALK) ? walk_tiles(n_tiles, q_blocks) : 1;
+  // F_WALK: the tiles a block walks (hopper.cuh one_wave_run)
+  const int per_block =
+      (flags & F_WALK) ? one_wave_run(static_cast<long long>(n_tiles) * q_blocks) : 1;
   const size_t smem = layout_for<T, MODE, W>(slices, resident, stages).bytes;
   auto kernel = lanes_kernel<T, MODE, W>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

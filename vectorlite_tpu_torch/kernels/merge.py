@@ -16,13 +16,17 @@ l``, lowest position first among ties, as ``jax.lax.top_k``), and the
   a block per (64 queries, tile) that keeps the tile's per-lane-group top W,
   then a reduce pass that merges the tiles' partials in row order. The TPU
   kernel carries its state across a sequential grid; blocks here run in no
-  order, hence the partials. The entry routes by the rows' dtype, both
-  ways to a hand-written kernel: bf16 rows (the merge engine's scan copy)
-  to the tensor-core body (``csrc/scan_mma.cuh``: the f32 queries split
-  into three bf16 terms by ``scan_mma.query_operand``, wgmma over
-  TMA-staged row tiles, the lists in registers), f32 rows to the CUDA-core
-  body of K1-K4 (staged f32 FMA, the lists in shared memory), which keeps
-  f32 rows exact.
+  order, hence the partials. Both row dtypes run on the tensor-core body
+  (``csrc/scan_mma.cuh``: wgmma over TMA-staged row tiles, the lists in
+  registers): bf16 rows (the merge engine's scan copy) with the f32
+  queries split into three bf16 terms (``scan_mma.query_operand``), f32
+  rows on 3xTF32, the queries split into two tf32 terms
+  (``scan_mma.query_operand_tf32``) and each row word into its hi and lo
+  terms in registers. Over f32 rows K7 is held to the rule K1 over f32
+  rows is held to on the same contraction: scores within rtol/atol 1e-5
+  of the plain version's, ids equal beyond 1e-5 near-ties; its dot
+  lists, which reach dots near 0 in lane groups with few live rows, are
+  held to float64 instead (``chip_smoke.py`` ``compare_lanes``).
 
 ``tile_n`` sets only how the rows are split among blocks: a lane group is
 ``row mod 128`` whatever the tile, so the result does not depend on it.
@@ -66,8 +70,8 @@ NEG_INF = float("-inf")
 LANES = 128
 DEFAULT_TILE_N = 16384
 
-#: K7 keeps W (score, row) pairs a list: in registers over bf16 rows, in
-#: shared memory over f32 rows ([W, 64, 128] a block, 64 KB a rung)
+#: K7 keeps W (score, row) pairs a list, in registers beside the
+#: accumulators (32 lists a thread)
 MAX_WINNERS = 3
 
 _P = ctypes.c_void_p
@@ -75,7 +79,7 @@ _I = ctypes.c_int
 
 SCAN_MERGE_TOPW = _build.Kernel(
     "lanes", "scan_merge_topw",
-    [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
 
 
@@ -112,17 +116,15 @@ def merge_topw_cuda(values, sqnorms, valid, queries, *, metric, winners,
     if not 1 <= winners <= MAX_WINNERS:
         raise ValueError(f"winners must be in [1, {MAX_WINNERS}]")
     _check_tiling(values.shape[0], tile_n)
-    q_t, qsq = _cuda_operands(
+    _, qsq = _cuda_operands(
         values, None, sqnorms, valid, queries, (torch.float32, torch.bfloat16)
     )
     n, d = values.shape
     b = queries.shape[0]
     bf16 = values.dtype == torch.bfloat16
-    if bf16:  # the tensor-core body: split queries, tiles its lists can name
-        q_op, q_t = scan_mma.query_operand(queries), None
-        tile_n = scan_mma.list_tile(tile_n, winners)
-    else:
-        q_op = None
+    # the tensor-core body: split queries, tiles its lists can name
+    q_op = scan_mma.query_operand(queries) if bf16 else scan_mma.query_operand_tf32(queries)
+    tile_n = scan_mma.list_tile(tile_n, winners)
     dev = values.device
     part = (n // tile_n, b, winners * LANES)
     part_s = torch.empty(part, dtype=torch.float32, device=dev)
@@ -131,8 +133,7 @@ def merge_topw_cuda(values, sqnorms, valid, queries, *, metric, winners,
     out_i = torch.empty((winners, b, LANES), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         SCAN_MERGE_TOPW.launch(
-            None if q_t is None else q_t.data_ptr(), qsq.data_ptr(),
-            None if q_op is None else q_op.data_ptr(), values.data_ptr(),
+            q_op.data_ptr(), qsq.data_ptr(), values.data_ptr(),
             int(bf16), sqnorms.data_ptr(), valid.data_ptr(),
             part_s.data_ptr(), part_i.data_ptr(),
             out_s.data_ptr(), out_i.data_ptr(),

@@ -34,11 +34,14 @@ reference's names and contracts so the two packages read side by side:
 * ``pallas_search_block_topk_rescored`` — K3 selection over a scan copy,
   then an exact f32 re-score of the pool from the f32 rows, in torch.
 * ``pallas_search_topk_l1`` — exact Manhattan top-k: kernel K4, each
-  tile's top k of ``1 / (1 + sum |q - v|)``. Up to k = 32 (tiles of a
-  multiple of 256 rows) it runs on an FADD stream fed by TMA with lists in
-  registers (``csrc/l1.cu``: ``scan_topk_l1_fadd`` over f32 rows,
-  ``scan_topk_l1_fadd_bf16`` over bf16 rows), beyond it on the CUDA-core
-  body (``csrc/scan.cu`` ``scan_topk_l1``), by ``exact_route``.
+  tile's top k of ``1 / (1 + sum |q - v|)``, on an FADD stream fed by TMA
+  (``csrc/l1.cu``). Up to k = 32 (tiles of a multiple of 256 rows) the
+  stream keeps each query's list in registers (``scan_topk_l1_fadd`` over
+  f32 rows, ``scan_topk_l1_fadd_bf16`` over bf16 rows); beyond it the
+  stream writes a group of tiles' scores to a scratch buffer and the radix
+  select of ``csrc/select.cuh`` takes each tile's top k
+  (``scan_topk_l1_select`` / ``_bf16``), on the tiles ``exact_tile``
+  grows; the route is ``exact_route``'s.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain-torch version beside it (``tile_topk_plain``,
@@ -99,10 +102,6 @@ SCAN_BLOCK_TOPW_BF16 = _build.Kernel(
     "lanes", "scan_block_topw_bf16",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
-SCAN_TOPK_L1 = _build.Kernel(
-    "scan", "scan_topk_l1",
-    [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-)
 SCAN_TOPK_L1_FADD = _build.Kernel(
     "l1", "scan_topk_l1_fadd",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -110,6 +109,14 @@ SCAN_TOPK_L1_FADD = _build.Kernel(
 SCAN_TOPK_L1_FADD_BF16 = _build.Kernel(
     "l1", "scan_topk_l1_fadd_bf16",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_L1_SELECT = _build.Kernel(
+    "l1", "scan_topk_l1_select",
+    [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+)
+SCAN_TOPK_L1_SELECT_BF16 = _build.Kernel(
+    "l1", "scan_topk_l1_select_bf16",
+    [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
 )
 SCAN_TOPK_EXACT_TF32 = _build.Kernel(
     "exact", "scan_topk_exact_tf32",
@@ -276,10 +283,12 @@ SELECT_SCRATCH_BYTES = 256 << 20
 
 
 #: the longest per-tile list K4's FADD stream keeps (one entry a lane), and
-#: the rows of its chunks, which its tiles must be a multiple of
+#: the rows of its chunks, which its tiles must be a multiple of; past
+#: either the stream's scores go into the radix select
 L1_MAX_K = 32
 L1_CHUNK = 256
 _L1_FADD = {torch.float32: SCAN_TOPK_L1_FADD, torch.bfloat16: SCAN_TOPK_L1_FADD_BF16}
+_L1_SELECT = {torch.float32: SCAN_TOPK_L1_SELECT, torch.bfloat16: SCAN_TOPK_L1_SELECT_BF16}
 
 
 def l1_query_operand(queries, dtype):
@@ -298,17 +307,19 @@ def l1_query_operand(queries, dtype):
 
 def exact_route(dtype, k, metric=SimilarityMetric.COSINE, tile_n=DEFAULT_TILE_N):
     """The per-tile top-k kernel for rows of ``dtype``, lists of ``k``,
-    ``metric`` and tiles of ``tile_n`` rows: manhattan K4, up to
-    ``L1_MAX_K`` (tiles of a multiple of ``L1_CHUNK`` rows) on the FADD
-    stream (f32/bf16 rows), else on the CUDA-core body; up to
+    ``metric`` and tiles of ``tile_n`` rows: manhattan K4 (f32/bf16 rows),
+    up to ``L1_MAX_K`` (tiles of a multiple of ``L1_CHUNK`` rows) on the
+    FADD stream's lists, else on its scores into the radix select; up to
     ``MMA_MAX_K`` the tensor-core body's TOPK mode (f32 rows: 3xTF32, bf16
     rows, int8 rows: K2); up to ``WIDE_MAX_K`` (and tiles up to
     ``WIDE_MAX_TILE``) its wide mode; beyond them (any tile) its scores
     into the radix select."""
     if metric is SimilarityMetric.MANHATTAN:
+        if dtype not in _L1_SELECT:
+            raise ValueError(f"manhattan has no kernel over {dtype} rows")
         if k <= L1_MAX_K and tile_n % L1_CHUNK == 0:
-            return _L1_FADD.get(dtype, SCAN_TOPK_L1)
-        return SCAN_TOPK_L1
+            return _L1_FADD[dtype]
+        return _L1_SELECT[dtype]
     if k <= MMA_MAX_K:
         return {torch.float32: SCAN_TOPK_EXACT_TF32, torch.bfloat16: SCAN_TOPK_EXACT_BF16,
                 torch.int8: SCAN_TOPK_EXACT_S8}[dtype]
@@ -320,15 +331,16 @@ def exact_route(dtype, k, metric=SimilarityMetric.COSINE, tile_n=DEFAULT_TILE_N)
 
 
 def exact_tile(n, tile_n, k, metric=SimilarityMetric.COSINE):
-    """The tile K1 / K2 scan ``n`` rows at for lists of ``k``: the
-    caller's ``tile_n`` up to k ``WIDE_MAX_K`` (and for manhattan, K4);
-    past it, on the radix select, the largest multiple of ``tile_n`` that
-    divides ``n`` and holds at most ``SELECT_MAX_TILE`` rows (the select's
-    time is linear in a tile's rows, and fewer tiles give fewer lists to
-    sort and merge). Per-tile lists are ordered by (score descending, row
-    ascending) and the merge is stable, so the merged top k is the same at
-    any tile."""
-    if k <= WIDE_MAX_K or metric is SimilarityMetric.MANHATTAN or tile_n > SELECT_MAX_TILE:
+    """The tile K1 / K2 / K4 scan ``n`` rows at for lists of ``k``: the
+    caller's ``tile_n`` up to k ``WIDE_MAX_K`` (manhattan, K4:
+    ``L1_MAX_K``); past it, on the radix select, the largest multiple of
+    ``tile_n`` that divides ``n`` and holds at most ``SELECT_MAX_TILE``
+    rows (the select's time is linear in a tile's rows, and fewer tiles
+    give fewer lists to sort and merge). Per-tile lists are ordered by
+    (score descending, row ascending) and the merge is stable, so the
+    merged top k is the same at any tile."""
+    k_max = L1_MAX_K if metric is SimilarityMetric.MANHATTAN else WIDE_MAX_K
+    if k <= k_max or tile_n > SELECT_MAX_TILE:
         return tile_n
     return max(tile_n * m for m in range(1, SELECT_MAX_TILE // tile_n + 1)
                if n % (tile_n * m) == 0)
@@ -347,7 +359,9 @@ def tile_topk_cuda(
 ):
     """K1 (f32/bf16 rows), K2 (int8 rows + scales) or, for manhattan, K4
     (f32/bf16 rows) on the kernel ``exact_route`` names: same outputs as
-    ``tile_topk_plain``."""
+    ``tile_topk_plain``. The radix select's routes (K1 / K2 past k 256,
+    K4 past k 32) also take a [B, group rows] f32 scratch
+    (``select_group_rows``)."""
     int8 = values.dtype == torch.int8
     l1 = metric is SimilarityMetric.MANHATTAN
     if int8 and scales is None:
@@ -358,7 +372,7 @@ def tile_topk_cuda(
         raise ValueError("manhattan has no kernel over int8 rows")
     if not 1 <= k_tile <= tile_n:
         raise ValueError(f"k_tile {k_tile} outside [1, {tile_n}]")
-    q_t, qsq = _cuda_operands(
+    _, qsq = _cuda_operands(
         values, scales, None if l1 else sqnorms, valid, queries,
         (torch.int8,) if int8 else (torch.float32, torch.bfloat16),
     )
@@ -375,6 +389,17 @@ def tile_topk_cuda(
             kernel.launch(
                 q_op.data_ptr(), values.data_ptr(), valid.data_ptr(),
                 out_s.data_ptr(), out_i.data_ptr(),
+                n, d, b, k_tile, tile_n, _stream(dev),
+            )
+        return out_s, out_i
+    if kernel in (SCAN_TOPK_L1_SELECT, SCAN_TOPK_L1_SELECT_BF16):
+        q_op = l1_query_operand(queries.to(torch.float32), values.dtype)
+        group = select_group_rows(n, b, tile_n)
+        scratch = torch.empty((b, group), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            kernel.launch(
+                q_op.data_ptr(), values.data_ptr(), valid.data_ptr(),
+                scratch.data_ptr(), group, out_s.data_ptr(), out_i.data_ptr(),
                 n, d, b, k_tile, tile_n, _stream(dev),
             )
         return out_s, out_i
@@ -410,25 +435,16 @@ def tile_topk_cuda(
                 n, d, b, k_tile, tile_n, metric_code, _stream(dev),
             )
         return out_s, out_i
-    if kernel in (SCAN_TOPK_EXACT_TF32, SCAN_TOPK_EXACT_BF16, SCAN_TOPK_WIDE_TF32,
-                  SCAN_TOPK_WIDE_BF16):
-        if values.dtype == torch.float32:
-            q_op = scan_mma.query_operand_tf32(queries)
-        else:
-            q_op = scan_mma.query_operand(queries)
-        with torch.cuda.device(dev):
-            kernel.launch(
-                q_op.data_ptr(), qsq.data_ptr(), values.data_ptr(), sqnorms.data_ptr(),
-                valid.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-                n, d, b, k_tile, tile_n, metric_code, _stream(dev),
-            )
-        return out_s, out_i
+    # the TOPK and wide modes over f32 (3xTF32) or bf16 rows
+    if values.dtype == torch.float32:
+        q_op = scan_mma.query_operand_tf32(queries)
+    else:
+        q_op = scan_mma.query_operand(queries)
     with torch.cuda.device(dev):
-        SCAN_TOPK_L1.launch(
-            q_t.data_ptr(), values.data_ptr(),
-            int(values.dtype == torch.bfloat16), valid.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(),
-            n, d, b, k_tile, tile_n, _stream(dev),
+        kernel.launch(
+            q_op.data_ptr(), qsq.data_ptr(), values.data_ptr(), sqnorms.data_ptr(),
+            valid.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            n, d, b, k_tile, tile_n, metric_code, _stream(dev),
         )
     return out_s, out_i
 
