@@ -19,9 +19,10 @@ Phases (any failure raises and the exit code is not 0):
    scan_topk_select_tf32 / _bf16 / _s8, k 257, 300, 512, 1,024, 2,048,
    2,100 and 4,096 on the tiles scan.exact_tile grows, and tile by tile at
    k = tile_n = 2,048 and 4,096, k 300 and 2,100 over 32,768-row tiles and
-   k 300 over 65,536), K3 on its three routes (int8 rows: scan_block_topw_s8, the
+   k 300 over 65,536), K3 on its four routes (int8 rows: scan_block_topw_s8, the
    tensor-core body's int8 form; bf16 rows: scan_block_topw_bf16; f32 rows:
-   scan_block_topw, the CUDA-core body; three metrics), K4 on the route
+   scan_block_topw_tf32, its 3xTF32 form, at W 1, 2 and 3; W 4 over f32
+   rows: scan_block_topw, the CUDA-core body; three metrics), K4 on the route
    exact_route names (k <= 32: the FADD stream's lists, scan_topk_l1_fadd
    over f32 rows, _bf16 over bf16 rows; k 1, 16, 32; k > 32: its scores
    into the radix select, scan_topk_l1_select / _bf16, k 33, 100, 300 and
@@ -31,7 +32,7 @@ Phases (any failure raises and the exit code is not 0):
    Then each kernel at the main-path shape (2^20 x 384, B=256, four query
    blocks; K1 over f32 rows at k 16 and bf16 rows at k 32, K2 at k 32, and
    the wide mode at k 100's lists: K1 over f32 rows at 128, over bf16 rows
-   at 256, K2 at 256; K3 on each route;
+   at 256, K2 at 256; K3 on each route at W 2, the CUDA-core body at W 4;
    K4 over f32 rows at k 16, over bf16 rows at the memory-optimized pool of
    32 and at k 16, and its select entries at the paths' lists on the tiles
    exact_tile grows: over f32 rows at k 100's k_pad of 128 and at k 300 and
@@ -40,8 +41,8 @@ Phases (any failure raises and the exit code is not 0):
    values cast outside the timing, TF32-off f32 over f32 rows, then
    torch.topk of each lane group; K4's: 1 / (1 + torch.cdist(p=1)) and
    torch.topk), and its output held against the plain
-   version's; K3 over f32 rows priced, as K1 over f32 rows is, at the three
-   tf32 passes of an exact f32 dot, K4 at two FADDs a (query, row,
+   version's; K3 over f32 rows (either body) priced, as K1 over f32 rows
+   is, at the three tf32 passes of an exact f32 dot, K4 at two FADDs a (query, row,
    dimension). The radix select's entries at the paths' shapes, on the
    tiles exact_tile grows (K1 over f32 rows at k 300 and at k_pad 1,024,
    4,096 and 8,192, over bf16 rows at the pools of 512 and 4,096, K2 at k
@@ -105,15 +106,21 @@ Phases (any failure raises and the exit code is not 0):
    (whichever kernel it picks on this corpus), then with the guard off
    the speed path (K3 over the int8 scan copy: scan_block_topw_s8, +
    exact re-score), approx=False (K1), a where filter (K1), manhattan
-   (K4's FADD stream over f32 rows), a `quantized`-profile collection (K3
-   on int8 rows, and K2), a `memory-optimized` collection's exact path (K1
+   (K4's FADD stream over f32 rows), a `high-accuracy`-profile collection's
+   default call (f32 rows without a scan copy: K3 over the rows on its
+   3xTF32 form, scan_block_topw_tf32, + exact re-score; it must launch that
+   and no other K1-K4 entry; its build seconds printed, its device stage
+   taken apart, the collection dropped after), a `quantized`-profile
+   collection (K3 on int8 rows, and K2), a `memory-optimized` collection's exact path (K1
    over bf16 rows) and its manhattan path (K4 over bf16 rows), and
    approx=False at k 100 on all three (K1 over f32 and bf16 rows and K2 on
-   the wide mode); those three again, taken apart into the device stage,
-   merge_topk's sort in it and the host remainder. Launch
+   the wide mode); those three and the high-accuracy call again, taken
+   apart into the device stage, merge_topk's sorts in it and the host
+   remainder. Launch
    counts are zeroed just before and read just after; every kernel must
    have launched, each exact path on the route exact_route names. Recall@10 of each
-   speed path against its exact path must be >= 0.99, and of the
+   speed path (the high-accuracy call's too) against its exact path must
+   be >= 0.99, and of the
    memory-optimized manhattan path against the manhattan path; the cosine and
    manhattan exact paths must agree with float64 truth on 32 queries
    taken across all four query blocks. The quantized speed path runs
@@ -201,8 +208,9 @@ Phases (any failure raises and the exit code is not 0):
    and 256 queries from --seed, k = 16, k_sel 128, cosine. The tournament
    merge (K7) + exact f32 re-score as merge_w2_t16k, merge_w3_t16k and
    merge_w2_t32k, beside the K3 engine (bf16 copy, tile 4096, W 2:
-   scan_block_topw_bf16), the K3 engine over the f32 rows themselves (the
-   CUDA-core scan_block_topw) and exact K1: p50 ms and QPS from CUDA events, recall@10 against float64
+   scan_block_topw_bf16), the K3 engine over the f32 rows themselves (W 2:
+   its 3xTF32 form, scan_block_topw_tf32; W 4: the CUDA-core
+   scan_block_topw) and exact K1: p50 ms and QPS from CUDA events, recall@10 against float64
    truth (>= 0.99 each); each merge configuration's ids equal, beyond
    1e-5 near-ties, those of the same pipeline with the plain K7; a
    tombstoned pass (5% of rows invalid) returns none of them; then K8's
@@ -210,7 +218,7 @@ Phases (any failure raises and the exit code is not 0):
    and full: the lane-group selection on the accumulators on top of it;
    tiles 8192 and 16384) beside K3 on the same body at the same shape.
    Launch counts are zeroed just before and read just after; K7, K8 and
-   K3's bf16 and f32 routes must have launched.
+   K3's bf16, 3xTF32 and CUDA-core routes must have launched.
 7. The collection surface and persistence through the SDK, after the
    phase-6 arrays are freed, on phase 3's rows, each with a text and
    {"bucket": i % 16, "tag": ...} (MockEmbeddingFunction(384)):
@@ -363,6 +371,7 @@ REPLACES = {
     "scan_block_topw": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_block_topw_s8": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_block_topw_bf16": "vectorlite_tpu/kernels/pallas_scan.py:159",
+    "scan_block_topw_tf32": "vectorlite_tpu/kernels/pallas_scan.py:159",
     "scan_topk_l1_fadd": "vectorlite_tpu/kernels/pallas_l1.py:44",
     "scan_topk_l1_fadd_bf16": "vectorlite_tpu/kernels/pallas_l1.py:44",
     "scan_topk_l1_select": "vectorlite_tpu/kernels/pallas_l1.py:44",
@@ -375,11 +384,13 @@ REPLACES = {
 }
 
 
-#: K3's three routes (kernels/scan.py block_route): int8 rows, the main
+#: K3's four routes (kernels/scan.py block_route): int8 rows, the main
 #: path's scan copy, on the tensor-core body's int8 form; bf16 rows on its
-#: bf16 form; f32 rows (and W above 3) on the CUDA-core body
-K3_INT8, K3_BF16, K3_F32 = "scan_block_topw_s8", "scan_block_topw_bf16", "scan_block_topw"
-K3_SYMBOLS = (K3_INT8, K3_BF16, K3_F32)
+#: bf16 form; f32 rows (the high-accuracy profile) on its 3xTF32 form; W
+#: above 3, over any rows, on the CUDA-core body
+K3_INT8, K3_BF16, K3_TF32 = "scan_block_topw_s8", "scan_block_topw_bf16", "scan_block_topw_tf32"
+K3_CORE = "scan_block_topw"
+K3_SYMBOLS = (K3_INT8, K3_BF16, K3_TF32, K3_CORE)
 #: K1's and K2's routes (kernels/scan.py exact_route): k <= 32 on the
 #: tensor-core body's per-query top-k mode (f32 rows: 3xTF32; bf16 rows;
 #: int8 rows), 32 < k <= 256 on its wide mode (tiles up to 32,768 rows),
@@ -533,17 +544,19 @@ def variants(scan, SM):
                 tile_n=tile_n), q.shape[0], k)
         return kern, plain
 
-    def block(v, sc, sq, valid, q, metric, k):
-        if sc is not None:
-            return scan.pallas_search_block_topk_int8(
-                v, sc, sq, valid, q, metric=metric, k=k, tile_n=4096, winners=2)
-        return scan.pallas_search_block_topk(
-            v, sq, valid, q, metric=metric, k=k, tile_n=4096, winners=2)
+    def block(winners):
+        def kern(v, sc, sq, valid, q, metric, k):
+            if sc is not None:
+                return scan.pallas_search_block_topk_int8(
+                    v, sc, sq, valid, q, metric=metric, k=k, tile_n=4096, winners=winners)
+            return scan.pallas_search_block_topk(
+                v, sq, valid, q, metric=metric, k=k, tile_n=4096, winners=winners)
 
-    def block_plain(v, sc, sq, valid, q, metric, k):
-        return merged(scan, scan.block_topw_plain(
-            v, sc, sq, valid, q, metric=metric, tile_n=4096, winners=2),
-            q.shape[0], k)
+        def plain(v, sc, sq, valid, q, metric, k):
+            return merged(scan, scan.block_topw_plain(
+                v, sc, sq, valid, q, metric=metric, tile_n=4096, winners=winners),
+                q.shape[0], k)
+        return kern, plain
 
     dots = (SM.COSINE, SM.EUCLIDEAN, SM.DOT_PRODUCT)
     return [
@@ -575,9 +588,12 @@ def variants(scan, SM):
         (None, "int8 k2048", (SM.COSINE,), *exact(2048), 2048),
         (None, f"int8 k{OLD_K}", (SM.COSINE,), *exact(OLD_TILE), OLD_K),
         (None, "int8 k4096", (SM.COSINE,), *exact(2048), 4096),
-        (K3_F32, "f32", dots, block, block_plain, 16),
-        (K3_BF16, "bf16", dots, block, block_plain, 16),
-        (K3_INT8, "int8", dots, block, block_plain, 16),
+        (K3_TF32, "f32", dots, *block(2), 16),
+        (K3_TF32, "f32 w1", dots, *block(1), 16),
+        (K3_TF32, "f32 w3", dots, *block(3), 16),
+        (K3_BF16, "bf16", dots, *block(2), 16),
+        (K3_INT8, "int8", dots, *block(2), 16),
+        (K3_CORE, "f32 w4", dots, *block(4), 16),
         (None, "f32", (SM.MANHATTAN,), *exact(2048), 16),
         (None, "f32 k1", (SM.MANHATTAN,), *exact(2048), 1),
         (None, "f32 k32", (SM.MANHATTAN,), *exact(2048), 32),
@@ -684,8 +700,11 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     # with the 2x pool (32, and 256 at k 100) and tile 4096, and at k 100
     # (k_pad 128) on the wide mode; K2 over int8 rows with the 2x pool (32,
     # and 256 at k 100 on the wide mode); K3 over the int8 scan copy,
-    # 4096-row tiles, W = 2, pool 128 (and its two other routes: a bf16 scan
-    # copy, f32 rows without a copy); K4 over f32 rows at k_pad 16, over
+    # 4096-row tiles, W = 2, pool 128 (and its other routes: a bf16 scan
+    # copy, f32 rows without a copy on 3xTF32, and the CUDA-core body at W
+    # 4, which the index never asks for (its W is 2) and phase 6 drives;
+    # scripts/probe_k3_f32.py times both bodies at W 1-4); K4 over f32
+    # rows at k_pad 16, over
     # bf16 rows (the memory-optimized profile) at the 2x pool of 32 (and at
     # k 16, logged only), and past k 32 on its scores into the radix select
     # at the tiles exact_tile grows (k 100's k_pad of 128 and k 1,000's of
@@ -695,7 +714,8 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
     # tensor cores, whichever body computes it), K2 at one int8 pass, K1
     # over bf16 rows at one bf16 pass, K4 at two FADD instructions a
     # (query, row, dimension).
-    k3_out = B * (n // 4096) * 256 * 8
+    def k3_out(winners):
+        return B * (n // 4096) * winners * 128 * 8
     l1_ops = 2.0 * B * n * D  # FADD instructions
     l1_side = n * 1 + B * D * 4  # validity, queries
 
@@ -719,11 +739,13 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
         (K2_WIDE, SM.COSINE, vq, sc, 256, 2048, None, "int8",
          dot_ops, n * D + n * 4 + side + tiles_out(2048, 256)),
         (K3_INT8, SM.COSINE, vq, sc, 128, 4096, 2, "int8",
-         dot_ops, n * D + n * 4 + side + k3_out),
+         dot_ops, n * D + n * 4 + side + k3_out(2)),
         (K3_BF16, SM.COSINE, vb, None, 128, 4096, 2, "bf16",
-         dot_ops, n * D * 2 + side + k3_out),
-        (K3_F32, SM.COSINE, v, None, 128, 4096, 2, "tf32",
-         3 * dot_ops, n * D * 4 + side + k3_out),
+         dot_ops, n * D * 2 + side + k3_out(2)),
+        (K3_TF32, SM.COSINE, v, None, 128, 4096, 2, "tf32",
+         3 * dot_ops, n * D * 4 + side + k3_out(2)),
+        (K3_CORE, SM.COSINE, v, None, 128, 4096, 4, "tf32",
+         3 * dot_ops, n * D * 4 + side + k3_out(4)),
         (K4_F32, SM.MANHATTAN, v, None, 16, 2048, None, "f32_add",
          l1_ops, n * D * 4 + l1_side + tiles_out(2048, 16)),
         (K4_BF16, SM.MANHATTAN, vb, None, 32, 2048, None, "f32_add",
@@ -759,7 +781,8 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
                                              tile_n=tile_n, winners=winners)
             # one GEMM (bf16 over int8 or bf16 rows, TF32-off f32 over f32
             # rows), then each lane group's top W
-            lq, lrows = {K3_INT8: (qb, vq_bf16), K3_BF16: (qb, vb), K3_F32: (q, v)}[name]
+            lq, lrows = {K3_INT8: (qb, vq_bf16), K3_BF16: (qb, vb), K3_TF32: (q, v),
+                         K3_CORE: (q, v)}[name]
 
             def lib(tile_n=tile_n, winners=winners, lq=lq, lrows=lrows):
                 return torch.topk(torch.mm(lq, lrows.T).view(
@@ -777,8 +800,8 @@ def time_kernels(scan, metrics_mod, dev, rng, n: int, errs: dict) -> dict:
         work = {K3_INT8: int8_work, K2_S8: int8_work, K2_WIDE: int8_work,
                 K3_BF16: f"; {design_work(n)}", K1_BF16: f"; {design_work(n)}",
                 K1_WIDE_BF16: f"; {design_work(n)}",
-                K3_F32: f"; f32 FMAs {dot_ops / PEAK_OPS_PER_S['f32'] * 1e3:.4f} ms (the "
-                        f"CUDA-core body's own least time)"}.get(name, "")
+                K3_CORE: f"; W {winners}, f32 FMAs {dot_ops / PEAK_OPS_PER_S['f32'] * 1e3:.4f} "
+                         f"ms (the CUDA-core body's own least time)"}.get(name, "")
         if name in (K4_SELECT, K4_SELECT_BF16):
             group = scan.select_group_rows(n, B, tile_n)
             work = (f"; tiles of {tile_n}, groups of {group // tile_n}, scratch "
@@ -1507,44 +1530,52 @@ def drive(paths, queries, n_batches, build, card, native=None):
     return results, moved_all, times
 
 
-def wide_breakdown(wide, exact, queries, times, n_batches, build, card) -> None:
-    """Phase 3's k 100 paths taken apart on n_batches more batches: the
-    device stage (the index's _device_topk to torch.cuda.synchronize()),
-    within it the kernel (to a synchronize before the merge) and
-    merge_topk's stable sort of the tiles' lists (from that synchronize to
-    the next), and the host remainder (the main run's batch p50 less the
-    device stage's p50), within it the index's _finalize_device (the f64
-    re-score of reduced-precision rows, else the cosine clamp) and the
-    rest (the fetch, the ids, one result object a hit)."""
+def breakdown(paths, queries, times, n_batches, build, card) -> None:
+    """Phase 3's paths (name, client, fn) taken apart on n_batches more
+    batches: the device stage (the index's _device_topk to
+    torch.cuda.synchronize()), within it merge_topk's stable sorts (each
+    from a synchronize to the next, summed over the stage) and the rest
+    (the kernel, its operands, a re-score on the card), and the host
+    remainder (the main run's batch p50 less the device stage's p50),
+    within it the index's _finalize_device (the f64 re-score of
+    reduced-precision rows, else the cosine clamp) and the rest (the
+    fetch, the ids, one result object a hit)."""
     from vectorlite_tpu_torch.kernels import scan
 
     saved = scan.merge_topk
-    for name, client, _ in wide:
+    for name, client, fn in paths:
         spent = {"device": [], "merge": [], "finalize": []}
+        sorts = []
 
-        def merge_topk(s, i, k, spent=spent):
+        def merge_topk(s, i, k, sorts=sorts):
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = saved(s, i, k)
             torch.cuda.synchronize()
-            spent["merge"].append((time.perf_counter() - t) * 1e3)
+            sorts.append((time.perf_counter() - t) * 1e3)
             return out
         with client.get_collection("main").index_read() as index:
             pass
-        index._device_topk = timed(spent, "device", index._device_topk, True)
+        device_topk = timed(spent, "device", index._device_topk, True)
+
+        def staged(*args, spent=spent, sorts=sorts, device_topk=device_topk, **kw):
+            sorts.clear()
+            out = device_topk(*args, **kw)
+            spent["merge"].append(sum(sorts))
+            return out
+        index._device_topk = staged
         index._finalize_device = timed(spent, "finalize", index._finalize_device, False)
         scan.merge_topk = merge_topk
         try:
-            drive([(f"{name}, taken apart", exact(client.get_collection("main"), K_WIDE))],
-                  queries, n_batches, build, card)
+            drive([(f"{name}, taken apart", fn)], queries, n_batches, build, card)
         finally:
             scan.merge_topk = saved
             del index._device_topk, index._finalize_device
         dev_p50, merge_p50, fin_p50 = (float(np.percentile(spent[key], 50))
                                        for key in ("device", "merge", "finalize"))
         host = float(np.percentile(times[name], 50)) - dev_p50
-        log(f"    {name}: device stage p50 {dev_p50:.3f} ms (kernel and query "
-            f"operands {dev_p50 - merge_p50:.3f}, merge_topk sort {merge_p50:.3f}); host "
+        log(f"    {name}: device stage p50 {dev_p50:.3f} ms (kernel, operands and the "
+            f"rest {dev_p50 - merge_p50:.3f}, merge_topk sorts {merge_p50:.3f}); host "
             f"remainder (batch p50 {np.percentile(times[name], 50):.3f} - device p50) "
             f"{host:.3f} ms (_finalize_device p50 {fin_p50:.3f}, the rest "
             f"{host - fin_p50:.3f}) [{card}]")
@@ -1590,6 +1621,25 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     mclient.create_collection("main", vl.IndexType.FLAT)
     mclient.add_vectors_to_collection("main", rows)
     del metas
+    # the high-accuracy profile: f32 rows and no scan copy (that needs the
+    # auto profile), so its default call's speed path runs K3 over the rows
+    # themselves, on the 3xTF32 form
+    t0 = time.perf_counter()
+    hclient = vl.VectorLiteClient(
+        vl.MockEmbeddingFunction(D),
+        config=vl.VectorLiteConfig.profile("high-accuracy"), device=dev,
+    )
+    hclient.create_collection("main", vl.IndexType.FLAT)
+    hclient.add_vectors_to_collection("main", rows)
+    added = time.perf_counter() - t0
+    hclient.search_vectors_in_collection("main", queries, K)  # device build
+    torch.cuda.synchronize()
+    log(f"  high-accuracy collection built in {time.perf_counter() - t0:.2f} s (add_vectors "
+        f"{added:.2f} s, the first search's device build the rest)")
+    high = "high-accuracy default call (K3 over f32 rows, 3xTF32, + f32 re-score)"
+
+    def high_accuracy(qs):
+        return hclient.search_vectors_in_collection("main", qs, K)
 
     def exact(coll, k=K):
         def fn(qs):
@@ -1612,6 +1662,7 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
          lambda qs: client.search_vectors_in_collection("main", qs, K, SM.MANHATTAN)),
         ("memory-optimized manhattan (K4 over bf16 rows + f64 re-score)",
          lambda qs: mclient.search_vectors_in_collection("main", qs, K, SM.MANHATTAN)),
+        (high, high_accuracy),
         ("quantized speed (K3 int8 + f64 re-score)", quantized_speed),
         ("quantized speed, numpy re-score (VECTORLITE_NO_NATIVE=1)",
          with_env(quantized_speed, "VECTORLITE_NO_NATIVE", "1")),
@@ -1630,10 +1681,14 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     calls = native.calls
     results, moved, times = drive(paths, queries, n_batches, build, card, native)
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
-    for sym in (K1_TF32, K1_BF16, K1_WIDE, K1_WIDE_BF16, K2_S8, K2_WIDE, K3_INT8, K4_F32,
-                K4_BF16):
+    for sym in (K1_TF32, K1_BF16, K1_WIDE, K1_WIDE_BF16, K2_S8, K2_WIDE, K3_INT8, K3_TF32,
+                K4_F32, K4_BF16):
         if not launches[sym]:
             raise AssertionError(f"{sym} was never launched on the main path")
+    # the high-accuracy default call on K3's 3xTF32 route alone: not the
+    # CUDA-core body, not K1
+    if set(moved[high]) & {*K1_SYMBOLS, *K2_SYMBOLS, *K3_SYMBOLS, *K4_SYMBOLS} != {K3_TF32}:
+        raise AssertionError(f"{high}: launched {moved[high]}, not {K3_TF32}")
     # each exact path on the route exact_route names: k_pad 16 (K1) and the
     # 2x pool of 32 (K2) on the tensor-core body's TOPK mode, k 100 on its
     # wide mode; manhattan at k_pad 16 and the bf16 rows' pool of 32 on K4's
@@ -1650,8 +1705,11 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
             raise AssertionError(f"{path}: launched {moved[path]}, not {want}")
     if native.calls == calls:
         raise AssertionError("the native f64 re-score never served the quantized paths")
-    wide_breakdown(wide, exact, queries, times, n_batches // 2, build, card)
+    breakdown([(name, cl, exact(cl.get_collection("main"), K_WIDE)) for name, cl, _ in wide]
+              + [(high, hclient, high_accuracy)],
+              queries, times, n_batches // 2, build, card)
     dclient.delete_collection("default")
+    hclient.delete_collection("main")  # the later paths and phases see its rows no more
     # lists past 256 (k_pad 1,024; the 2x pools of 512 over bf16 rows and
     # 1,024 over int8 rows) run on the radix select, on the tiles
     # exact_tile grows
@@ -1693,6 +1751,7 @@ def main_path(vl, build, native, dev, rows, queries, card: str, n_batches: int):
     checks = [
         ("speed vs exact", speed, exact_ids),
         ("default call vs exact", ids_of(results["default call, guard on"]), exact_ids),
+        ("high-accuracy default call vs exact", ids_of(results[high]), exact_ids),
         ("quantized speed vs quantized exact",
          ids_of(results["quantized speed (K3 int8 + f64 re-score)"]),
          ids_of(results["quantized exact (K2 + f64 re-score)"])),
@@ -2570,6 +2629,9 @@ def headline_path(merge, decompose, scan, build, SM, dev, args, card) -> dict:
         ("k3_f32_w2_t4k (K3 + re-score)", lambda: scan.pallas_search_block_topk_rescored(
             values, values, sq, valid, q, metric=SM.COSINE, k=HEADLINE_K,
             k_sel=128, tile_n=4096, winners=2)),
+        ("k3_f32_w4_t4k (K3 + re-score)", lambda: scan.pallas_search_block_topk_rescored(
+            values, values, sq, valid, q, metric=SM.COSINE, k=HEADLINE_K,
+            k_sel=128, tile_n=4096, winners=4)),
         ("exact (K1)", lambda: scan.pallas_search_topk(
             values, sq, valid, q, metric=SM.COSINE, k=HEADLINE_K, tile_n=2048)),
     ]
@@ -2583,6 +2645,10 @@ def headline_path(merge, decompose, scan, build, SM, dev, args, card) -> dict:
         moved = {kk.symbol: kk.launches - before[kk.symbol]
                  for kk in build.KERNELS if kk.launches != before[kk.symbol]}
         out[name] = (s, i)
+        want = {"k3_f32_w2_t4k (K3 + re-score)": K3_TF32,
+                "k3_f32_w4_t4k (K3 + re-score)": K3_CORE}.get(name)
+        if want is not None and set(moved) & set(K3_SYMBOLS) != {want}:
+            raise AssertionError(f"{name}: launched {moved}, not {want}")
         log(f"  {name:28s} p50 {np.percentile(ms, 50):.4f} ms  QPS "
             f"{B / np.percentile(ms, 50) * 1e3:.1f}  recall@10 vs f64 truth "
             f"{r:.5f}  (launches {moved}) [{card}]")
@@ -2627,7 +2693,7 @@ def headline_path(merge, decompose, scan, build, SM, dev, args, card) -> dict:
             f"(+{t[('full', 1)] - none:.4f}); K3 (the same body's K3 form: cosine, "
             f"tile 4096, W 2) {k3_ms:.4f} [{card}]")
     launches = {kk.symbol: kk.launches for kk in build.KERNELS}
-    for sym in ("scan_merge_topw", "scan_fold_probe", K3_BF16, K3_F32):
+    for sym in ("scan_merge_topw", "scan_fold_probe", K3_BF16, K3_TF32, K3_CORE):
         if not launches[sym]:
             raise AssertionError(f"{sym} did not launch in phase 6")
     log(f"  phase 6: {time.perf_counter() - started:.1f} s; launches "
@@ -4146,7 +4212,7 @@ def main() -> int:
     log(f"[6] the merge-engine probe (N={args.rows}, D={D}, B={B}, k={HEADLINE_K})")
     t0 = time.perf_counter()
     six = headline_path(merge, decompose, scan, _build, vl.SimilarityMetric, dev, args, card)
-    for sym in ("scan_merge_topw", "scan_fold_probe", K3_BF16, K3_F32):
+    for sym in ("scan_merge_topw", "scan_fold_probe", K3_BF16, K3_TF32, K3_CORE):
         launches[sym] = launches.get(sym, 0) + six[sym]
     gc.collect()
     torch.cuda.empty_cache()

@@ -20,7 +20,7 @@ def port_sources():
     remote.py and tools.py among them) and the scripts that drive it."""
     return sorted(PACKAGE.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "probe_k6_read_once.py",
-        ROOT / "scripts" / "probe_lanes_staging.py"]
+        ROOT / "scripts" / "probe_lanes_staging.py", ROOT / "scripts" / "probe_k3_f32.py"]
 
 
 def test_importing_every_module_loads_no_jax():

@@ -235,3 +235,28 @@ def test_stream_on_the_card(mesh_shards, monkeypatch):
         assert_like_arrays(idx, batches, got, 10, "COSINE", approx=approx)
         got = list_stream(idx, batches, 10, "COSINE", depth=2, group=4, approx=approx)
         assert_like_arrays(idx, batches, got, 10, "COSINE", exact=False, approx=approx)
+
+
+@pytest.mark.parametrize("metric", ["COSINE", "EUCLIDEAN", "DOT_PRODUCT", "MANHATTAN"])
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_beam_distances_do_not_depend_on_the_batch(device, metric):
+    """The mesh beam splits a batch into one part a shard and promises
+    each query the single-device beam (dist/hnsw_mesh.py), so the beam's
+    neighbour distances (kernels/beam.py) of 256 queries must equal, bit
+    for bit, those of their four parts of 64. A batched matrix product
+    failed this on the card (dots up to 1.5e-5 apart): the smoke's mesh
+    beam then listed other rows than one card's."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    from vectorlite_tpu_torch.kernels import beam
+
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(256, 384, generator=g).to(device)
+    nvecs = torch.randn(256, 32, 384, generator=g).to(device)
+    n_sq = (nvecs * nvecs).sum(-1)
+    q_norm = torch.sqrt((q * q).sum(-1, keepdim=True))
+    m = TM[metric]
+    whole = beam._neighbor_dists(q, q_norm, nvecs, n_sq, m)
+    parts = torch.cat([beam._neighbor_dists(q[i:i + 64], q_norm[i:i + 64], nvecs[i:i + 64],
+                                            n_sq[i:i + 64], m) for i in range(0, 256, 64)])
+    assert torch.equal(whole, parts)

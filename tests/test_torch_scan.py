@@ -538,7 +538,8 @@ def test_block_wrapper_routes_rows_by_dtype_and_winners(dtype, winners, monkeypa
     """block_topw_cuda picks K3's kernel from the rows' dtype and W before
     any launch: int8 rows to scan_block_topw_s8 (the int8 query operand and
     its scales, the row scales), bf16 rows to scan_block_topw_bf16 (the
-    bf16 operand), both up to MMA_MAX_WINNERS; f32 rows and larger W to the
+    bf16 operand), f32 rows to scan_block_topw_tf32 (the two tf32 terms of
+    query_operand_tf32), each up to MMA_MAX_WINNERS; larger W to the
     CUDA-core scan_block_topw (the transposed f32 queries, a dtype code).
     One launch, nothing reaches the plain version; a fake card lets the
     host side run here."""
@@ -547,11 +548,17 @@ def test_block_wrapper_routes_rows_by_dtype_and_winners(dtype, winners, monkeypa
     rows = torch.zeros((n, d), dtype=dt)
     scales = torch.ones(n) if dtype == "int8" else None
     launched = []
-    kernels = (scan.SCAN_BLOCK_TOPW, scan.SCAN_BLOCK_TOPW_S8, scan.SCAN_BLOCK_TOPW_BF16)
+    kernels = (scan.SCAN_BLOCK_TOPW, scan.SCAN_BLOCK_TOPW_S8, scan.SCAN_BLOCK_TOPW_BF16,
+               scan.SCAN_BLOCK_TOPW_TF32)
     for kern in kernels:
         monkeypatch.setattr(kern, "launch",
                             lambda *a, kern=kern: launched.append((kern.symbol, a)))
     monkeypatch.setattr(scan, "block_topw_plain", lambda *a, **k: launched.append("plain"))
+    ops = []
+    for name in ("query_operand", "query_operand_int8", "query_operand_tf32"):
+        real = getattr(scan_mma, name)
+        monkeypatch.setattr(scan_mma, name,
+                            lambda q, real=real, name=name: ops.append((name, real(q))) or ops[-1][1])
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -560,18 +567,26 @@ def test_block_wrapper_routes_rows_by_dtype_and_winners(dtype, winners, monkeypa
                                 torch.zeros((b, d)), metric=SimilarityMetric.EUCLIDEAN,
                                 tile_n=tile_n, winners=winners)
     assert s.shape == i.shape == (b, n // tile_n, winners * 128)
-    mma = winners <= scan.MMA_MAX_WINNERS.get(dt, 0)
-    want = {"int8": "scan_block_topw_s8", "bf16": "scan_block_topw_bf16"}.get(dtype)
+    assert scan.MMA_MAX_WINNERS[torch.float32] == 3
+    mma = winners <= scan.MMA_MAX_WINNERS[dt]
+    want = {"int8": "scan_block_topw_s8", "bf16": "scan_block_topw_bf16",
+            "f32": "scan_block_topw_tf32"}[dtype]
     want = want if mma else "scan_block_topw"
     assert [sym for sym, _ in launched] == [want]
     assert scan.block_route(dt, winners).symbol == want
+    operand = {"scan_block_topw_s8": ["query_operand_int8"],
+               "scan_block_topw_bf16": ["query_operand"],
+               "scan_block_topw_tf32": ["query_operand_tf32"]}.get(want, [])
+    assert [name for name, _ in ops] == operand
     args = launched[0][1]
     if want == "scan_block_topw_s8":
         assert all(isinstance(x, int) for x in args[:7])
         assert args[9:15] == (n, d, b, tile_n, winners, 1)
-    elif want == "scan_block_topw_bf16":
+    elif want in ("scan_block_topw_bf16", "scan_block_topw_tf32"):
         assert all(isinstance(x, int) for x in args[:5])
+        assert args[0] == ops[0][1].data_ptr() and args[2] == rows.data_ptr()
         assert args[7:13] == (n, d, b, tile_n, winners, 1)
+        assert len(args) == 14
     else:
         assert args[3] == {"f32": 0, "bf16": 1, "int8": 2}[dtype]
         assert args[9:15] == (n, d, b, tile_n, winners, 1)
@@ -674,6 +689,85 @@ def test_tf32_contraction_beats_the_plain_f32_product(d):
     assert torch.all((got - truth).abs() <= bound)
     tol = 1e-5 * max(1.0, float(plain.abs().max()))
     assert float((got - plain).abs().max()) <= tol
+
+
+
+def tf32_block_scores(values, sqnorms, valid, queries, metric):
+    """K3 over f32 rows on 3xTF32 (csrc/lanes.cu scan_block_topw_tf32),
+    emulated up to its selection: the contraction of tf32_tensor_core_dots
+    (summed in float64), the kernel's epilogue (cosine by the norms'
+    reciprocals, euclidean clamped), -inf where invalid, as f32 scores
+    [B, N]."""
+    dot = tf32_tensor_core_dots(queries, values)
+    qsq = (queries.double() ** 2).sum(-1, keepdim=True)
+    sq = sqnorms.double()[None, :]
+    if metric is SimilarityMetric.COSINE:
+        inv = lambda x: torch.where(x > 0, 1.0 / torch.sqrt(x), torch.zeros_like(x))  # noqa: E731
+        s = dot * inv(qsq) * inv(sq)
+    elif metric is SimilarityMetric.EUCLIDEAN:
+        s = 1.0 / (1.0 + torch.sqrt(torch.clamp(qsq + sq - 2.0 * dot, min=0.0)))
+    else:
+        s = dot
+    return torch.where(valid[None, :], s.float(), float("-inf"))
+
+
+def tied_block_inputs(rng, shape):
+    """(rows, valid, queries, tile_n). "tied": 2,048 x 64 rows, queries
+    near a common centre copied into rows 9, 9 + 128, 9 + 384 (a tie in
+    lane group 9, best for every query) and 40, 77 (a tie across lane
+    groups), 10% invalid; "random": 4,096 x 384 N(0, 1) rows scaled into
+    [0.5, 2], 5% invalid. Both leave lane group 5 of tile 0 one live row."""
+    if shape == "tied":
+        n, d, b, tile_n = 2048, 64, 8, 512
+        centre = rng.normal(size=d).astype(np.float32)
+        v = rng.normal(size=(n, d)).astype(np.float32)
+        tied = [9, 9 + 128, 9 + 384, 40, 77]
+        v[tied] = centre
+        q = (centre + 0.1 * rng.normal(size=(b, d))).astype(np.float32)
+        valid = rng.random(n) >= 0.1
+        valid[tied] = True
+    else:
+        n, d, b, tile_n = 4096, 384, 8, 1024
+        v = (rng.normal(size=(n, d)) * rng.uniform(0.5, 2.0, (n, 1))).astype(np.float32)
+        q = rng.normal(size=(b, d)).astype(np.float32)
+        valid = rng.random(n) >= 0.05
+    valid[5:tile_n:128] = False
+    valid[5 + 128 * 3] = True
+    return v, valid, q, tile_n
+
+
+@pytest.mark.parametrize("shape", ["tied", "random"])
+@pytest.mark.parametrize("winners", [1, 2, 3])
+@pytest.mark.parametrize("metric", METRICS)
+def test_tf32_block_emulation_matches_pallas(metric, winners, shape, rng):
+    """K3's 3xTF32 form (tf32_block_scores) through K3's selection
+    (block_topw_of_scores): its lane lists hold the plain version's lists
+    of W + 1 (assert_lane_lists_match: the same -inf pattern and empty
+    slots, scores under the 1e-5 rule, raw dots within 1e-5 x max |dot| and
+    held to float64 as on the card, ids equal beyond 1e-5 near-ties), and
+    the top 32 of its pool holds the JAX K3 (_block_topw_kernel in
+    interpret mode, top 33): scores within rtol/atol 1e-5, ids equal
+    except among scores within 1e-5."""
+    v, valid, q, tile_n = tied_block_inputs(rng, shape)
+    b, k = q.shape[0], 32
+    (jv, jsq, jvalid), (tv, tsq, tvalid) = both(v, valid)
+    tq = torch.from_numpy(q)
+    m = SimilarityMetric[metric]
+    got = scan.block_topw_of_scores(tf32_block_scores(tv, tsq, tvalid, tq, m),
+                                    tile_n=tile_n, winners=winners)
+    want = scan.block_topw_plain(tv, None, tsq, tvalid, tq, metric=m, tile_n=tile_n,
+                                 winners=winners + 1)
+    exact = None
+    if metric == "DOT_PRODUCT":
+        exact = torch.where(tvalid[None, :], tq.double() @ tv.double().T, float("-inf"))
+    assert_lane_lists_match(got, want, winners, raw_dots=metric == "DOT_PRODUCT",
+                            exact=exact)
+    jout = jscan.pallas_search_block_topk(
+        jv, jsq, jvalid, jnp.asarray(q),
+        metric=JMetric[metric], k=k + 1, tile_n=tile_n, interpret=True, winners=winners,
+    )
+    assert_topk_matches(plain_topk(got, b, k),
+                        tuple(torch.from_numpy(np.array(x)) for x in jout))
 
 
 def topk_mode_model(s, tile_n, k):
@@ -1585,7 +1679,7 @@ def test_l1_reciprocal_matches_the_exact_division_on_the_card():
     assert int(bad.item()) == 0
 
 
-def assert_lane_lists_match(got, want, winners, raw_dots=False):
+def assert_lane_lists_match(got, want, winners, raw_dots=False, exact=None):
     """K3's [B, T, W*128] lists against the plain version's lists of W + 1
     (W where a lane group has only W rows): the same -inf pattern, finite
     scores within rtol/atol 1e-5, ids equal except among scores within 1e-5
@@ -1595,10 +1689,18 @@ def assert_lane_lists_match(got, want, winners, raw_dots=False):
     them (K6, K8 none): within 1e-5 x max(1, max |score|), f32 sums of the
     same products taken in another order; lists of a few rows (384-row
     tiles) hold dots near 0, where two f32 orders differ by more than
-    1e-5."""
+    1e-5. ``exact`` ([B, N] float64 dots of the queries and rows, -inf
+    where invalid: f32 rows under the dot metric) also holds each listed
+    score to its row's float64 dot, within rtol/atol 1e-5 plus the plain
+    version's own largest distance from float64 in the same lists, as K7's
+    f32 dot lists are held (tests/test_torch_merge.py card_lanes): there
+    the plain f32 product lies up to 1.39e-4 (D 768) from float64."""
     ks, ki = (x.cpu().numpy() for x in got)
     ps, pi = (x.cpu().numpy() for x in want)
     b, t = ks.shape[:2]
+    if exact is not None:
+        ex = exact.cpu().numpy()
+        q_of = np.repeat(np.arange(b), t * 128)[:, None]
     ks, ki = (x.reshape(b, t, winners, 128).transpose(0, 1, 3, 2).reshape(-1, winners)
               for x in (ks, ki))
     wp = ps.shape[2] // 128
@@ -1606,6 +1708,12 @@ def assert_lane_lists_match(got, want, winners, raw_dots=False):
     empty = np.isneginf(ps[:, :winners])
     assert np.array_equal(np.isneginf(ks), empty)
     fin = ps[:, :winners][~empty]
+    if exact is not None:
+        dk, dp = ex[q_of, ki][~empty], ex[q_of, pi[:, :winners]][~empty]
+        slack = float(np.abs(fin.astype(np.float64) - dp).max(initial=0.0))
+        err = np.abs(ks[~empty].astype(np.float64) - dk)
+        assert bool((err <= 1e-5 + 1e-5 * np.abs(dk) + slack).all()), (
+            float(err.max(initial=0.0)), slack)
     if raw_dots:
         tol = 1e-5 * max(1.0, float(np.abs(fin).max(initial=0.0)))
         assert float(np.abs(ks[~empty] - fin).max(initial=0.0)) <= tol
@@ -1624,8 +1732,9 @@ def assert_lane_lists_match(got, want, winners, raw_dots=False):
 #: 384-row tiles over 2 query blocks (512 (tile, query block) pairs: a
 #: tensor-core block walks several tiles)
 BLOCK_SHAPES = [(65536, 384, 64, 4096), (8192, 100, 5, 4096), (16384, 768, 70, 4096),
-                (98304, 384, 70, 384)]
-BLOCK_IDS = ["65536x384-B64", "8192x100-B5", "16384x768-B70", "98304x384-B70-t384"]
+                (98304, 384, 70, 384), (8192, 99, 3, 4096)]
+BLOCK_IDS = ["65536x384-B64", "8192x100-B5", "16384x768-B70", "98304x384-B70-t384",
+             "8192x99-B3"]
 
 
 @pytest.mark.cuda
@@ -1633,21 +1742,24 @@ BLOCK_IDS = ["65536x384-B64", "8192x100-B5", "16384x768-B70", "98304x384-B70-t38
 @pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=BLOCK_IDS)
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 def test_block_kernel_matches_plain_on_the_card(dtype, shape, winners):
-    """K3 on every route (f32: scan_block_topw; bf16: scan_block_topw_bf16;
-    int8: scan_block_topw_s8, W 3 where ``block_route`` sends it there):
-    each lane group's lists held against the plain version's, with 5%
-    invalid rows, a lane group with one live row and a tile with none;
-    then the top 16 of the pool."""
+    """K3 on every route of the tensor-core body (f32: scan_block_topw_tf32,
+    3xTF32; bf16: scan_block_topw_bf16; int8: scan_block_topw_s8, W 1-3
+    where ``block_route`` sends them there): each lane group's lists held
+    against the plain version's, with 5% invalid rows, a lane group with
+    one live row and a tile with none; then the top 16 of the pool. D 100
+    and 99 take the plain-load staging (rows TMA refuses; f32 rows load
+    their words from device memory only at D 99) while blocks walk runs of
+    tiles."""
     check_block_kernel(dtype, shape, winners)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", BLOCK_SHAPES[:3], ids=BLOCK_IDS[:3])
-@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 def test_block_kernel_cuda_core_forms_on_the_card(dtype, shape):
-    """bf16 and int8 rows at W 4, past the tensor-core body's lists, run
-    the CUDA-core scan_block_topw's bf16 and int8 forms: held as above."""
-    dt = {"bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    """f32, bf16 and int8 rows at W 4, past the tensor-core body's lists,
+    run the CUDA-core scan_block_topw's three forms: held as above."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
     assert scan.block_route(dt, 4) is scan.SCAN_BLOCK_TOPW
     check_block_kernel(dtype, shape, 4)
 
@@ -1655,7 +1767,7 @@ def test_block_kernel_cuda_core_forms_on_the_card(dtype, shape):
 def check_block_kernel(dtype, shape, winners):
     """K3 on the kernel ``block_route`` names for ``dtype`` and
     ``winners``: launched once a metric, its lists and its pool's top 16
-    held against the plain version's."""
+    held against the plain version's; f32 dot lists also to float64."""
     n, d, b, tile_n = shape
     rows, sq, valid, q = card_inputs(n, d, b)
     valid[3::128] = False
@@ -1672,7 +1784,11 @@ def check_block_kernel(dtype, shape, winners):
         assert kernel.launches == before + 1
         want = scan.block_topw_plain(v, sc, sq, valid, q, metric=m, tile_n=tile_n,
                                      winners=min(winners + 1, tile_n // 128))
-        assert_lane_lists_match(got, want, winners, raw_dots=metric == "DOT_PRODUCT")
+        exact = None
+        if dtype == "f32" and metric == "DOT_PRODUCT":
+            exact = torch.where(valid[None, :], q.double() @ v.double().T, float("-inf"))
+        assert_lane_lists_match(got, want, winners, raw_dots=metric == "DOT_PRODUCT",
+                                exact=exact)
         kw = dict(metric=m, tile_n=tile_n, winners=winners)
         if sc is None:
             top = scan.pallas_search_block_topk(v, sq, valid, q, k=16, **kw)

@@ -1,11 +1,11 @@
 // Lane-group list kernels for Hopper (sm_90a):
 //
 //   scan_block_topw_s8,   (K3) replace vectorlite_tpu/kernels/pallas_scan.py:159
-//   scan_block_topw_bf16  _block_topw_kernel over int8 rows (with their
-//                         scales) and over bf16 rows: each lane group's (row
-//                         mod 128) top W of every tile, on the tensor-core
-//                         body. K3 over f32 rows, or W above 3, stays on the
-//                         CUDA-core body (scan.cu scan_block_topw).
+//   scan_block_topw_bf16, _block_topw_kernel over int8 rows (with their
+//   scan_block_topw_tf32  scales), bf16 rows and f32 rows (3xTF32): each lane
+//                         group's (row mod 128) top W of every tile, on the
+//                         tensor-core body. W above 3 stays on the CUDA-core
+//                         body (scan.cu scan_block_topw).
 //   scan_merge_topw       (K7) replaces vectorlite_tpu/kernels/pallas_merge.py:66
 //                         _merge_kernel: each lane group's top W over the
 //                         whole corpus, over bf16 rows and over f32 rows.
@@ -16,19 +16,21 @@
 // Bounds at their shape (2^20 x 384 rows, B = 256): one bf16 pass is 0.21
 // ms of tensor work, the bf16 rows' 805 MB 0.24 ms at 3.35 TB/s; f32
 // queries against bf16 rows take three bf16 passes, 0.63 ms; against int8
-// rows three int8 passes, 0.31 ms, and the rows are 403 MB (0.12 ms); K7
-// over f32 rows, the exact f32 dot the reference takes, three tf32 passes
-// (3xTF32), 1.25 ms, its rows' 1.61 GB 0.48 ms.
+// rows three int8 passes, 0.31 ms, and the rows are 403 MB (0.12 ms); K3
+// and K7 over f32 rows, the exact f32 dot the reference takes, three tf32
+// passes (3xTF32), 1.25 ms, their rows' 1.61 GB 0.48 ms.
 //
 // The tensor-core body (scan_mma.cuh): the f32 queries split into three
 // bf16 or int8 terms (two tf32 terms against f32 rows, whose words split
 // into hi and lo in registers), wgmma over TMA-staged row tiles, and each
 // thread's (query, lane group) lists in registers, updated on the
 // accumulators chunk after chunk. K3 blocks walk runs of consecutive tiles
-// and write each tile's lists in K3's own [B, T, W*128] layout. K7 over
-// f32 rows is held to the 1e-5 rule (scores within rtol/atol 1e-5, ids
-// equal beyond 1e-5 near-ties), as K1 over f32 rows is on the same
-// 3xTF32 contraction. The TPU kernel of K7 carries
+// and write each tile's lists in K3's own [B, T, W*128] layout. K3 and K7
+// over f32 rows are held to the 1e-5 rule (scores within rtol/atol 1e-5,
+// ids equal beyond 1e-5 near-ties), as K1 over f32 rows is on the same
+// 3xTF32 contraction; their dot lists, which reach dots near 0 in lane
+// groups with few live rows, to float64 (the rule plus the plain f32
+// product's own distance from it). The TPU kernel of K7 carries
 // its per-lane-group state across a sequential grid; here a block owns (64
 // queries, one tile), writes its lists as a partial, and a second pass
 // (merge_partials) merges the partials in tile order. K8 is the same block
@@ -107,6 +109,21 @@ int scan_block_topw_bf16(const void* q_img, const void* qsq, const void* values,
                          void* out_i, int n, int d, int b, int tile_n, int winners,
                          int metric, void* stream) {
   return scan_mma::launch_w<uint16_t, scan_mma::TOPW>(
+      winners, values, q_img, nullptr, static_cast<const float*>(qsq), nullptr,
+      static_cast<const float*>(sqnorms), static_cast<const uint8_t*>(valid),
+      static_cast<float*>(out_s), static_cast<int*>(out_i), n, d, b, tile_n, metric,
+      scan_mma::F_LOW_ROWS | scan_mma::F_QUERY_MAJOR | scan_mma::F_WALK,
+      static_cast<cudaStream_t>(stream));
+}
+
+// K3 over f32 rows on the tensor-core body's 3xTF32 form, with the two
+// tf32 terms q_img (kernels/scan_mma.py query_operand_tf32); the layout of
+// scan_block_topw_s8.
+int scan_block_topw_tf32(const void* q_img, const void* qsq, const void* values,
+                         const void* sqnorms, const void* valid, void* out_s,
+                         void* out_i, int n, int d, int b, int tile_n, int winners,
+                         int metric, void* stream) {
+  return scan_mma::launch_w<float, scan_mma::TOPW>(
       winners, values, q_img, nullptr, static_cast<const float*>(qsq), nullptr,
       static_cast<const float*>(sqnorms), static_cast<const uint8_t*>(valid),
       static_cast<float*>(out_s), static_cast<int*>(out_i), n, d, b, tile_n, metric,

@@ -1,11 +1,11 @@
 // The CUDA-core body of the scan kernels for Hopper (sm_90a), shared by
-// csrc/scan.cu and csrc/lanes.cu. What it still serves: K3 over f32 rows
-// or W above 3 (scan.cu scan_block_topw), and K7's merge pass
-// (lanes.cu merge_partials, which takes lane_insert and the constants
+// csrc/scan.cu and csrc/lanes.cu. What it still serves: K3 at W above 3
+// over any rows (scan.cu scan_block_topw; the index's W is 2), and K7's merge
+// pass (lanes.cu merge_partials, which takes lane_insert and the constants
 // below). The rest runs elsewhere: K1 and K2 on the tensor-core body
 // (scan_mma.cuh; past k 256 its scores into the radix select of
-// csrc/select.cu), K3 over bf16 and int8 rows, K7 (bf16 and f32 rows) and
-// K8 on the tensor-core body too, K4 on the FADD stream of csrc/l1.cu
+// csrc/select.cu), K3 at W 1-3 (bf16, int8 and f32 rows), K7 (bf16 and f32
+// rows) and K8 on the tensor-core body too, K4 on the FADD stream of csrc/l1.cu
 // (past k 32 its scores into the same radix select). A tiled f32
 // contraction of a query block against a corpus tile (FMA dots), the
 // similarity metric, the validity mask, and a per-lane-group top W that

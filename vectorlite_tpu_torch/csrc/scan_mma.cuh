@@ -1,16 +1,17 @@
 // The tensor-core scan body for Hopper (sm_90a): f32 queries against bf16,
 // int8 or f32 rows on wgmma, with a per-(query, lane group) selection that
 // lives on the accumulators, or a per-query top-k (TOPK and WIDE, below).
-// csrc/lanes.cu runs on it K3 over bf16 and int8 rows
-// (scan_block_topw_bf16, scan_block_topw_s8), K7 over bf16 and f32 rows
-// (scan_merge_topw; f32 rows on 3xTF32, below) and K8 (scan_fold_probe);
+// csrc/lanes.cu runs on it K3 over bf16, int8 and f32 rows
+// (scan_block_topw_bf16, scan_block_topw_s8, scan_block_topw_tf32), K7
+// over bf16 and f32 rows (scan_merge_topw; f32 rows on 3xTF32, below) and
+// K8 (scan_fold_probe);
 // csrc/exact.cu K1 over f32 and bf16 rows (scan_topk_exact_tf32,
 // scan_topk_exact_bf16) and K2 (scan_topk_exact_s8) at k <= 32;
 // csrc/wide.cu the same three at 32 < k <= 256 (scan_topk_wide_tf32,
 // _bf16, _s8); csrc/select.cu the scores of the same three past k 256 or
 // tiles of 32,768 rows (SCORES, below; scan_topk_select_tf32, _bf16, _s8,
 // whose radix select lives in select.cuh). The CUDA-core body of
-// scan_kernel.cuh keeps K3 over f32 rows alone; K4 runs on csrc/l1.cu's
+// scan_kernel.cuh keeps K3 at W above 3 alone; K4 runs on csrc/l1.cu's
 // FADD stream (Manhattan has no matrix-product form).
 //
 // Bounds at the headline shape (2^20 x 384 rows, B = 256). bf16 rows: one
@@ -51,7 +52,7 @@
 // terms within +-64) leave s1 2^-15, ~1.4e-5 (rms): above that rule for
 // scores near 0.
 //
-// Precision, f32 rows (3xTF32: K1, K7). The wrapper splits each f32 query into
+// Precision, f32 rows (3xTF32: K1, K3, K7). The wrapper splits each f32 query into
 // two tf32 terms, hi = rna(q) and lo = rna(q - hi) (kernels/scan_mma.py
 // split_query_tf32; rna: round to nearest, ties away, to 10 mantissa bits,
 // the low 13 bits zeroed: what cvt.rna.tf32.f32 gives), and the kernel
@@ -199,13 +200,16 @@
 // A from registers: the rows' split costs no shared-memory traffic, and
 // the tensor cores read only the query terms from shared memory. Over
 // rows TMA refuses (D not a multiple of 4) the words come from device
-// memory instead. TOPW over f32 rows (K7) keeps its lists in registers
-// as over bf16 rows, beside the two accumulator sets, the large term's
-// slice sums (HiLo, below: a lane group with few live rows lists dots near
-// 0, where the tensor cores' truncating accumulation over a chunk's 48-96
-// k-steps would leave them farther from float64 than the plain f32
-// product's) and the A words of a k-step (the registers ptxas reports for
-// W 1-3 stand in PERF.md).
+// memory instead. TOPW over f32 rows (K3 and K7: one instantiation, the
+// flags at run time) keeps its lists in registers as over bf16 rows,
+// beside the two accumulator sets, the large term's slice sums (HiLo,
+// below: a lane group with few live rows lists dots near 0, where the
+// tensor cores' truncating accumulation over a chunk's 48-96 k-steps would
+// leave them farther from float64 than the plain f32 product's) and the A
+// words of a k-step (the registers ptxas reports for W 1-3 stand in
+// PERF.md). K3 walks runs of tiles (F_WALK) with those A words loaded from
+// device memory where TMA refuses the rows, and names the lowest unlisted
+// rows in its empty slots (F_LOW_ROWS), as over bf16 and int8 rows.
 //
 // Numbers: f32 only in the epilogue, IEEE division and sqrt, no fast math;
 // cosine multiplies by the norms' reciprocals (score_of).

@@ -51,7 +51,12 @@ def _neighbor_dists(
     if metric is SimilarityMetric.EUCLIDEAN:
         diff = nvecs - queries[:, None, :]
         return torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=-1), min=0.0))
-    dot = torch.einsum("bd,bmd->bm", queries, nvecs)
+    # a product and a sum over D rather than a batched matrix product: the
+    # sum takes each (query, neighbour) alone, so the mesh beam's parts of
+    # a batch score as the whole batch does (dist/hnsw_mesh.py), where the
+    # card's batched product picked its kernel by the batch (dots up to
+    # 1.5e-5 apart between 256 queries and four parts of 64)
+    dot = torch.sum(nvecs * queries[:, None, :], dim=-1)
     if metric is SimilarityMetric.DOT_PRODUCT:
         return 1000.0 - torch.clamp(dot, -1000.0, 1000.0)
     # cosine: 1 - cos, zero-norm -> 1.0 (clamped: f32 cos can pass 1)

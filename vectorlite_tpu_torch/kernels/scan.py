@@ -23,12 +23,14 @@ reference's names and contracts so the two packages read side by side:
 * ``pallas_search_block_topk`` / ``pallas_search_block_topk_int8`` —
   lane-group top-W candidate selection: kernel K3 keeps, per tile and per
   lane group l (the rows ``l mod 128`` of the tile), the W best rows; a
-  stable sort takes the top k of those. K3 has three routes, chosen by the
+  stable sort takes the top k of those. K3 has four routes, chosen by the
   rows' dtype and W before any launch (``block_route``): int8 rows
   (the default scan copy) on the tensor-core body's int8 form
   (``csrc/lanes.cu`` ``scan_block_topw_s8``: the f32 queries split into
   three int8 terms, exact s32 sums), bf16 rows on its bf16 form
-  (``scan_block_topw_bf16``), f32 rows and W beyond what the body's
+  (``scan_block_topw_bf16``), f32 rows (the ``high-accuracy`` profile's
+  speed path) on its 3xTF32 form (``scan_block_topw_tf32``: two tf32
+  query terms, the rows split in registers), and W beyond what the body's
   registers hold on the CUDA-core body (``csrc/scan.cu``
   ``scan_block_topw``).
 * ``pallas_search_block_topk_rescored`` — K3 selection over a scan copy,
@@ -100,6 +102,10 @@ SCAN_BLOCK_TOPW_S8 = _build.Kernel(
 )
 SCAN_BLOCK_TOPW_BF16 = _build.Kernel(
     "lanes", "scan_block_topw_bf16",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+SCAN_BLOCK_TOPW_TF32 = _build.Kernel(
+    "lanes", "scan_block_topw_tf32",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
 SCAN_TOPK_L1_FADD = _build.Kernel(
@@ -451,16 +457,20 @@ def tile_topk_cuda(
 
 #: the most lists a thread of the tensor-core body keeps for K3, by row
 #: dtype (W scores and a word of ids each, 32 lists, beside the
-#: accumulators: three s32 sets over int8 rows, two f32 sets over bf16)
-MMA_MAX_WINNERS = {torch.int8: 3, torch.bfloat16: 3}
+#: accumulators: three s32 sets over int8 rows, two f32 sets over bf16
+#: rows, two f32 sets and the slice sums over f32 rows)
+MMA_MAX_WINNERS = {torch.int8: 3, torch.bfloat16: 3, torch.float32: 3}
+
+_BLOCK_MMA = {torch.int8: SCAN_BLOCK_TOPW_S8, torch.bfloat16: SCAN_BLOCK_TOPW_BF16,
+              torch.float32: SCAN_BLOCK_TOPW_TF32}
 
 
 def block_route(dtype, winners):
     """The K3 kernel for rows of ``dtype`` and ``winners`` lists: the
-    tensor-core body's int8 or bf16 form up to ``MMA_MAX_WINNERS``, else
-    (f32 rows, larger W) the CUDA-core body."""
+    tensor-core body's int8, bf16 or 3xTF32 form up to
+    ``MMA_MAX_WINNERS``, else (larger W) the CUDA-core body."""
     if winners <= MMA_MAX_WINNERS.get(dtype, 0):
-        return SCAN_BLOCK_TOPW_S8 if dtype == torch.int8 else SCAN_BLOCK_TOPW_BF16
+        return _BLOCK_MMA[dtype]
     return SCAN_BLOCK_TOPW
 
 
@@ -502,8 +512,9 @@ def block_topw_cuda(
                 n, d, b, tile_n, winners, metric_code, _stream(dev),
             )
         return out_s, out_i
-    if kernel is SCAN_BLOCK_TOPW_BF16:
-        q_op = scan_mma.query_operand(queries)
+    if kernel in (SCAN_BLOCK_TOPW_BF16, SCAN_BLOCK_TOPW_TF32):
+        q_op = (scan_mma.query_operand(queries) if kernel is SCAN_BLOCK_TOPW_BF16
+                else scan_mma.query_operand_tf32(queries))
         with torch.cuda.device(dev):
             kernel.launch(
                 q_op.data_ptr(), qsq.data_ptr(), values.data_ptr(), sqnorms.data_ptr(),
