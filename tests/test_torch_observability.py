@@ -79,3 +79,45 @@ def test_filtered_searches_count_in_filter_stats():
     assert after["full_builds"] == before.get("full_builds", 0) + 1
     assert after["cache_hits"] == before.get("cache_hits", 0) + 1
     assert after["incremental_extensions"] == before.get("incremental_extensions", 0) + 1
+
+
+def test_profile_span_enters_no_range_without_a_profiler(monkeypatch):
+    import torch
+
+    entered = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name, *a: entered.append(name) or real(name, *a))
+    for _ in range(3):
+        with tobs.profile_span("vectorlite.test.off"):
+            pass
+    assert entered == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tobs.profile_span("vectorlite.test.on"):
+            pass
+    assert entered == ["vectorlite.test.on"]
+    assert "vectorlite.test.on" in {e.name for e in prof.events()}
+
+
+def test_profile_span_on_another_thread_shows_in_an_all_threads_trace():
+    """The profiler's flag is process-wide: a span opened on a thread the
+    profiler was not started from still enters its range (the profiler
+    built as the benchmark's trace builds it)."""
+    import threading
+
+    import torch
+
+    def work():
+        with tobs.profile_span("vectorlite.test.thread"):
+            torch.ones(2).add_(1)
+
+    cfg = torch.profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                experimental_config=cfg) as prof:
+        with tobs.profile_span("vectorlite.test.main"):
+            worker = threading.Thread(target=work)
+            worker.start()
+            worker.join()
+    threads = {e.name: e.thread for e in prof.events() if e.name.startswith("vectorlite.test.")}
+    assert set(threads) == {"vectorlite.test.main", "vectorlite.test.thread"}
+    assert threads["vectorlite.test.thread"] != threads["vectorlite.test.main"]

@@ -79,6 +79,7 @@ from ..kernels.topk import (
     update_rows,
 )
 from ..native import RESCORE
+from ..observability import profile_span
 from ..utils import env_number
 from .base import validate_batch_arrays
 
@@ -707,20 +708,21 @@ class FlatIndex:
             q64, min(k, avail), metric, approx, mask, mkey
         )
         out: list[list[SearchResult]] = []
-        for row_scores, row_slots in zip(scores, slots):
-            hits = []
-            for s, slot in zip(row_scores, row_slots):
-                if s == -np.inf:
-                    break
-                hits.append(
-                    SearchResult(
-                        id=int(self._ids[slot]),
-                        score=float(s),
-                        text=self._texts[slot] or "",
-                        metadata=self._metas[slot],
+        with profile_span("vectorlite.index.results"):
+            for row_scores, row_slots in zip(scores, slots):
+                hits = []
+                for s, slot in zip(row_scores, row_slots):
+                    if s == -np.inf:
+                        break
+                    hits.append(
+                        SearchResult(
+                            id=int(self._ids[slot]),
+                            score=float(s),
+                            text=self._texts[slot] or "",
+                            metadata=self._metas[slot],
+                        )
                     )
-                )
-            out.append(hits)
+                out.append(hits)
         return out
 
     def search_batch_arrays(
@@ -887,19 +889,20 @@ class FlatIndex:
         the card the copy goes into pinned buffers behind the kernels on
         the current stream (a copy into pageable memory would block), and
         an event marks its end."""
-        scores, slots = out
-        if scores.device.type != "cuda":
-            return lambda: (scores.numpy(), slots.numpy())
-        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out]
-        with torch.cuda.device(scores.device):
-            for h, t in zip(host, out):
-                h.copy_(t, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+        host, done = out, None
+        if out[0].device.type == "cuda":
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out]
+            with torch.cuda.device(out[0].device):
+                for h, t in zip(host, out):
+                    h.copy_(t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
 
         def fetch():
-            done.synchronize()
-            return host[0].numpy(), host[1].numpy()
+            with profile_span("vectorlite.index.fetch"):
+                if done is not None:
+                    done.synchronize()
+                return host[0].numpy(), host[1].numpy()
 
         return fetch
 
@@ -912,41 +915,45 @@ class FlatIndex:
                 return self._host_scan(q64, k_eff, metric)
             return self._host_scan_subset(q64, k_eff, metric, mask)
         scores, slots = self._dispatch_arrays(q64, k_eff, metric, approx, mask, mkey)
-        return self._finalize_device(
-            q64, scores.cpu().numpy()[:b], slots.cpu().numpy()[:b], k_eff, metric
-        )
+        with profile_span("vectorlite.index.fetch"):
+            scores, slots = scores.cpu().numpy()[:b], slots.cpu().numpy()[:b]
+        return self._finalize_device(q64, scores, slots, k_eff, metric)
 
     def _dispatch_arrays(self, q64, k_eff, metric, approx, mask=None, mkey=None):
         """Pad and dispatch one device search: the (scores, slots) tensors
         on the index's device, rows past the batch padding included, without
         waiting for them."""
-        q = q64.astype(np.float32)
-        b = q.shape[0]
-        k_pad = min(
-            self._capacity, max(1, next_pow2(min(k_eff, _MAX_K_BUCKET)))
-        )
-        if k_eff > k_pad:  # k beyond the bucket ceiling: widen
-            k_pad = min(self._capacity, next_pow2(k_eff))
-        b_pad = next_pow2(b)
-        if b_pad > b:
-            q = np.concatenate([q, np.zeros((b_pad - b, self.dim), np.float32)])
-        approx = self._resolve_approx(
-            approx, k_pad, metric, filtered=mask is not None
-        )
-        k_sel = self._selection_k(k_pad)
-        where_dev = self._where_dev(mkey, mask) if mask is not None else None
-        return self._device_topk(q, k_sel, metric, approx, where_dev=where_dev)
+        with profile_span("vectorlite.index.prep"):
+            q = q64.astype(np.float32)
+            b = q.shape[0]
+            k_pad = min(
+                self._capacity, max(1, next_pow2(min(k_eff, _MAX_K_BUCKET)))
+            )
+            if k_eff > k_pad:  # k beyond the bucket ceiling: widen
+                k_pad = min(self._capacity, next_pow2(k_eff))
+            b_pad = next_pow2(b)
+            if b_pad > b:
+                q = np.concatenate([q, np.zeros((b_pad - b, self.dim), np.float32)])
+            approx = self._resolve_approx(
+                approx, k_pad, metric, filtered=mask is not None
+            )
+            k_sel = self._selection_k(k_pad)
+            where_dev = self._where_dev(mkey, mask) if mask is not None else None
+        with profile_span("vectorlite.index.launch"):
+            return self._device_topk(q, k_sel, metric, approx, where_dev=where_dev)
 
     def _finalize_device(self, q64, scores, slots, k_eff, metric):
         """Post-fetch host work: exact re-scoring / clamping and k
         trimming."""
-        if self._needs_rescore():
-            scores, slots = self._exact_rescore(q64, scores, slots, metric)
-        elif metric is SimilarityMetric.COSINE:
-            # f32 device rounding can overshoot 1.0; clamp for consistency
-            # with the exact-rescore path
-            scores = np.minimum(scores, 1.0)
-        return scores[:, :k_eff], slots[:, :k_eff]
+        with profile_span("vectorlite.index.finalize"):
+            if self._needs_rescore():
+                with profile_span("vectorlite.index.rescore"):
+                    scores, slots = self._exact_rescore(q64, scores, slots, metric)
+            elif metric is SimilarityMetric.COSINE:
+                # f32 device rounding can overshoot 1.0; clamp for
+                # consistency with the exact-rescore path
+                scores = np.minimum(scores, 1.0)
+            return scores[:, :k_eff], slots[:, :k_eff]
 
     def _pack_arrays(self, scores, slots, k, k_eff):
         ids = self._ids[slots].astype(np.int64)

@@ -271,7 +271,8 @@ class Collection:
         """Search by RAW query vectors, batched (extension; the reference
         exposes ``VectorIndex::search`` only at the library level,
         reference: src/lib.rs:293-298)."""
-        queries = _as_matrix(queries, self._index.dimension, "queries")
+        with profile_span("vectorlite.sdk.validate"):
+            queries = _as_matrix(queries, self._index.dimension, "queries")
         with self._lock.read(), profile_span("vectorlite.index.search_batch"):
             rows = self._index.search_batch(
                 queries, k, metric, **self._search_kwargs(where, ef)
