@@ -13,6 +13,7 @@ import torch
 from vectorlite_tpu.core.metrics import SimilarityMetric as JMetric
 from vectorlite_tpu.index.flat import FlatIndex as JFlat
 from vectorlite_tpu_torch.core.metrics import SimilarityMetric
+from vectorlite_tpu_torch.core.types import SearchResult
 from vectorlite_tpu_torch.index import flat as tflat
 from vectorlite_tpu_torch.index.flat import FlatIndex
 
@@ -289,3 +290,112 @@ def test_kernel_regime_deep_lists_match_f64_truth(corpus, profile, k, pool, kern
         assert gaps.min() <= 1e-5
     if profile != "f32":
         np.testing.assert_allclose(s, t_s, rtol=1e-12, atol=1e-12)
+
+
+def per_hit_results(index, scores, slots):
+    """The result build as ``search_batch`` once ran it: one numpy scalar
+    at a time, each row cut at its first ``-inf``."""
+    out = []
+    for row_scores, row_slots in zip(scores, slots):
+        hits = []
+        for s, slot in zip(row_scores, row_slots):
+            if s == -np.inf:
+                break
+            hits.append(
+                SearchResult(
+                    id=int(index._ids[slot]),
+                    score=float(s),
+                    text=index._texts[slot] or "",
+                    metadata=index._metas[slot],
+                )
+            )
+        out.append(hits)
+    return out
+
+
+def parity_index(n, *, deleted=0, compact=False, empty=False):
+    """``n`` rows of 16-d; every third row has no text, every fifth no
+    metadata, the rest a dict ({"rare": True} on three rows); ``deleted``
+    rows deleted (their slots' text and metadata are None), then maybe
+    compacted."""
+    index = FlatIndex(16, device="cpu")
+    if empty:
+        return index, np.random.default_rng(3).normal(size=(4, 16))
+    rng = np.random.default_rng(n + deleted)
+    rows = rng.normal(size=(n, 16))
+    ids = [7 * i + 2**40 for i in range(n)]
+    index.add_batch_arrays(
+        ids, rows,
+        texts=[None if i % 3 == 0 else f"t{i}" for i in range(n)],
+        metadatas=[None if i % 5 == 0 else {"g": i % 4, "rare": i in (6, 13, 21)}
+                   for i in range(n)],
+    )
+    for vid in rng.choice(ids, deleted, replace=False).tolist():
+        index.delete(vid)
+    if compact:
+        index.compact()
+    # queries: corpus rows (cosine scores reach 1, so the clamp acts) and others
+    return index, np.concatenate([rows[:8], rng.normal(size=(8, 16))])
+
+
+PARITY_CASES = {
+    "b1000_k10": (dict(n=2048), 1000, 10, {}),
+    "b1": (dict(n=2048), 1, 10, {}),
+    "k_past_live_padded": (dict(n=24), 16, 40, {"pad": True}),
+    "where_fewer_than_k": (dict(n=512), 16, 10, {"where": {"rare": True}}),
+    "where_fewer_than_k_b1": (dict(n=512), 1, 10, {"where": {"rare": True}}),
+    "deleted": (dict(n=1024, deleted=200), 64, 10, {}),
+    "compacted": (dict(n=2048, deleted=1500, compact=True), 64, 10, {}),
+    "k0": (dict(n=64), 8, 0, {}),
+    "empty": (dict(n=0, empty=True), 4, 10, {}),
+}
+
+
+@pytest.mark.parametrize("metric", ["COSINE", "EUCLIDEAN"])
+@pytest.mark.parametrize("case", list(PARITY_CASES))
+def test_result_build_matches_the_per_hit_loop(case, metric, monkeypatch):
+    """``search_batch`` builds the same hit lists as the per-hit loop over
+    the (scores, slots) it searched: ids and scores equal and of the
+    Python types, texts equal, each metadata the same object. With
+    ``pad`` the arrays gain ``-inf`` columns (slots out of range, never
+    read), row i loses its last i % 5 hits to ``-inf``, and every
+    seventh row gets one ``-inf`` at position 2 with finite scores after
+    it, which the loop's ``break`` cuts at 2."""
+    build_kw, b, k, opts = PARITY_CASES[case]
+    index, queries = parity_index(**build_kw)
+    queries = np.resize(queries, (b, 16)) * (1 + np.arange(b) % 7)[:, None]
+    seen = []
+    searched = index._search_slots
+
+    def spy(*a, **kw):
+        scores, slots = searched(*a, **kw)
+        if opts.get("pad"):
+            scores = np.pad(scores, ((0, 0), (0, 16)), constant_values=-np.inf)
+            slots = np.pad(slots, ((0, 0), (0, 16)), constant_values=2**31 - 1)
+            for i in range(len(scores)):
+                scores[i, scores.shape[1] - 16 - i % 5 :] = -np.inf
+                if i % 7 == 6:
+                    scores[i, 2] = -np.inf
+        seen.append((scores, slots))
+        return scores, slots
+
+    monkeypatch.setattr(index, "_search_slots", spy)
+    got = index.search_batch(queries, k, SimilarityMetric[metric],
+                             where=opts.get("where"))
+    if k == 0 or index._count == 0:
+        assert seen == [] and got == [[] for _ in range(b)]
+        return
+    (scores, slots), = seen
+    want = per_hit_results(index, scores, slots)
+    assert [len(row) for row in got] == [len(row) for row in want]
+    assert sum(map(len, want)) > 0
+    if opts.get("pad"):
+        assert {len(row) for row in want} == {2, 20, 21, 22, 23, 24}
+    if "where" in opts:
+        assert all(len(row) == 3 for row in want)
+    for g_row, w_row in zip(got, want):
+        for g, w in zip(g_row, w_row):
+            assert type(g) is SearchResult
+            assert type(g.id) is int and type(g.score) is float
+            assert g.id == w.id and g.score == w.score and g.text == w.text
+            assert g.metadata is w.metadata

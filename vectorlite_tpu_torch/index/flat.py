@@ -707,22 +707,31 @@ class FlatIndex:
         scores, slots = self._search_slots(
             q64, min(k, avail), metric, approx, mask, mkey
         )
-        out: list[list[SearchResult]] = []
         with profile_span("vectorlite.index.results"):
-            for row_scores, row_slots in zip(scores, slots):
-                hits = []
-                for s, slot in zip(row_scores, row_slots):
-                    if s == -np.inf:
-                        break
-                    hits.append(
-                        SearchResult(
-                            id=int(self._ids[slot]),
-                            score=float(s),
-                            text=self._texts[slot] or "",
-                            metadata=self._metas[slot],
-                        )
-                    )
-                out.append(hits)
+            return self._hit_lists(scores, slots)
+
+    def _hit_lists(self, scores, slots) -> list[list[SearchResult]]:
+        """One list of ``SearchResult``s a row of [B, k] (scores, slots):
+        the row's hits before its first ``-inf``. The kept scores, slots
+        and ids are each converted to Python values once, flat, and the
+        objects are built by ``map``; of the objects made here only the B
+        hit lists and their results outlive the call."""
+        keep = np.logical_and.accumulate(scores != -np.inf, axis=1)
+        live = slots[keep]
+        texts, metas = self._texts, self._metas
+        ids = self._ids[live].tolist()
+        live = live.tolist()
+        hits = list(map(
+            SearchResult,
+            ids,
+            scores[keep].tolist(),
+            [texts[q] or "" for q in live],
+            map(metas.__getitem__, live),
+        ))
+        out, at = [], 0
+        for n in keep.sum(axis=1).tolist():
+            out.append(hits[at : at + n])
+            at += n
         return out
 
     def search_batch_arrays(
